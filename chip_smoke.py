@@ -1,0 +1,606 @@
+#!/usr/bin/env python3
+"""Check on one NVIDIA GPU that the PyTorch/CUDA port builds, runs and is right.
+
+    python3 chip_smoke.py
+
+Run it from the root of a checkout. It needs one CUDA card, builds the
+stitch kernels from ``resdepth_tpu_torch/csrc`` with nvcc and imports no JAX.
+It drives the port's main path, full-scene refinement with the flagship
+ResDepth-stereo model (random weights from a seed), through the inference
+CLI ``python -m resdepth_tpu_torch.predict``. Phases, each printing what it
+found:
+
+  1. device: the card, its power limit, the torch and CUDA versions;
+  2. build: nvcc builds the kernels and the library loads;
+  3. kernels: K1 and K2 against the plain stitch at the main path's shape
+     (a batch of 128 tiles of 256 px on a 4096x4096 canvas), with times;
+  4. flagship: a seeded 4096x4096 geom-stereo scene (961 tiles) refined by
+     the CLI with K1 and with K2, in float32 (TF32 off) and in bfloat16;
+     the outputs exist and are finite, the launch counters show that every
+     stitch went through the kernels, and the K1 and K2 scenes agree;
+  5. card against CPU: a 512x512 crop refined on the card (K2, whose sum
+     order is the plain stitch's) and on the CPU, within 1e-4 m.
+
+Any failure raises and the script exits non-zero. Without CUDA, or outside a
+checkout of the repository, it exits non-zero before printing a result. The
+scene and the CLI's outputs go to ``build/chip_smoke/`` and are removed at
+the end of a passing run. The last three lines of standard output are the
+kernels' JSON record, the card's name and power limit as ``nvidia-smi``
+prints them, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK_DIR = os.path.join(REPO, "build", "chip_smoke")
+
+SCENE_SIZE = 4096
+CROP_SIZE = 512
+TILE = 256
+BATCH = 128
+DSM_STD = 5.0
+SEED = 0
+
+# The TPU kernels the CUDA kernels replace (functions reaching pl.pallas_call).
+KERNELS = {
+    "k1": ("stitch_k1", "resdepth_tpu/ops/pallas_stitch.py:114"),
+    "k2": ("stitch_k2", "resdepth_tpu/ops/pallas_stitch.py:213"),
+}
+KERNEL_SOURCE = "resdepth_tpu_torch/csrc/stitch.cu"
+
+
+def log(phase: str, message: str) -> None:
+    print(f"[chip_smoke] {phase}: {message}", flush=True)
+
+
+# ------------------------- scene and model artifacts ------------------------- #
+
+def write_scene(out_dir: str, rows: int, cols: int, seed: int = SEED) -> dict:
+    """A seeded synthetic city (ground truth, noisy initial DSM, two
+    hillshade ortho views, building and water masks) as uncompressed
+    GeoTIFFs plus the image and pair lists. Returns the paths and the
+    orthos' mean and standard deviation (the image normalisation)."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_demo_data import GSD, NODATA, hillshade, synth_city
+
+    from resdepth_tpu.geo import tiff
+
+    os.makedirs(out_dir, exist_ok=True)
+    geotransform = (465000.0, GSD, 0.0, 5247000.0, 0.0, -GSD)
+    gt, dsm, building, water = synth_city(rows, cols, seed=seed)
+    orthos = [hillshade(gt, azimuth) for azimuth in (315, 135)]
+
+    def write(name, data, nodata=NODATA):
+        path = os.path.join(out_dir, name)
+        tiff.write(path, data, geotransform=geotransform, nodata=nodata,
+                   compress="none")
+        return path
+
+    paths = {"raster_gt": write("ground_truth_DSM.tif", gt),
+             "raster_in": write("initial_DSM.tif", dsm),
+             "mask_building": write("mask_building.tif", building, nodata=255),
+             "mask_water": write("mask_water.tif", water, nodata=255)}
+    images = [write(f"ortho_{i}.tif", ortho) for i, ortho in enumerate(orthos)]
+    paths["path_image_list"] = os.path.join(out_dir, "imagelist.txt")
+    with open(paths["path_image_list"], "w") as f:
+        f.write("\n".join(images) + "\n")
+    paths["path_pairlist"] = os.path.join(out_dir, "pairlist.txt")
+    with open(paths["path_pairlist"], "w") as f:
+        f.write("ortho_0, ortho_1\n")
+    stacked = np.stack(orthos)
+    return {"paths": paths, "image_mean": float(stacked.mean()),
+            "image_std": float(stacked.std())}
+
+
+def random_model(config, seed: int = SEED):
+    """A UNet with seeded random weights and random BatchNorm statistics and
+    affines, so that folding BatchNorm has work to do."""
+    from torch import nn
+
+    from resdepth_tpu_torch.models.unet import init_unet
+
+    generator = torch.Generator().manual_seed(seed)
+    model = init_unet(config, generator)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, nn.BatchNorm2d):
+                module.weight.uniform_(0.5, 1.5, generator=generator)
+                module.bias.normal_(0.0, 0.1, generator=generator)
+                module.running_mean.normal_(0.0, 0.1, generator=generator)
+                module.running_var.uniform_(0.5, 2.0, generator=generator)
+    return model
+
+
+def write_model_artifacts(out_dir: str, config, input_channels: str,
+                          image_mean: float, image_std: float,
+                          seed: int = SEED) -> dict:
+    """The three artifacts an inference config names: a reference-layout
+    ``.pth`` checkpoint, ``model_config.json`` and the normalisation
+    pickles, as ``train.py`` writes them."""
+    from resdepth_tpu.data import control_files
+
+    os.makedirs(out_dir, exist_ok=True)
+    weights = os.path.join(out_dir, "Model_best.pth")
+    torch.save({"epoch": 0,
+                "model_state_dict": random_model(config, seed).state_dict()},
+               weights)
+    architecture = os.path.join(out_dir, "model_config.json")
+    with open(architecture, "w") as f:
+        json.dump({"name": "ResDepth", "input_channels": input_channels,
+                   "settings": dataclasses.asdict(config)}, f, indent=2)
+    geom = os.path.join(out_dir, "DSM_normalization_parameters.p")
+    control_files.write_normalization_params_to_file(geom, None, DSM_STD)
+    image = os.path.join(out_dir, "Image_normalization_parameters.p")
+    control_files.write_normalization_params_to_file(image, image_mean, image_std)
+    return {"weights": weights, "architecture": architecture,
+            "normalization_geom": geom, "normalization_image": image}
+
+
+def write_config(path: str, scene_paths: dict, model: dict, out_dir: str,
+                 **general) -> str:
+    """An inference config over the whole scene ('entire' allocation)."""
+    dataset = dict(name="smoke_city", allocation_strategy="entire", **scene_paths)
+    with open(path, "w") as f:
+        json.dump({"datasets": [dataset], "model": model, "general": general,
+                   "output": {"directory": out_dir}}, f, indent=2)
+    return path
+
+
+def run_cli(config_path: str, device: str) -> float:
+    """Run the inference CLI, ``python -m resdepth_tpu_torch.predict config
+    --device DEVICE``, through its entry point in this process (so that the
+    kernels' launch counters are visible here); returns the wall time in
+    seconds."""
+    from resdepth_tpu_torch import predict
+
+    start = time.perf_counter()
+    predict.main([config_path, "--device", device])
+    return time.perf_counter() - start
+
+
+def output_paths(out_dir: str) -> dict:
+    pair_dir = os.path.join(out_dir, "smoke_city", "Stereopair_0_1")
+    return {"prediction": os.path.join(pair_dir, "initial_DSM_prediction.tif"),
+            "statistics": os.path.join(pair_dir,
+                                       "initial_DSM_prediction_statistics.txt")}
+
+
+# --------------------------------- helpers ---------------------------------- #
+
+def ulps(reference: np.ndarray, n: int = 2) -> float:
+    """``n`` f32 ulps at the largest magnitude of ``reference``."""
+    return n * float(np.spacing(np.float32(np.abs(reference).max())))
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms, from CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nvidia_smi_line() -> str:
+    result = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return result.stdout.strip().splitlines()[0].strip()
+
+
+# --------------------------------- phases ----------------------------------- #
+
+def phase_device() -> dict:
+    smi = nvidia_smi_line()
+    info = {"kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi": smi}
+    log("device", f"{info['kind']} x{info['count']}; nvidia-smi: {smi}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}")
+    return info
+
+
+def phase_build() -> float:
+    from resdepth_tpu_torch.ops import build, stitch
+
+    start = time.perf_counter()
+    lib = stitch._library()
+    seconds = time.perf_counter() - start
+    if not hasattr(lib, "stitch_k1") or not hasattr(lib, "stitch_k2"):
+        raise RuntimeError("the stitch library lacks its entry points")
+    log("build", f"csrc/stitch.cu -> {os.path.relpath(build.library_path('stitch'), REPO)} "
+        f"in {seconds:.2f} s (nvcc {build.BUILD_SECONDS['stitch']:.2f} s); "
+        f"flags {' '.join(build.NVCC_FLAGS)}")
+    return seconds
+
+
+def stitch_batches(size: int = SCENE_SIZE, tile: int = TILE,
+                   batch: int = BATCH, seed: int = SEED):
+    """The first two batches of the main path's grid (stride tile/2) with
+    random normalised tiles, per-tile means near 420 m and the blend
+    weights of ``ops.blend``; the second batch overlaps the first."""
+    from resdepth_tpu.geo.grid import create_regular_grid, positions_as_array
+    from resdepth_tpu.ops import blend
+    from resdepth_tpu_torch.ops.stitch import batch_bounds
+
+    area = {"x_extent": [(0, size - 1)], "y_extent": [(0, size - 1)]}
+    positions, borders = create_regular_grid(area, tile, tile // 2)
+    positions = positions_as_array(positions)
+    wy, wx = blend.weight_table(tile, tile // 2, borders)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for first in (0, batch):
+        sl = slice(first, first + batch)
+        batches.append({
+            "tiles": torch.from_numpy(
+                rng.standard_normal((batch, tile, tile), np.float32)),
+            "positions": torch.from_numpy(positions[sl]),
+            "wy": torch.from_numpy(wy[sl]), "wx": torch.from_numpy(wx[sl]),
+            "means": torch.from_numpy(rng.normal(420.0, 5.0, batch).astype(np.float32)),
+            "bounds": batch_bounds(positions[sl], tile)})
+    return batches
+
+
+def phase_kernels() -> dict:
+    """K1 and K2 against the plain stitch on the CPU, K2 run to run, and
+    CUDA-event times of K1, K2 and the plain stitch on the card."""
+    from resdepth_tpu_torch.ops import stitch
+
+    device = torch.device("cuda", 0)
+    first, second = stitch_batches()
+
+    def args(batch, dev):
+        return [batch[k].to(dev) for k in ("tiles", "positions", "wy", "wx", "means")]
+
+    canvas = torch.zeros((SCENE_SIZE, SCENE_SIZE), dtype=torch.float32)
+    stitch.stitch_tiles_plain(canvas, *args(first, "cpu"), DSM_STD)
+    want = stitch.stitch_tiles_plain(canvas.clone(), *args(second, "cpu"),
+                                     DSM_STD).numpy()
+    tol = ulps(want)
+    on_card = args(second, device)
+
+    def run(use_pallas):
+        out = canvas.to(device)
+        stitch.stitch_tiles(out, *on_card, DSM_STD, use_pallas=use_pallas,
+                            bounds=second["bounds"])
+        torch.cuda.synchronize()
+        return out.cpu().numpy()
+
+    k1 = run(True)
+    k2, k2_again = run("fused"), run("fused")
+    result = {}
+    for key, got in (("k1", k1), ("k2", k2)):
+        err = float(np.abs(got - want).max())
+        if not err <= tol:
+            raise AssertionError(f"{key} differs from the plain stitch by {err} m "
+                                 f"(tolerance 2 ulps = {tol} m)")
+        result[key] = {"max_abs_err": err,
+                       "bitwise_plain": bool(np.array_equal(got, want))}
+    if not np.array_equal(k2, k2_again):
+        raise AssertionError("K2 is not bitwise reproducible run to run")
+    if not result["k2"]["bitwise_plain"]:
+        raise AssertionError("K2 does not keep the plain stitch's batch order")
+
+    scratch = canvas.to(device)
+    timers = {
+        "plain": lambda: stitch.stitch_tiles_plain(scratch, *on_card, DSM_STD),
+        "k1": lambda: stitch.stitch_tiles(scratch, *on_card, DSM_STD, use_pallas=True),
+        "k2": lambda: stitch.stitch_tiles(scratch, *on_card, DSM_STD,
+                                          use_pallas="fused", bounds=second["bounds"]),
+    }
+    times = {name: [] for name in timers}
+    for order in (("plain", "k1", "k2"), ("k2", "k1", "plain")):
+        for name in order:
+            times[name].append(cuda_ms(timers[name]))
+    plain_ms = float(np.mean(times["plain"]))
+    for key in ("k1", "k2"):
+        result[key].update(ms=float(np.mean(times[key])), plain_ms=plain_ms)
+    spread = "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
+                       for k, v in times.items())
+    log("kernels", f"B={BATCH} T={TILE} canvas {SCENE_SIZE}^2 at heights "
+        f"{float(np.abs(want).max()):.1f} m: 2-ulp tolerance {tol:.3g} m; "
+        + "; ".join(f"{k.upper()} max err {r['max_abs_err']:.3g} m "
+                    f"(bitwise equal to plain: {r['bitwise_plain']}), "
+                    f"{r['ms']:.4f} ms" for k, r in result.items())
+        + f"; K2 bitwise reproducible: True; plain on CUDA {plain_ms:.4f} ms "
+        f"(CUDA events, mean of 2x20 launches; the two means: {spread})")
+    return result
+
+
+def _check_outputs(out_dir: str, shape) -> np.ndarray:
+    from resdepth_tpu.geo.raster import open_raster
+
+    paths = output_paths(out_dir)
+    for path in paths.values():
+        if not os.path.exists(path):
+            raise AssertionError(f"the CLI did not write {path}")
+    prediction = open_raster(paths["prediction"]).band(1)
+    if prediction.shape != tuple(shape):
+        raise AssertionError(f"prediction of shape {prediction.shape}, "
+                             f"expected {tuple(shape)}")
+    if not (np.isfinite(prediction).all() and (prediction != -9999).all()):
+        raise AssertionError("the refined scene has non-finite or nodata pixels")
+    return prediction
+
+
+def phase_flagship(work: str, scene: dict, model: dict) -> dict:
+    """Four CLI runs over the 4096^2 scene: K1 and K2 in float32 and in
+    bfloat16. The launch counters are zeroed just before the runs and read
+    just after them."""
+    from resdepth_tpu_torch.ops import stitch
+
+    n_tiles = ((SCENE_SIZE - TILE) // (TILE // 2) + 1) ** 2
+    n_batches = -(-n_tiles // BATCH)
+    runs = [("float32", None), ("float32", "fused"),
+            ("bfloat16", None), ("bfloat16", "fused")]
+    predictions, walls = {}, {}
+    for key in stitch.LAUNCHES:
+        stitch.LAUNCHES[key] = 0
+    for dtype, use_pallas in runs:
+        name = f"{dtype}-{'k2' if use_pallas else 'k1'}"
+        out_dir = os.path.join(work, "eval", name)
+        general = {"tile_size": TILE, "batch_size": BATCH, "compute_dtype": dtype}
+        if use_pallas is not None:
+            general["use_pallas"] = use_pallas
+        config = write_config(os.path.join(work, f"config_{name}.json"),
+                              scene["paths"], model, out_dir, **general)
+        if not walls:
+            with _timed_steps() as steps:
+                walls[name] = run_cli(config, "cuda")
+        else:
+            walls[name] = run_cli(config, "cuda")
+        if dtype == "float32" and (torch.backends.cudnn.allow_tf32
+                                   or torch.backends.cuda.matmul.allow_tf32):
+            raise AssertionError("TF32 is on after a float32 run")
+        predictions[name] = _check_outputs(out_dir, (SCENE_SIZE, SCENE_SIZE))
+    launches = dict(stitch.LAUNCHES)
+    if launches != {"k1": 2 * n_batches, "k2": 2 * n_batches}:
+        raise AssertionError(f"launch counters {launches}, expected "
+                             f"{2 * n_batches} each ({n_batches} batches a run)")
+    agreement = {}
+    for dtype in ("float32", "bfloat16"):
+        a, b = predictions[f"{dtype}-k1"], predictions[f"{dtype}-k2"]
+        err, tol = float(np.abs(a - b).max()), ulps(a)
+        if not err <= tol:
+            raise AssertionError(f"{dtype}: K1 and K2 scenes differ by {err} m "
+                                 f"(tolerance 2 ulps = {tol} m)")
+        agreement[dtype] = err
+    bf16_dev = predictions["bfloat16-k1"] - predictions["float32-k1"]
+    log("flagship", f"{n_tiles} tiles, {n_batches} batches of {BATCH} a run; "
+        + "; ".join(f"{name} CLI wall {wall:.2f} s ({n_tiles / wall:.1f} tiles/s)"
+                    for name, wall in walls.items())
+        + f"; TF32 off in float32: True; launches {launches}; "
+        f"K1 vs K2 max diff float32 {agreement['float32']:.3g} m, bfloat16 "
+        f"{agreement['bfloat16']:.3g} m; bfloat16 vs float32 mean |dev| "
+        f"{float(np.abs(bf16_dev).mean()):.4g} m, max {float(np.abs(bf16_dev).max()):.4g} m")
+    log("flagship", f"where the float32-k1 CLI run's {walls['float32-k1']:.2f} s "
+        "went (host clock, s): " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items()))
+    return {"launches": launches, "walls": walls}
+
+
+# The CLI's steps whose wall time phase 4 reports for its first run: the
+# names ``resdepth_tpu_torch.predict`` calls them by. ``_to_numpy`` is the
+# fetch that waits for the device.
+TIMED_STEPS = ("TileDataset", "serving_model", "device_put_dataset",
+               "predict_linear_blend", "_to_numpy", "evaluate_performance")
+
+
+@contextlib.contextmanager
+def _timed_steps():
+    """Wrap the CLI's steps (and ``write_raster``) with host-clock timers
+    while the block runs; yields the seconds summed per step."""
+    from resdepth_tpu.geo import raster as raster_mod
+    from resdepth_tpu_torch import predict
+
+    seconds = {}
+    targets = [(predict, name) for name in TIMED_STEPS]
+    targets.append((raster_mod, "write_raster"))
+    originals = [getattr(module, name) for module, name in targets]
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - start
+        return wrapper
+
+    for (module, name), fn in zip(targets, originals):
+        setattr(module, name, timed(name, fn))
+    try:
+        yield seconds
+    finally:
+        for (module, name), fn in zip(targets, originals):
+            setattr(module, name, fn)
+
+
+def _tile_dataset(paths: dict, size: int, image_mean: float, image_std: float,
+                  tile: int = TILE, stride: int | None = None):
+    """The 'test'-strategy TileDataset the CLI builds for the whole scene."""
+    from resdepth_tpu.data import control_files
+    from resdepth_tpu.data.dataset import TileDataset
+
+    entry = {"raster_in": paths["raster_in"],
+             "image_list": control_files.read_imagelist_from_file(
+                 paths["path_image_list"]),
+             "image_pairs": [(0, 1)],
+             "area_defn": {"x_extent": [(0, size - 1)], "y_extent": [(0, size - 1)]}}
+    return TileDataset(entry, input_channels="geom-stereo", tile_size=tile,
+                       sampling_strategy="test", stride=stride, dsm_std=DSM_STD,
+                       ortho_mean=image_mean, ortho_std=image_std)
+
+
+def phase_steady(scene: dict, model_path: str) -> dict:
+    """Scene time of ``predict_linear_blend`` with the model served and the
+    rasters on the card (no file I/O, no evaluation), and the UNet forward
+    of one batch against one K1 stitch, in float32 and bfloat16."""
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import build_batch, device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import (_inference_spec,
+                                                predict_linear_blend,
+                                                serving_model)
+    from resdepth_tpu_torch.models import weights
+    from resdepth_tpu_torch.models.unet import UNet, apply_unet, flagship_config
+
+    device = torch.device("cuda", 0)
+    ds = _tile_dataset(scene["paths"], SCENE_SIZE, scene["image_mean"],
+                       scene["image_std"])
+    rasters = device_put_dataset(ds, device)
+    config = flagship_config("geom-stereo")
+    base = UNet(config)
+    base.load_state_dict(weights.load_state_dict(model_path, config))
+    spec = _inference_spec(ds)
+    batch = build_batch(rasters, torch.from_numpy(ds.positions[:BATCH]).to(device),
+                        torch.from_numpy(ds.pair_indices[:BATCH]).to(device), spec)
+    result = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = predict.select_compute_dtype(dtype_name, device)
+        served = serving_model(base, device, dtype)
+
+        def scene_run():
+            return predict_linear_blend(served, ds, device=device,
+                                        batch_size=BATCH, compute_dtype=dtype,
+                                        rasters=rasters, fold_bn=False,
+                                        as_numpy=False)
+
+        scene_run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        walls = []
+        for _ in range(3):
+            start = time.perf_counter()
+            scene_run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        x = batch["input"].to(dtype)
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: apply_unet(served, x), iters=5, warmup=2)
+        result[dtype_name] = {
+            "scene_s": float(np.median(walls)), "walls": walls,
+            "tiles_per_s": len(ds.positions) / float(np.median(walls)),
+            "forward_ms": forward_ms,
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+    log("steady", "predict_linear_blend on the card, rasters resident, median "
+        "of 3 after a warm-up: " + "; ".join(
+            f"{k} scene {r['scene_s']:.3f} s ({r['tiles_per_s']:.1f} tiles/s; "
+            f"runs {', '.join(f'{w:.3f}' for w in r['walls'])} s), "
+            f"UNet forward {r['forward_ms']:.2f} ms per batch of {BATCH}, "
+            f"peak {r['peak_gib']:.2f} GiB" for k, r in result.items()))
+    return result
+
+
+def phase_crop(work: str, scene: dict, model_path: str) -> float:
+    """The f32 refined scene of a 512x512 crop on the card (TF32 off) against
+    the port's CPU path (plain stitch)."""
+    from resdepth_tpu.geo import raster as raster_mod
+    from resdepth_tpu.geo import tiff
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.infer.tiled import predict_linear_blend
+    from resdepth_tpu_torch.models import weights
+    from resdepth_tpu_torch.models.unet import UNet, flagship_config
+
+    crop_dir = os.path.join(work, "crop")
+    os.makedirs(crop_dir, exist_ok=True)
+    paths = dict(scene["paths"])
+    images = []
+    with open(paths["path_image_list"]) as f:
+        sources = [line.strip() for line in f if line.strip()]
+    for source in [paths["raster_in"]] + sources:
+        src = raster_mod.open_raster(source)
+        path = os.path.join(crop_dir, os.path.basename(source))
+        tiff.write(path, src.band(1)[:CROP_SIZE, :CROP_SIZE],
+                   geotransform=src.geotransform, nodata=src.nodata,
+                   compress="none")
+        images.append(path)
+    paths["raster_in"] = images[0]
+    paths["path_image_list"] = os.path.join(crop_dir, "imagelist.txt")
+    with open(paths["path_image_list"], "w") as f:
+        f.write("\n".join(images[1:]) + "\n")
+    ds = _tile_dataset(paths, CROP_SIZE, scene["image_mean"], scene["image_std"])
+
+    config = flagship_config("geom-stereo")
+    model = UNet(config)
+    model.load_state_dict(weights.load_state_dict(model_path, config))
+    outputs = {}
+    for name, device, use_pallas in (("cpu", torch.device("cpu"), None),
+                                     ("k2", torch.device("cuda", 0), "fused"),
+                                     ("k1", torch.device("cuda", 0), None)):
+        dtype = predict.select_compute_dtype("float32", device)
+        outputs[name] = predict_linear_blend(model, ds, device=device,
+                                             batch_size=BATCH, compute_dtype=dtype,
+                                             use_pallas=use_pallas)
+    # K2 sums each pixel in the plain stitch's order, so its difference is
+    # the UNet's alone (cuDNN against the CPU's convs); K1's atomics may add
+    # up to 2 more ulps on top, so it is reported, not held to the bar.
+    errs = {k: float(np.abs(outputs[k] - outputs["cpu"]).max()) for k in ("k2", "k1")}
+    if not (np.isfinite(outputs["k2"]).all() and errs["k2"] <= 1e-4):
+        raise AssertionError(f"card (K2) and CPU differ by {errs['k2']} m on "
+                             "the crop (tolerance 1e-4 m)")
+    log("crop", f"{CROP_SIZE}^2 crop, {len(ds.positions)} tiles, float32 with "
+        f"TF32 off: card (K2) vs CPU (plain stitch) max |diff| {errs['k2']:.3g} m "
+        f"(tolerance 1e-4 m); card with K1: {errs['k1']:.3g} m")
+    return errs["k2"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this check needs one GPU",
+              file=sys.stderr)
+        return 1
+    import resdepth_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from resdepth_tpu_torch.models.unet import flagship_config
+
+    device = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    start = time.perf_counter()
+    scene = write_scene(os.path.join(WORK_DIR, "scene"), SCENE_SIZE, SCENE_SIZE)
+    model = write_model_artifacts(os.path.join(WORK_DIR, "model"),
+                                  flagship_config("geom-stereo"), "geom-stereo",
+                                  scene["image_mean"], scene["image_std"])
+    log("setup", f"seeded {SCENE_SIZE}^2 geom-stereo scene and flagship "
+        f"artifacts written in {time.perf_counter() - start:.1f} s")
+    flagship = phase_flagship(WORK_DIR, scene, model)
+    phase_steady(scene, model["weights"])
+    phase_crop(WORK_DIR, scene, model["weights"])
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+
+    record = {"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": replaces, "launches": flagship["launches"][key],
+         "max_abs_err": kernels[key]["max_abs_err"], "ms": kernels[key]["ms"],
+         "plain_ms": kernels[key]["plain_ms"]}
+        for key, (name, replaces) in KERNELS.items()]}
+    print(json.dumps(record))
+    print(device["nvidia_smi"])
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": device["kind"],
+                                             "count": device["count"]}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,222 @@
+"""The port's whole slice on the CPU: full-scene refinement against JAX,
+the inference CLI against the committed goldens, and the import boundary.
+
+* ``predict_linear_blend(device="cpu")`` against the JAX
+  ``predict_linear_blend(use_pallas=False)`` (its own plain reference) on
+  the same weights: tta in {1, 2, 4, 8} x {mean, median}, strides T/2 and
+  3T/4, within 1e-4 m.
+* ``python -m resdepth_tpu_torch.predict cfg --device cpu`` serving the
+  ``Model_best.npz`` that the JAX ``train.py`` writes on the golden scene
+  matches ``tests/goldens/`` at the bars of ``test_demo_goldens.py``:
+  1e-4 m on the refined DSM, 5e-3 on the statistics.
+* With ``jax`` and ``jaxlib`` blocked from importing, the port's CLI and
+  ``chip_smoke.py``'s helpers import and refine a small scene.
+"""
+
+import glob
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from resdepth_tpu.data.dataset import TileDataset
+from resdepth_tpu.geo.raster import open_raster
+from resdepth_tpu.infer import tiled as jtiled
+from resdepth_tpu.models import unet as junet
+from resdepth_tpu_torch import predict
+from resdepth_tpu_torch.infer import tiled as ttiled
+from resdepth_tpu_torch.models import unet as tunet
+from resdepth_tpu_torch.models import weights
+from test_torch_unet import _jax_weights
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
+TILE = 16
+
+# Installed first in a child interpreter: any import of JAX fails loudly.
+BLOCK_JAX = textwrap.dedent("""
+    import sys
+
+    class _BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib"):
+                raise ImportError(f"{name}: the port must not import JAX")
+            return None
+
+    sys.meta_path.insert(0, _BlockJax())
+""")
+
+
+def _scene_dataset(make_geotiff, stride):
+    rows, cols = 48, 64
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:rows, 0:cols].astype(np.float32)
+    dsm = (410.0 + 6.0 * np.sin(yy / 7.0) + 5.0 * np.cos(xx / 9.0)
+           + rng.normal(0.0, 0.8, (rows, cols))).astype(np.float32)
+    images = rng.normal(120.0, 25.0, (2, rows, cols)).astype(np.float32)
+    entry = {"raster_in": make_geotiff("dsm.tif", dsm),
+             "image_list": [make_geotiff(f"img{j}.tif", images[j]) for j in range(2)],
+             "image_pairs": [(0, 1)],
+             # off-grid region: edge-shifted tiles and clipped ramps
+             "area_defn": {"x_extent": [(3, 60)], "y_extent": [(1, 46)]}}
+    return TileDataset(entry, input_channels="geom-stereo", tile_size=TILE,
+                       sampling_strategy="test", stride=stride, dsm_std=5.0,
+                       ortho_mean=None, ortho_std=25.0)
+
+
+@pytest.mark.parametrize("stride", [TILE // 2, 3 * TILE // 4], ids=["T/2", "3T/4"])
+@pytest.mark.parametrize("tta_merge", ["mean", "median"])
+@pytest.mark.parametrize("tta", [1, 2, 4, 8])
+def test_scene_matches_jax(make_geotiff, tta, tta_merge, stride):
+    ds = _scene_dataset(make_geotiff, stride)
+    settings = dict(n_input_channels=3, start_kernel=4, max_filter_depth=8, depth=2)
+    jconfig = junet.UNetConfig(**settings)
+    params, state = _jax_weights(jconfig, seed=5)
+    model = tunet.UNet(tunet.UNetConfig(**settings))
+    model.load_state_dict(weights.state_dict_from_jax_params(params, state, model.config))
+
+    want = jtiled.predict_linear_blend(jconfig, params, state, ds, batch_size=5,
+                                       use_pallas=False, tta=tta,
+                                       tta_merge=tta_merge)
+    got = ttiled.predict_linear_blend(model, ds, device="cpu", batch_size=5,
+                                      tta=tta, tta_merge=tta_merge)
+    assert got.shape == ds.dsm_input.shape and got.dtype == np.float32
+    assert np.abs(got[1:47, 3:61]).min() > 350.0      # every region pixel stitched
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
+
+
+RUN_CLI = ("import runpy; "
+           "runpy.run_module('resdepth_tpu_torch.predict', run_name='__main__')")
+
+
+@pytest.mark.skipif(not os.path.exists(os.path.join(GOLDEN_DIR,
+                                                    "demo_refined_dsm.tif")),
+                    reason="goldens not generated")
+def test_cli_serves_jax_checkpoint_to_goldens(tmp_path):
+    """The golden pipeline's steps (scripts/make_demo_goldens.py) with the
+    port's CLI in place of test.py, run in an interpreter that cannot
+    import JAX."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from make_demo_data import fill_golden_test_config, write_golden_scene
+    from make_demo_goldens import hermetic_env
+    from test_demo_goldens import _stat_numbers
+
+    cfgs = write_golden_scene(str(tmp_path))
+    env = hermetic_env()
+    subprocess.run([sys.executable, os.path.join(REPO, "train.py"), cfgs["train"]],
+                   env=env, check=True, stdout=subprocess.DEVNULL,
+                   stderr=subprocess.DEVNULL)
+    run_dir = max(glob.glob(os.path.join(cfgs["out"], "runs", "*")),
+                  key=os.path.getmtime)
+    fill_golden_test_config(cfgs["test"], run_dir)
+    result = subprocess.run(
+        [sys.executable, "-c", BLOCK_JAX + RUN_CLI, cfgs["test"], "--device", "cpu"],
+        env=env, cwd=REPO, capture_output=True, text=True)
+    assert result.returncode == 0, result.stdout[-4000:] + result.stderr[-4000:]
+
+    pair_dir = os.path.join(cfgs["out"], "eval", "golden_city", "Stereopair_0_1")
+    got = open_raster(os.path.join(pair_dir, "initial_DSM_prediction_test_area.tif"))
+    want = open_raster(os.path.join(GOLDEN_DIR, "demo_refined_dsm.tif"))
+    np.testing.assert_allclose(got.band(1), want.band(1), rtol=0, atol=1e-4)
+    assert got.geotransform == want.geotransform
+    assert got.nodata == want.nodata
+    with open(os.path.join(pair_dir,
+                           "initial_DSM_prediction_test_area_statistics.txt")) as f:
+        got_stats = _stat_numbers(f.read())
+    with open(os.path.join(GOLDEN_DIR, "demo_statistics.txt")) as f:
+        want_stats = _stat_numbers(f.read())
+    np.testing.assert_allclose(got_stats, want_stats, rtol=0, atol=5e-3)
+
+
+def _small_artifacts(work, size=64):
+    """chip_smoke's seeded scene and artifacts at a CPU-test size."""
+    scene = chip_smoke.write_scene(os.path.join(work, "scene"), size, size)
+    config = tunet.UNetConfig(n_input_channels=3, start_kernel=4,
+                              max_filter_depth=8, depth=2)
+    model = chip_smoke.write_model_artifacts(
+        os.path.join(work, "model"), config, "geom-stereo",
+        scene["image_mean"], scene["image_std"])
+    return scene, config, model
+
+
+def test_port_runs_without_jax(tmp_path):
+    """A child interpreter that cannot import JAX imports the CLI module and
+    chip_smoke.py, and refines a small scene on the CPU."""
+    script = BLOCK_JAX + textwrap.dedent(f"""
+        sys.path.insert(0, {REPO!r})
+        import numpy as np
+        import chip_smoke
+        from resdepth_tpu_torch import predict  # noqa: F401
+        from resdepth_tpu_torch.infer.tiled import predict_linear_blend
+        from resdepth_tpu_torch.models.unet import UNetConfig
+
+        scene = chip_smoke.write_scene({str(tmp_path)!r}, 48, 48)
+        ds = chip_smoke._tile_dataset(scene["paths"], 48, scene["image_mean"],
+                                      scene["image_std"], tile=16)
+        config = UNetConfig(n_input_channels=3, start_kernel=4,
+                            max_filter_depth=8, depth=2)
+        model = chip_smoke.random_model(config)
+        out = predict_linear_blend(model, ds, device="cpu", batch_size=4)
+        assert out.shape == (48, 48) and np.isfinite(out).all()
+        assert not any(name.split(".")[0] in ("jax", "jaxlib")
+                       for name in sys.modules)
+        print("ok", float(np.abs(out - ds.dsm_input).mean()))
+    """)
+    result = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                            capture_output=True, text=True)
+    assert result.returncode == 0, result.stderr[-4000:]
+    assert result.stdout.startswith("ok")
+
+
+def test_cli_preset_matches_library_call(tmp_path):
+    """The CLI on the CPU (chip_smoke's scene at 64 px, serving_preset
+    'accuracy': stride 3T/4 and TTA-4) writes the scene that
+    ``predict_linear_blend`` computes for the same settings."""
+    scene, config, model = _small_artifacts(str(tmp_path))
+    out_dir = str(tmp_path / "eval")
+    cfg = chip_smoke.write_config(str(tmp_path / "cfg.json"), scene["paths"], model,
+                                  out_dir, tile_size=TILE, batch_size=4,
+                                  serving_preset="accuracy")
+    chip_smoke.run_cli(cfg, "cpu")
+    paths = chip_smoke.output_paths(out_dir)
+    assert os.path.exists(paths["statistics"])
+    got = open_raster(paths["prediction"]).band(1)
+
+    ds = chip_smoke._tile_dataset(scene["paths"], 64, scene["image_mean"],
+                                  scene["image_std"], tile=TILE,
+                                  stride=3 * TILE // 4)
+    net = tunet.UNet(config)
+    net.load_state_dict(weights.load_state_dict(model["weights"], config))
+    want = ttiled.predict_linear_blend(net, ds, device="cpu", batch_size=4, tta=4)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    scene, _, model = _small_artifacts(str(tmp_path))
+    cfg = chip_smoke.write_config(str(tmp_path / "cfg.json"), scene["paths"], model,
+                                  str(tmp_path / "eval"), tile_size=TILE)
+    monkeypatch.setattr(predict, "MAX_DEVICE_PIXELS", 64 * 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 7"):
+        predict.main([cfg, "--device", "cpu"])
+
+    for mode in predict.SERVING_PRECISION_MODES:
+        with pytest.raises(NotImplementedError, match="item 6"):
+            predict.select_compute_dtype(mode, torch.device("cpu"))
+    assert predict.select_compute_dtype("bfloat16", torch.device("cpu")) is torch.bfloat16
+    assert predict.select_compute_dtype(None, torch.device("cpu")) is torch.float32
+
+
+def test_cuda_device_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict.resolve_device("cuda")
+    assert predict.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        predict.resolve_device("cuda")
