@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Run it from the root of a checkout. It needs one CUDA card, builds the
-stitch kernels from ``resdepth_tpu_torch/csrc`` with nvcc and imports no JAX.
-It drives the port's main path, full-scene refinement with the flagship
-ResDepth-stereo model (random weights from a seed), through the inference
-CLI ``python -m resdepth_tpu_torch.predict``. Phases, each printing what it
+kernels from ``resdepth_tpu_torch/csrc`` with nvcc and imports no JAX. It
+drives the port's paths with the flagship ResDepth-stereo model (random
+weights from a seed): full-scene refinement through the inference CLI
+``python -m resdepth_tpu_torch.predict``, and training through the train
+CLI ``python -m resdepth_tpu_torch.train``. Phases, each printing what it
 found:
 
   1. device: the card, its power limit, the torch and CUDA versions;
-  2. build: nvcc builds the kernels and the library loads;
+  2. build: nvcc builds every kernel source at once and the libraries load;
   3. kernels: K1 and K2 against the plain stitch at the main path's shape
      (a batch of 128 tiles of 256 px on a 4096x4096 canvas), with times;
   4. flagship: a seeded 4096x4096 geom-stereo scene (961 tiles) refined by
@@ -19,7 +20,18 @@ found:
      the outputs exist and are finite, the launch counters show that every
      stitch went through the kernels, and the K1 and K2 scenes agree;
   5. card against CPU: a 512x512 crop refined on the card (K2, whose sum
-     order is the plain stitch's) and on the CPU, within 1e-4 m.
+     order is the plain stitch's) and on the CPU, within 1e-4 m;
+  6. conv: kernel K3 at the flagship's 3x3 conv shapes at batch 128, in
+     float32 and bfloat16, against the plain version (cuDNN, TF32 off),
+     with times;
+  7. train: the flagship trained on a seeded 2048x2048 scene by the train
+     CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
+     float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
+     for a third, its ``Model_best.npz`` served by the inference CLI;
+  8. train card against CPU: one flagship train step on 2 tiles of 128 px
+     on the card and on the CPU (which takes the card's max-pool and ReLU
+     decisions, see ``phase_train_vs_cpu``): loss, gradients, BatchNorm
+     statistics and Adam moments within 1e-4 relative per tensor.
 
 Any failure raises and the script exits non-zero. Without CUDA, or outside a
 checkout of the repository, it exits non-zero before printing a result. The
@@ -42,6 +54,8 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK_DIR = os.path.join(REPO, "build", "chip_smoke")
@@ -59,6 +73,22 @@ KERNELS = {
     "k2": ("stitch_k2", "resdepth_tpu/ops/pallas_stitch.py:213"),
 }
 KERNEL_SOURCE = "resdepth_tpu_torch/csrc/stitch.cu"
+K3 = ("conv3x3_k3", "resdepth_tpu_torch/csrc/conv.cu",
+      "resdepth_tpu/ops/pallas_conv.py:101")
+
+# Phase 6: the flagship's 3x3 conv shapes at batch 128, (H = W, Cin, Cout,
+# activation), in float32 and bfloat16.
+CONV_BATCH = 128
+CONV_CASES = ((256, 3, 64, "relu"), (256, 64, 64, "relu"),
+              (128, 128, 128, "relu"), (64, 256, 256, "relu"),
+              (32, 512, 512, "relu"), (16, 512, 512, "relu"),
+              (128, 128, 128, "lrelu"), (64, 256, 256, "prelu"))
+
+# Phase 7: training on a seeded scene at the flagship's width.
+TRAIN_SCENE = 2048
+TRAIN_BATCH = 20
+TRAIN_SAMPLES = 200          # 10 steps an epoch
+TRAIN_WARMUP = 3             # steps before the steady-state timing
 
 
 def log(phase: str, message: str) -> None:
@@ -177,6 +207,49 @@ def output_paths(out_dir: str) -> dict:
                                        "initial_DSM_prediction_statistics.txt")}
 
 
+def write_train_config(path: str, scene_paths: dict, out_root: str, *,
+                       n_samples: int, suffix: str = "", model: dict | None = None,
+                       training: dict | None = None, **sections) -> str:
+    """A training config over the scene: 'train+val' over five vertical
+    stripes (stripe 2 validates, stripe 1 is the test stripe), the
+    geom-stereo channels, and ``model``, ``training`` and any further
+    sections merged over that. Runs go to ``out_root/<minute>_<suffix>``."""
+    dataset = {"name": "smoke_city",
+               "raster_gt": scene_paths["raster_gt"],
+               "raster_in": scene_paths["raster_in"],
+               "path_image_list": scene_paths["path_image_list"],
+               "path_pairlist_training": scene_paths["path_pairlist"],
+               "path_pairlist_validation": scene_paths["path_pairlist"],
+               "area_type": "train+val",
+               "allocation_strategy": "5-crossval_vertical",
+               "test_stripe": 1, "n_training_samples": n_samples}
+    cfg = {"datasets": [dataset],
+           "model": {"input_channels": "geom-stereo", **(model or {})},
+           "training_settings": {"loss": "L1", **(training or {})},
+           "output": {"output_directory": out_root, "suffix": suffix}}
+    cfg.update(sections)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2)
+    return path
+
+
+def run_dir_of(out_root: str, suffix: str) -> str:
+    """The newest run directory with ``suffix`` under a training output root."""
+    runs = [os.path.join(out_root, d) for d in os.listdir(out_root)
+            if d.endswith(f"_{suffix}")]
+    return max(runs, key=os.path.getmtime)
+
+
+def serving_model_artifacts(run_dir: str, checkpoint: str = "Model_best.npz") -> dict:
+    """The inference config's ``model`` section for a training run."""
+    return {"weights": os.path.join(run_dir, "checkpoints", checkpoint),
+            "architecture": os.path.join(run_dir, "model_config.json"),
+            "normalization_geom": os.path.join(run_dir,
+                                               "DSM_normalization_parameters.p"),
+            "normalization_image": os.path.join(run_dir,
+                                                "Image_normalization_parameters.p")}
+
+
 # --------------------------------- helpers ---------------------------------- #
 
 def ulps(reference: np.ndarray, n: int = 2) -> float:
@@ -220,16 +293,22 @@ def phase_device() -> dict:
 
 
 def phase_build() -> float:
-    from resdepth_tpu_torch.ops import build, stitch
+    """Build every kernel source at once (one nvcc each, in threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from resdepth_tpu_torch.ops import build, conv, stitch
 
     start = time.perf_counter()
-    lib = stitch._library()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(lambda load: load(), (stitch._library, conv._library)))
     seconds = time.perf_counter() - start
-    if not hasattr(lib, "stitch_k1") or not hasattr(lib, "stitch_k2"):
-        raise RuntimeError("the stitch library lacks its entry points")
-    log("build", f"csrc/stitch.cu -> {os.path.relpath(build.library_path('stitch'), REPO)} "
-        f"in {seconds:.2f} s (nvcc {build.BUILD_SECONDS['stitch']:.2f} s); "
-        f"flags {' '.join(build.NVCC_FLAGS)}")
+    for lib, names in zip(libs, (("stitch_k1", "stitch_k2"), ("conv3x3_k3",))):
+        if not all(hasattr(lib, name) for name in names):
+            raise RuntimeError(f"a kernel library lacks one of {names}")
+    log("build", "; ".join(
+        f"csrc/{name}.cu -> {os.path.relpath(build.library_path(name), REPO)} "
+        f"(nvcc {build.BUILD_SECONDS[name]:.2f} s)" for name in ("stitch", "conv"))
+        + f"; both in {seconds:.2f} s; flags {' '.join(build.NVCC_FLAGS)}")
     return seconds
 
 
@@ -562,6 +641,307 @@ def phase_crop(work: str, scene: dict, model_path: str) -> float:
     return errs["k2"]
 
 
+def bf16_ulps(reference: np.ndarray, n: int = 2) -> float:
+    """``n`` bfloat16 ulps at the largest magnitude of ``reference``."""
+    top = float(np.abs(reference).max())
+    return n * float(torch.finfo(torch.bfloat16).eps) * 2.0 ** np.floor(np.log2(top))
+
+
+def phase_conv() -> dict:
+    """K3 against the plain version (cuDNN, TF32 off) at the flagship's
+    conv shapes. The launch counter is zeroed before each case's one call
+    through ``conv3x3_bias_act`` and read after it; the timing launches
+    come later and are not counted."""
+    from resdepth_tpu_torch.ops import conv
+
+    device = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    result = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        rows, launches = [], 0
+        for size, c_in, c_out, act in CONV_CASES:
+            x = torch.randn((CONV_BATCH, size, size, c_in), generator=generator,
+                            device=device).to(dtype)
+            kernel = torch.randn((3, 3, c_in, c_out), generator=generator,
+                                 device=device) / (3.0 * c_in ** 0.5)
+            bias = 0.1 * torch.randn(c_out, generator=generator, device=device)
+            slope = 0.3 * torch.rand(c_out, generator=generator, device=device)
+            conv.LAUNCHES["k3"] = 0
+            got = conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act)
+            torch.cuda.synchronize()
+            launches += conv.LAUNCHES["k3"]
+            want = conv.conv3x3_bias_act_plain(x, kernel, bias, slope, act_fn=act)
+            want_np = want.float().cpu().numpy()
+            err = float((got.float() - want.float()).abs().max())
+            bar = (1e-4 * float(np.abs(want_np).max()) if dtype == torch.float32
+                   else bf16_ulps(want_np))
+            if not (np.isfinite(err) and err <= bar):
+                raise AssertionError(f"K3 {dtype_name} {size}^2 {c_in}->{c_out} {act}: "
+                                     f"max |diff| {err} above {bar}")
+            del got, want
+            timers = {"plain": lambda: conv.conv3x3_bias_act_plain(
+                          x, kernel, bias, slope, act_fn=act),
+                      "k3": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope,
+                                                          act_fn=act)}
+            times = {name: [] for name in timers}
+            for name in ("plain", "k3", "k3", "plain"):
+                times[name].append(cuda_ms(timers[name], iters=5, warmup=2))
+            rows.append({"shape": f"{size}^2 {c_in}->{c_out} {act}", "err": err,
+                         "bar": bar, "ms": float(np.mean(times["k3"])),
+                         "plain_ms": float(np.mean(times["plain"]))})
+            del x
+        if launches != len(CONV_CASES):
+            raise AssertionError(f"K3 launched {launches} times for "
+                                 f"{len(CONV_CASES)} calls in {dtype_name}")
+        result[dtype_name] = {
+            "launches": launches, "max_abs_err": max(r["err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows), "rows": rows}
+        log("conv", f"K3 {dtype_name}, batch {CONV_BATCH}, CUDA events (mean of "
+            "plain/K3/K3/plain, 5 launches each): " + "; ".join(
+                f"{r['shape']}: K3 {r['ms']:.3f} ms, cuDNN {r['plain_ms']:.3f} ms, "
+                f"max |diff| {r['err']:.3g} (bar {r['bar']:.3g})" for r in rows)
+            + f"; launches {launches}")
+    torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def _timed_train_steps():
+    """Wrap the train CLI's train step with CUDA events while the block
+    runs; yields a list of (start, end, metric) per step."""
+    from resdepth_tpu_torch.train import cli
+
+    records = []
+    original = cli.make_train_step
+
+    def make(*args, **kwargs):
+        step = original(*args, **kwargs)
+
+        def timed(*step_args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metric = step(*step_args)
+            end.record()
+            records.append((start, end, metric))
+            return metric
+        return timed
+
+    cli.make_train_step = make
+    try:
+        yield records
+    finally:
+        cli.make_train_step = original
+
+
+def phase_train(work: str, scene: dict) -> dict:
+    """Train, resume and serve the flagship through the CLIs."""
+    from resdepth_tpu_torch import train
+    from resdepth_tpu_torch.ops import stitch
+
+    device = torch.device("cuda", 0)
+    out_root = os.path.join(work, "runs")
+    common = dict(
+        n_samples=TRAIN_SAMPLES,
+        training={"tile_size": TILE, "batch_size": TRAIN_BATCH, "augment": True},
+        stereopair_settings={"permute_images_within_pair": True},
+        optimizer={"name": "Adam", "learning_rate": 2e-4, "weight_decay": 1e-5},
+        scheduler={"enabled": True, "name": "StepLR",
+                   "settings": {"step_size": 2, "gamma": 0.5}},
+        tpu={"train_precision": "high", "compute_dtype": "float32"})
+    config = write_train_config(
+        os.path.join(work, "train.json"), scene["paths"], out_root, suffix="first",
+        general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
+        **{**common, "training": {**common["training"], "n_epochs": 2}})
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    with _timed_train_steps() as records:
+        trainer = train.main([config, "--device", "cuda"])
+    wall = time.perf_counter() - start
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on after a float32 training run")
+    metrics = [float(m) for _, _, m in records]
+    if not all(np.isfinite(metrics)) or len(metrics) != 2 * TRAIN_SAMPLES // TRAIN_BATCH:
+        raise AssertionError(f"train metrics {metrics}")
+    step_ms = [s.elapsed_time(e) for s, e, _ in records]
+    steady = step_ms[TRAIN_WARMUP:]
+    first_run = run_dir_of(out_root, "first")
+    expected = ["config.json", "config.json.orig", "model_config.json",
+                "DSM_normalization_parameters.p", "Image_normalization_parameters.p",
+                "run.log", "training.log", "metrics.jsonl",
+                "checkpoints/Model_best.npz", "checkpoints/Model_last.npz"]
+    missing = [f for f in expected if not os.path.exists(os.path.join(first_run, f))]
+    if missing:
+        raise AssertionError(f"the train CLI did not write {missing}")
+    val = list(trainer.val_history)
+
+    resume = write_train_config(
+        os.path.join(work, "resume.json"), scene["paths"], out_root, suffix="resumed",
+        model={"pretrained_path": os.path.join(first_run, "checkpoints",
+                                               "Model_last.npz")},
+        general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
+        **{**common, "training": {**common["training"], "n_epochs": 1}})
+    resumed = train.main([resume, "--device", "cuda"])
+    second_run = run_dir_of(out_root, "resumed")
+    if [e for e, _ in resumed.val_history] != [2] or resumed.start_epoch != 2:
+        raise AssertionError(f"the resumed run validated epochs "
+                             f"{resumed.val_history}, expected epoch 2")
+    if not os.path.exists(os.path.join(second_run, "checkpoints",
+                                       "Model_after_3_epochs.npz")):
+        raise AssertionError("no periodic checkpoint after the third epoch")
+    val += resumed.val_history
+    if not all(np.isfinite([v for _, v in val])):
+        raise AssertionError(f"non-finite val MAE {val}")
+
+    for key in stitch.LAUNCHES:
+        stitch.LAUNCHES[key] = 0
+    eval_dir = os.path.join(work, "eval_trained")
+    serve = write_config(os.path.join(work, "serve_trained.json"), scene["paths"],
+                         serving_model_artifacts(second_run), eval_dir,
+                         tile_size=TILE, batch_size=BATCH)
+    run_cli(serve, "cuda")
+    prediction = _check_outputs(eval_dir, (TRAIN_SCENE, TRAIN_SCENE))
+    if stitch.LAUNCHES["k1"] == 0:
+        raise AssertionError("serving the trained model launched no K1")
+    samples_per_s = TRAIN_BATCH / (float(np.mean(steady)) / 1000.0)
+    log("train", f"flagship geom-stereo, {TRAIN_SCENE}^2 scene, tile {TILE}, batch "
+        f"{TRAIN_BATCH}, {TRAIN_SAMPLES // TRAIN_BATCH} steps an epoch, float32 TF32 "
+        f"off: steady step {float(np.mean(steady)):.2f} ms (CUDA events, mean of "
+        f"{len(steady)} after {TRAIN_WARMUP}; min {min(steady):.2f}, max "
+        f"{max(steady):.2f}), {samples_per_s:.1f} samples/s; peak {peak:.2f} GiB; "
+        f"CLI wall {wall:.1f} s for 2 epochs; val MAE per epoch "
+        + ", ".join(f"{e}: {v:.4f} m" for e, v in val)
+        + f"; resumed at epoch 2; served Model_best.npz with K1 "
+        f"({stitch.LAUNCHES['k1']} launches), scene finite, mean "
+        f"{float(prediction.mean()):.2f} m")
+    return {"step_ms": float(np.mean(steady)), "samples_per_s": samples_per_s,
+            "peak_gib": peak, "val": val}
+
+
+def _share_decisions(model, card: dict | None = None):
+    """Forward hooks on ``model``'s max-pools and ReLUs.
+
+    Without ``card`` they record each module's discrete decisions (pooling
+    argmax, ReLU mask) in the returned dict. With ``card``, the decisions
+    such hooks recorded on the card, each module takes the card's decision
+    (its output, and so its gradient, is what it would be had it decided
+    so) and counts the places where it would have decided otherwise."""
+    decisions, flips = {}, {"pool": 0, "relu": 0}
+    modules = [("pool", m) for m in model.modules() if isinstance(m, nn.MaxPool2d)]
+    modules += [("relu", m) for m in model.modules() if isinstance(m, nn.ReLU)]
+    for index, (kind, module) in enumerate(modules):
+        def hook(mod, inputs, output, index=index, kind=kind):
+            x = inputs[0]
+            own = (F.max_pool2d(x, 2, 2, return_indices=True)[1] if kind == "pool"
+                   else x > 0)
+            if card is None:
+                decisions[index] = own.cpu()
+                return None
+            chosen = card[index].to(x.device)
+            flips[kind] += int((own != chosen).sum())
+            if kind == "pool":
+                return x.flatten(2).gather(2, chosen.flatten(2)).view_as(output)
+            return x * chosen.to(x.dtype)
+        module.register_forward_hook(hook)
+    return decisions, flips
+
+
+def phase_train_vs_cpu(scene: dict) -> dict:
+    """One flagship train step (2 tiles of 128 px, augmentation off) on the
+    card and on the CPU from the same weights and batch.
+
+    A step's gradient is not a continuous function of rounding: where two
+    pooled values or a ReLU input lie within an f32 rounding of a tie, the
+    card and the CPU may route a gradient differently, and one such place
+    moves a whole weight gradient by about 1e-3 (measured on this batch).
+    So the CPU step takes the card's pooling and ReLU decisions, the number
+    of places it would have decided otherwise is printed, and what is held
+    to 1e-4 is the arithmetic."""
+    from resdepth_tpu.data import control_files
+    from resdepth_tpu.data.dataset import TileDataset
+    from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
+    from resdepth_tpu_torch.models.unet import flagship_config, init_unet
+    from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
+                                               select_train_precision)
+
+    entry = {"raster_gt": scene["paths"]["raster_gt"],
+             "raster_in": scene["paths"]["raster_in"],
+             "image_list": control_files.read_imagelist_from_file(
+                 scene["paths"]["path_image_list"]),
+             "image_pairs": [(0, 1)], "n_samples": 2,
+             "area_defn": {"x_extent": [(0, 511)], "y_extent": [(0, 511)]}}
+    ds = TileDataset(entry, input_channels="geom-stereo", tile_size=128,
+                     sampling_strategy="train", dsm_std=DSM_STD,
+                     ortho_mean=scene["image_mean"], ortho_std=scene["image_std"],
+                     seed=SEED)
+    # A fixed DSM mean (the region's): the per-tile masked means sum in
+    # another order on each device, and with it both devices take the same
+    # batch bit for bit (phase 5 holds the per-tile means on the card).
+    region = ds.dsm_input[:512, :512]
+    spec = dataclasses.replace(batch_spec_for(ds), dsm_mean=float(
+        region[region != ds.nodata].mean()))
+    batch = (ds.positions, ds.pair_indices, np.zeros((2, 4), np.int32),
+             np.ones(2, np.float32))
+    runs, card_decisions, flips = {}, None, None
+    for name in ("cuda", "cpu"):
+        device = torch.device(name, 0) if name == "cuda" else torch.device("cpu")
+        select_train_precision("high", "float32", device)
+        model = init_unet(flagship_config("geom-stereo"),
+                          torch.Generator().manual_seed(SEED), device)
+        decisions, flips = _share_decisions(model, card_decisions)
+        card_decisions = card_decisions or decisions
+        state = init_train_state(model, "Adam", 2e-4, 1e-5)
+        rasters = device_put_dataset(ds, device, include_target=True)
+        metric = make_train_step(spec)(state, rasters, *batch,
+                                       torch.Generator(device=device))
+        runs[name] = {"metric": float(metric),
+                      "grads": {n: p.grad.detach().cpu().numpy()
+                                for n, p in model.named_parameters()},
+                      "buffers": {n: b.detach().cpu().numpy()
+                                  for n, b in model.named_buffers()
+                                  if n.endswith(("running_mean", "running_var"))},
+                      # second moments as their square roots, at the
+                      # gradients' scale and relative error
+                      "moments": {**{f"{n}.exp_avg": state.optimizer.state[p][
+                                         "exp_avg"].cpu().numpy()
+                                     for n, p in model.named_parameters()},
+                                  **{f"{n}.sqrt_exp_avg_sq": state.optimizer.state[p][
+                                         "exp_avg_sq"].sqrt().cpu().numpy()
+                                     for n, p in model.named_parameters()}},
+                      "params": {n: p.detach().cpu().numpy()
+                                 for n, p in model.named_parameters()}}
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    card, cpu = runs["cuda"], runs["cpu"]
+    worst = {}
+    for group in ("grads", "buffers", "moments"):
+        errs = {n: rel(card[group][n], cpu[group][n]) for n in cpu[group]}
+        name = max(errs, key=errs.get)
+        worst[group] = (name, errs[name])
+    loss_err = abs(card["metric"] - cpu["metric"]) / abs(cpu["metric"])
+    param_err = max(float(np.abs(card["params"][n] - cpu["params"][n]).max())
+                    for n in cpu["params"])
+    failed = {g: v for g, v in worst.items() if not v[1] <= 1e-4}
+    if failed or not loss_err <= 1e-4:
+        raise AssertionError(f"card against CPU above 1e-4 relative: loss "
+                             f"{loss_err}, {failed}")
+    log("train-vs-cpu", f"flagship, 2 tiles of 128 px, one Adam step, float32 TF32 "
+        f"off: loss card {card['metric']:.6f} m, CPU {cpu['metric']:.6f} m (rel "
+        f"{loss_err:.3g}); places where the CPU would have pooled or rectified "
+        f"otherwise than the card: {flips}; worst relative L2 per tensor (bar 1e-4): "
+        + "; ".join(f"{g} {v[1]:.3g} ({v[0]})" for g, v in worst.items())
+        + f"; max |weight diff| after the step {param_err:.3g}")
+    return {"loss_rel": loss_err, "flips": flips,
+            **{g: v[1] for g, v in worst.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs one GPU",
@@ -587,12 +967,28 @@ def main() -> int:
     phase_crop(WORK_DIR, scene, model["weights"])
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
+    convs = phase_conv()
+    start = time.perf_counter()
+    train_scene = write_scene(os.path.join(WORK_DIR, "train_scene"), TRAIN_SCENE,
+                              TRAIN_SCENE)
+    log("setup", f"seeded {TRAIN_SCENE}^2 training scene written in "
+        f"{time.perf_counter() - start:.1f} s")
+    phase_train(WORK_DIR, train_scene)
+    phase_train_vs_cpu(train_scene)
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": replaces, "launches": flagship["launches"][key],
          "max_abs_err": kernels[key]["max_abs_err"], "ms": kernels[key]["ms"],
          "plain_ms": kernels[key]["plain_ms"]}
         for key, (name, replaces) in KERNELS.items()]}
+    name, source, replaces = K3
+    record["kernels"] += [
+        {"name": f"{name} ({dtype})", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": r["launches"],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+        for dtype, r in convs.items()]
     print(json.dumps(record))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
-"""Residual-refinement UNet, eval mode, as a PyTorch module.
+"""Residual-refinement UNet as a PyTorch module, eval and train mode.
 
-Port of ``resdepth_tpu/models/unet.py`` (the inference half). The module
+Port of ``resdepth_tpu/models/unet.py``. The module
 keeps the reference network's topology and ``state_dict`` key layout
 (``tests/torch_unet.py`` is the same network written as a test oracle), so
 a reference ``.pth`` checkpoint loads verbatim:
@@ -17,7 +17,14 @@ Layouts: NCHW inside the module (PyTorch's and cuDNN's habit);
 
 The serving rewrites (``fold_batchnorm``, ``fold_top_decoder``,
 ``fold_serving``) return new modules and leave their input untouched.
-Training mode is not part of this slice: ``UNet.train(True)`` raises.
+
+Training mode keeps the JAX package's BatchNorm rather than torch's: the
+batch moments are ``E[x]`` and ``E[x^2] - E[x]^2`` (clamped at 0), taken
+over (N, H, W) with optional per-sample weights, so that zero-weight padding
+samples stay out of the statistics (``BatchNorm2d`` has no sample weights).
+``apply_unet(train=True)`` returns the new running statistics instead of
+writing them, as the JAX function does; ``UNet.forward`` in training mode
+writes them, as torch modules do.
 """
 
 from __future__ import annotations
@@ -28,12 +35,14 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 ACTIVATIONS = ("relu", "lrelu", "prelu")
 UP_MODES = ("transpose", "bilinear")
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 LRELU_SLOPE = 0.01
 PRELU_INIT = 0.25
 
@@ -145,13 +154,14 @@ class ComposedTop(nn.Module):
 
 
 class UNet(nn.Module):
-    """Eval-mode ResDepth UNet with the reference ``state_dict`` keys.
+    """ResDepth UNet with the reference ``state_dict`` keys, and the
+    reference's parameter order (a ``.pth`` optimizer state indexes it).
 
     Construction allocates the parameters on ``device`` without
-    initialising them: load a state_dict (``models.weights``) or use
-    ``init_unet``. ``composed_top=True`` builds the layout that
-    ``fold_top_decoder`` produces (``top_composed`` in place of the top
-    upconv).
+    initialising them and leaves the module in eval mode: load a state_dict
+    (``models.weights``) or use ``init_unet``. ``composed_top=True`` builds
+    the layout that ``fold_top_decoder`` produces (``top_composed`` in place
+    of the top upconv; serving only).
     """
 
     def __init__(self, config: UNetConfig, device=None, *,
@@ -188,31 +198,58 @@ class UNet(nn.Module):
         self.to_empty(device=device if device is not None else "cpu")
         self.eval()
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                "The port's UNet is eval-only; training is ROADMAP.md "
-                "section 1 item 8 (single-GPU training step).")
-        return super().train(False)
-
     @property
     def device(self) -> torch.device:
         return self.last_layer.weight.device
 
     def forward(self, x):
-        """``x``: (N, C, H, W) with the initial DSM as channel 0 -> (N, 1, H, W)."""
+        """``x``: (N, C, H, W) with the initial DSM as channel 0 -> (N, 1, H, W).
+
+        In training mode BatchNorm takes the batch's statistics and writes
+        the new running statistics into its buffers."""
+        y, bn_state = self.run(x, train=self.training)
+        if self.training:
+            commit_bn_state(self, bn_state)
+        return y
+
+    def run(self, x, *, train: bool = False, sample_weights=None,
+            remat: bool = False):
+        """The forward pass -> ``(y, bn_state)``, whatever the module's mode.
+
+        ``train`` selects batch statistics for BatchNorm (``batch_norm_train``,
+        weighted by ``sample_weights`` (N,) when given); ``bn_state`` then maps
+        each BatchNorm buffer name (``encoder.0.0.1.running_mean``, ...) to
+        its new value, and is empty otherwise. ``remat`` (training only)
+        recomputes each conv(+BN+act) block in the backward pass
+        (``torch.utils.checkpoint``) instead of storing its activations."""
         depth = self.config.depth
+        bn_state: dict = {}
+
+        def block(prefix, seq, inp):
+            if not train:
+                return _conv_block_eval(seq, inp)
+            if remat:
+                out, mean, var = torch.utils.checkpoint.checkpoint(
+                    _conv_block_train, seq, inp, sample_weights,
+                    use_reentrant=False)
+            else:
+                out, mean, var = _conv_block_train(seq, inp, sample_weights)
+            if mean is not None:
+                bn_state[f"{prefix}.1.running_mean"] = mean
+                bn_state[f"{prefix}.1.running_var"] = var
+            return out
+
         skips = []
         out = x
-        for level in self.encoder:
-            out = level[0](out)
+        for i, level in enumerate(self.encoder):
+            out = block(f"encoder.{i}.0", level[0], out)
             skips.append(out)
             out = level[1](out)
-        out = self.bottleneck(out)
+        out = block("bottleneck", self.bottleneck, out)
         for i, level in enumerate(self.decoder):
             if i < depth - 1:
                 out = skips[-1 - i] + level[0](out)   # additive skip
-                out = level[1](out)
+                out = block(f"decoder.{i}.1", level[1], out)
             else:
                 out = skips[0] + level(out)   # deepest level: no conv after
         if self.top_composed is not None:
@@ -222,14 +259,97 @@ class UNet(nn.Module):
         if self.config.outer_skip:
             x0 = x[:, 0:1]
             if self.config.outer_skip_BN:
-                x0 = self.layer_outer_skip[0](x0)
+                bn = self.layer_outer_skip[0]
+                if train:
+                    x0, mean, var = batch_norm_train(bn, x0, sample_weights)
+                    bn_state["layer_outer_skip.0.running_mean"] = mean
+                    bn_state["layer_outer_skip.0.running_var"] = var
+                else:
+                    x0 = _batch_norm_eval(bn, x0)
             out = out + x0
-        return out
+        return out, bn_state
 
 
-def apply_unet(model: UNet, x: torch.Tensor) -> torch.Tensor:
-    """``apply_unet(train=False)``'s contract: NHWC in, (N, H, W, 1) out."""
-    return model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def batch_norm_train(bn: nn.BatchNorm2d, x, sample_weights=None):
+    """Training-mode BatchNorm with the JAX package's moments
+    (``resdepth_tpu/models/unet.py::_batch_norm``) -> ``(y, mean, var)``.
+
+    The batch statistics over (N, H, W) are ``E[x]`` and ``E[x^2] - E[x]^2``
+    clamped at 0, in float32. With ``sample_weights`` (N,) each sample's
+    pixels weigh its weight, normalised by the weighted pixel count first,
+    so zero-weight samples add nothing. ``y`` uses the biased variance; the
+    returned running statistics (``bn``'s buffers moved by momentum 0.1,
+    not written) take the unbiased one. Gradients flow through the batch
+    statistics, not into the running ones."""
+    x32 = x.float()
+    n, _, h, w = x32.shape
+    dims = (0, 2, 3)
+    if sample_weights is None:
+        mean = x32.mean(dim=dims)
+        mean_sq = x32.square().mean(dim=dims)
+        count = torch.tensor(float(n * h * w), device=x.device)
+    else:
+        weights = sample_weights.to(device=x.device, dtype=torch.float32)
+        count = torch.clamp_min(weights.sum() * (h * w), 1.0)
+        wn = (weights / count).view(-1, 1, 1, 1)
+        mean = (x32 * wn).sum(dim=dims)
+        mean_sq = (x32.square() * wn).sum(dim=dims)
+    var = torch.clamp_min(mean_sq - mean.square(), 0.0)
+    with torch.no_grad():
+        unbiased = var * (count / torch.clamp_min(count - 1, 1.0))
+        new_mean = (1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean
+        new_var = (1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased
+    inv = torch.rsqrt(var + BN_EPS) * bn.weight
+    y = ((x32 - mean.view(1, -1, 1, 1)) * inv.view(1, -1, 1, 1)
+         + bn.bias.view(1, -1, 1, 1))
+    return y.to(x.dtype), new_mean, new_var
+
+
+def _batch_norm_eval(bn: nn.BatchNorm2d, x):
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                        False, 0.0, BN_EPS)
+
+
+def _conv_block_eval(seq: nn.Sequential, x):
+    """conv (+BN with running statistics) + activation."""
+    out = seq[0](x)
+    if isinstance(seq[1], nn.BatchNorm2d):
+        out = _batch_norm_eval(seq[1], out)
+    return seq[-1](out)
+
+
+def _conv_block_train(seq: nn.Sequential, x, sample_weights):
+    """conv (+BN with batch statistics) + activation -> ``(out, mean, var)``,
+    the BN's new running statistics (None without BN)."""
+    out = seq[0](x)
+    mean = var = None
+    if isinstance(seq[1], nn.BatchNorm2d):
+        out, mean, var = batch_norm_train(seq[1], out, sample_weights)
+    return seq[-1](out), mean, var
+
+
+def commit_bn_state(model: nn.Module, bn_state: dict) -> None:
+    """Write new BatchNorm running statistics (``UNet.run``'s ``bn_state``)
+    into ``model``'s buffers, in place."""
+    buffers = dict(model.named_buffers())
+    with torch.no_grad():
+        for name, value in bn_state.items():
+            buffers[name].copy_(value)
+
+
+def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
+               sample_weights=None, remat: bool = False):
+    """``apply_unet``'s contract: NHWC in, (N, H, W, 1) out.
+
+    ``train=False`` returns the output. ``train=True`` uses batch statistics
+    (weighted by ``sample_weights``) and returns ``(y, bn_state)``, the new
+    running statistics by buffer name, leaving the module's buffers as they
+    are (``commit_bn_state`` writes them), as the JAX function returns its
+    new state."""
+    y, bn_state = model.run(x.permute(0, 3, 1, 2), train=train,
+                            sample_weights=sample_weights, remat=remat)
+    y = y.permute(0, 2, 3, 1)
+    return (y, bn_state) if train else y
 
 
 def init_unet(config: UNetConfig, generator: torch.Generator,

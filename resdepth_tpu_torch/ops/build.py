@@ -5,7 +5,8 @@ library with a plain C interface, loaded with ``ctypes``; no PyTorch header
 is compiled, so a build takes seconds. The library goes to
 ``build/resdepth_tpu_torch/`` beside the package, named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one is
-reused. A failed build or load raises: there is no fallback.
+reused. Different sources build concurrently when loaded from several
+threads. A failed build or load raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "resdepth_tpu_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                       # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}    # one build at a time per source
 _libraries: dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build in this process (0.0 when reused).
 BUILD_SECONDS: dict[str, float] = {}
@@ -69,6 +71,8 @@ def _build(name: str, target: str) -> None:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _libraries:
             target = library_path(name)
             start = time.perf_counter()

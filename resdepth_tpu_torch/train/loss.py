@@ -1,0 +1,31 @@
+"""Denormalised masked L1 loss (port of ``resdepth_tpu/train/loss.py``).
+
+Predictions and targets are mapped back to metric heights (x * sigma +
+per-sample mean), invalid pixels and zero-weight padding samples are
+excluded, and the mean runs over the valid pixels: the masked MAE in
+meters, the reference's one training and validation metric.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def denormalized_masked_l1(pred, target, loss_mask, dsm_mean, dsm_std,
+                           sample_weights=None):
+    """Returns ``(loss, (num, den))`` on one device: ``num`` the masked
+    absolute-error sum in meters, ``den`` the weighted valid-pixel count,
+    ``loss = num / max(den, 1)``. Inputs are NHWC, (B, T, T, 1)."""
+    pred = pred.float()
+    target = target.float()
+    mean = dsm_mean[:, None, None, None]
+    pred_m = pred * dsm_std + mean
+    target_m = target * dsm_std + mean
+
+    weights = loss_mask.float()
+    if sample_weights is not None:
+        weights = weights * sample_weights[:, None, None, None]
+
+    num = (torch.abs(pred_m - target_m) * weights).sum()
+    den = weights.sum()
+    return num / torch.clamp_min(den, 1.0), (num, den)

@@ -1,0 +1,170 @@
+"""Train and eval steps on one device (port of ``resdepth_tpu/train/step.py``
+without the mesh).
+
+A train step assembles the batch on the device (``data.pipeline.
+build_batch``: gather, mask, normalise, augment), runs the UNet in training
+mode with BatchNorm statistics weighted by the 0/1 sample weights,
+takes the denormalised masked L1, back-propagates, steps the optimizer,
+writes the new BatchNorm running statistics and, under a weight EMA,
+moves the EMA. The host sends only the (B, 2) positions and a few (B,)
+vectors per step; the step returns the batch's masked MAE as a device
+scalar, so the loop never waits for the card.
+
+Only the float32 parity policy is ported (``tpu.train_precision`` 'high'
+with ``tpu.compute_dtype`` 'float32'): IEEE fp32, TF32 off for cuDNN convs
+and matmuls.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import numpy as np
+import torch
+
+from resdepth_tpu_torch.data.pipeline import BatchSpec, DeviceRasters, build_batch
+from resdepth_tpu_torch.models.unet import UNet, apply_unet, commit_bn_state
+from resdepth_tpu_torch.train.loss import denormalized_masked_l1
+from resdepth_tpu_torch.train.optim import build_optimizer, get_lr, set_lr
+
+_PRECISION_ITEM = "ROADMAP.md section 1 item 6 (precision modes on Hopper)"
+
+
+def select_train_precision(train_precision: str | None, compute_dtype: str | None,
+                           device: torch.device) -> None:
+    """Check ``tpu.train_precision`` and ``tpu.compute_dtype`` and set the
+    precision policy. Only 'high' with 'float32' is ported: IEEE fp32, with
+    TF32 turned off on CUDA. Any other value raises."""
+    if (train_precision or "high") != "high" or (compute_dtype or "float32") != "float32":
+        raise NotImplementedError(
+            f"tpu.train_precision {train_precision!r} with tpu.compute_dtype "
+            f"{compute_dtype!r} is not ported yet: {_PRECISION_ITEM}. The port "
+            "trains with train_precision 'high' and compute_dtype 'float32'.")
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model being trained, its optimizer and the step count.
+
+    ``ema_model`` (None = no EMA) is a copy of ``model`` whose parameters
+    are the exponential moving average of ``model``'s; it is what
+    validation, checkpoints and serving use (``serve_model``), while
+    ``model`` stays the raw optimizer iterate."""
+    model: UNet
+    optimizer: torch.optim.Optimizer
+    optimizer_name: str
+    weight_decay: float
+    step: int = 0
+    ema_model: UNet | None = None
+
+    @property
+    def lr(self) -> float:
+        return get_lr(self.optimizer)
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        set_lr(self.optimizer, value)
+
+    def serve_model(self) -> UNet:
+        """The weights to evaluate, checkpoint and serve: the EMA with the
+        raw model's BatchNorm statistics when the EMA is on, else the raw
+        model."""
+        if self.ema_model is None:
+            return self.model
+        commit_bn_state(self.ema_model, dict(self.model.named_buffers()))
+        return self.ema_model
+
+
+def init_train_state(model: UNet, optimizer_name: str, lr: float,
+                     weight_decay: float = 0.0, ema: bool = False) -> TrainState:
+    """A TrainState over ``model`` (trained in place). The EMA starts as a
+    copy of the initial weights."""
+    ema_model = None
+    if ema:
+        ema_model = copy.deepcopy(model)
+        ema_model.requires_grad_(False)
+    return TrainState(model=model,
+                      optimizer=build_optimizer(optimizer_name, model.parameters(),
+                                                lr, weight_decay),
+                      optimizer_name=optimizer_name, weight_decay=weight_decay,
+                      ema_model=ema_model)
+
+
+def _on(device, array, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(array, dtype=dtype).to(device)
+
+
+def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
+                    remat: bool = False, ema_decay: float = 0.0):
+    """Build the train step.
+
+    ``step(state, rasters, positions, pair_idx, bounds, weights, generator)
+    -> metric``: one optimizer step on ``state`` (in place) and the batch's
+    masked MAE in meters as a 0-d device tensor. ``generator`` is a
+    ``torch.Generator`` on the rasters' device (augmentation, permutation).
+
+    ``weighted_bn=False`` leaves the sample weights out of the BatchNorm
+    statistics, which is the same only when no sample is padding.
+    ``remat`` recomputes each conv block in the backward pass. ``ema_decay``
+    > 0 moves ``state.ema_model`` toward the new weights after each step.
+
+    JAX's ``steps_per_call`` K > 1 scans K steps in one program to save
+    dispatches; here K calls of this step in sequence are the same thing.
+    """
+    decay = np.float32(ema_decay)
+    keep = float(decay)
+    move = float(np.float32(1) - decay)
+
+    def step(state: TrainState, rasters: DeviceRasters, positions, pair_idx,
+             bounds, weights, generator):
+        device = rasters.dsm_input.device
+        model = state.model
+        model.train()
+        w = _on(device, weights, torch.float32)
+        batch = build_batch(rasters, _on(device, positions), _on(device, pair_idx),
+                            spec, bounds=_on(device, bounds), generator=generator)
+        pred, bn_state = apply_unet(model, batch["input"], train=True,
+                                    sample_weights=w if weighted_bn else None,
+                                    remat=remat)
+        loss, (num, den) = denormalized_masked_l1(
+            pred, batch["target"], batch["loss_mask"], batch["dsm_mean"],
+            spec.dsm_std, w)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        commit_bn_state(model, bn_state)
+        if ema_decay:
+            with torch.no_grad():
+                ema = list(state.ema_model.parameters())
+                torch._foreach_mul_(ema, keep)
+                torch._foreach_add_(ema, list(model.parameters()), alpha=move)
+        state.step += 1
+        return (num / torch.clamp_min(den, 1.0)).detach()
+
+    return step
+
+
+def make_eval_step(spec: BatchSpec):
+    """Build the eval step: ``eval_step(model, rasters, positions, pair_idx,
+    bounds, weights) -> (num, den)`` device scalars, the masked absolute
+    error sum in meters and the valid-pixel count, with BatchNorm running
+    statistics."""
+
+    @torch.no_grad()
+    def eval_step(model: UNet, rasters: DeviceRasters, positions, pair_idx,
+                  bounds, weights):
+        device = rasters.dsm_input.device
+        w = _on(device, weights, torch.float32)
+        batch = build_batch(rasters, _on(device, positions), _on(device, pair_idx),
+                            spec, bounds=_on(device, bounds))
+        pred = apply_unet(model, batch["input"])
+        _, (num, den) = denormalized_masked_l1(
+            pred, batch["target"], batch["loss_mask"], batch["dsm_mean"],
+            spec.dsm_std, w)
+        return num, den
+
+    return eval_step

@@ -9,8 +9,9 @@ the inference CLI against the committed goldens, and the import boundary.
   ``Model_best.npz`` that the JAX ``train.py`` writes on the golden scene
   matches ``tests/goldens/`` at the bars of ``test_demo_goldens.py``:
   1e-4 m on the refined DSM, 5e-3 on the statistics.
-* With ``jax`` and ``jaxlib`` blocked from importing, the port's CLI and
-  ``chip_smoke.py``'s helpers import and refine a small scene.
+* With ``jax`` and ``jaxlib`` blocked from importing, the port's CLIs and
+  ``chip_smoke.py``'s helpers import, refine a small scene and train on
+  another.
 """
 
 import glob
@@ -145,13 +146,16 @@ def _small_artifacts(work, size=64):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """A child interpreter that cannot import JAX imports the CLI module and
-    chip_smoke.py, and refines a small scene on the CPU."""
+    """A child interpreter that cannot import JAX imports the CLI modules and
+    chip_smoke.py, refines a small scene on the CPU and trains on another
+    through the train CLI."""
     script = BLOCK_JAX + textwrap.dedent(f"""
+        import os
         sys.path.insert(0, {REPO!r})
         import numpy as np
         import chip_smoke
         from resdepth_tpu_torch import predict  # noqa: F401
+        from resdepth_tpu_torch import train
         from resdepth_tpu_torch.infer.tiled import predict_linear_blend
         from resdepth_tpu_torch.models.unet import UNetConfig
 
@@ -163,6 +167,19 @@ def test_port_runs_without_jax(tmp_path):
         model = chip_smoke.random_model(config)
         out = predict_linear_blend(model, ds, device="cpu", batch_size=4)
         assert out.shape == (48, 48) and np.isfinite(out).all()
+
+        work = os.path.join({str(tmp_path)!r}, "train")
+        scene = chip_smoke.write_scene(os.path.join(work, "scene"), 96, 96)
+        cfg = chip_smoke.write_train_config(
+            os.path.join(work, "cfg.json"), scene["paths"], os.path.join(work, "runs"),
+            n_samples=8, suffix="nojax",
+            model=dict(depth=2, start_kernel=4, max_filter_depth=8),
+            training=dict(tile_size=16, batch_size=4, n_epochs=1),
+            scheduler=dict(enabled=False))
+        trainer = train.main([cfg, "--device", "cpu"])
+        run = chip_smoke.run_dir_of(os.path.join(work, "runs"), "nojax")
+        assert os.path.exists(os.path.join(run, "checkpoints", "Model_last.npz"))
+        assert np.isfinite(trainer.val_history[0][1])
         assert not any(name.split(".")[0] in ("jax", "jaxlib")
                        for name in sys.modules)
         print("ok", float(np.abs(out - ds.dsm_input).mean()))
@@ -170,7 +187,7 @@ def test_port_runs_without_jax(tmp_path):
     result = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
                             capture_output=True, text=True)
     assert result.returncode == 0, result.stderr[-4000:]
-    assert result.stdout.startswith("ok")
+    assert result.stdout.rstrip().splitlines()[-1].startswith("ok")
 
 
 def test_cli_preset_matches_library_call(tmp_path):

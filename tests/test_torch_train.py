@@ -1,0 +1,461 @@
+"""The port's training slice against the JAX package on the CPU.
+
+* Train steps of
+  ``resdepth_tpu_torch.train.step`` against the JAX ``make_train_step(mesh=
+  None)`` (and its ``steps_per_call=3`` scan) on identical weights and
+  batch (a zero-weight padding sample included): metric, weights after Adam with weight decay and after SGD,
+  BatchNorm state, Adam ``mu``, ``nu`` and ``count``, and the weight EMA.
+* Checkpoints both ways: a port-written ``.npz`` restores in the JAX
+  ``load_checkpoint`` with JAX templates; a JAX-written one resumes in the
+  port, whose next step matches JAX's next step; a reference ``.pth``
+  warm-starts the port with its Adam moments.
+* The slice end to end: the port's CLI and ``train.py`` run 2 epochs from
+  the same initial weights (augmentation and permutation off) to the same
+  per-epoch val MAE and final weights, write the same artifact set, and the
+  port's ``Model_best.npz`` serves through ``python -m
+  resdepth_tpu_torch.predict`` and ``test.py``.
+* Knobs the port does not run yet raise, naming their ROADMAP.md item.
+
+Tolerances (f32 on the CPU; the two frameworks sum in different orders):
+the metric and BN statistics rtol 1e-5; weights after a step rtol 1e-5 and
+atol 1e-6 (an Adam step moves a weight by about lr = 1e-3, so 1e-6 is a
+thousandth of a step); Adam moments 1e-4 relative L2 per tensor (they are
+gradients and squared gradients, compared as gradients are in
+``test_torch_unet.py``); end to end, val MAE within 1e-4 m and final
+weights within 1e-4 relative L2 per tensor after 12 Adam steps.
+"""
+
+import json
+import os
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from resdepth_tpu.data import pipeline as jpipe
+from resdepth_tpu.models import unet as junet
+from resdepth_tpu.train import checkpoint as jckpt
+from resdepth_tpu.train.optim import build_optimizer as jbuild_optimizer
+from resdepth_tpu.train.step import init_train_state as jinit_state
+from resdepth_tpu.train.step import make_train_step as jmake_step
+from resdepth_tpu_torch.data import pipeline as tpipe
+from resdepth_tpu_torch.models import unet as tunet
+from resdepth_tpu_torch.models import weights
+from resdepth_tpu_torch.train import checkpoint as tckpt
+from resdepth_tpu_torch.train import cli
+from resdepth_tpu_torch.train.step import init_train_state, make_train_step
+from resdepth_tpu_torch.train.trainer import checkpoint_trees
+from test_torch_pipeline import _training_dataset, _training_scene
+from test_torch_unet import _jax_weights, _rel_l2
+from torch_unet import TorchUNet
+
+LR = 1e-3
+SETTINGS = dict(n_input_channels=3, start_kernel=4, max_filter_depth=8, depth=2,
+                act_fn_encoder="prelu", outer_skip_BN=True)
+
+
+def _setup(make_geotiff, seed=0):
+    ds = _training_dataset(_training_scene(make_geotiff), "geom-stereo", "train")
+    jconfig = junet.UNetConfig(**SETTINGS)
+    params, state = _jax_weights(jconfig, seed)
+    model = tunet.UNet(tunet.UNetConfig(**SETTINGS))
+    model.load_state_dict(weights.state_dict_from_jax_params(params, state,
+                                                             model.config))
+    return ds, jconfig, params, state, model
+
+
+def _batch(ds, start, size=6):
+    """``size - 1`` real samples and one zero-weight padding sample."""
+    idx = np.arange(start, start + size) % len(ds)
+    weights_ = np.ones(size, np.float32)
+    weights_[-1] = 0.0
+    return (ds.positions[idx], ds.pair_indices[idx], np.zeros((size, 4), np.int32),
+            weights_)
+
+
+def _jax_run(ds, jconfig, params, state, batches, name, wd, ema_decay=0.0,
+             steps_per_call=1):
+    tx = jbuild_optimizer(name, wd)
+    jstate = jinit_state(params, state, tx, LR, ema=ema_decay > 0)
+    spec = jpipe.batch_spec_for(ds)
+    rasters = jpipe.device_put_dataset(ds)
+    key = jax.random.PRNGKey(0)
+    metrics = []
+    if steps_per_call > 1:
+        step = jmake_step(jconfig, spec, tx, donate=False, ema_decay=ema_decay,
+                          steps_per_call=steps_per_call)
+        stacked = [np.stack(a) for a in zip(*batches)]
+        jstate, m = step(jstate, rasters, *stacked, key)
+        return jstate, list(np.asarray(m))
+    step = jmake_step(jconfig, spec, tx, donate=False, ema_decay=ema_decay)
+    for batch in batches:
+        jstate, m = step(jstate, rasters, *batch, key)
+        metrics.append(float(m))
+    return jstate, metrics
+
+
+def _port_run(ds, model, batches, name, wd, ema_decay=0.0, state=None):
+    state = state or init_train_state(model, name, LR, wd, ema=ema_decay > 0)
+    rasters = tpipe.device_put_dataset(ds, "cpu", include_target=True)
+    spec = tpipe.batch_spec_for(ds)
+    generator = torch.Generator().manual_seed(0)
+    step = make_train_step(spec, ema_decay=ema_decay)
+    metrics = [float(step(state, rasters, *b, generator)) for b in batches]
+    return state, metrics
+
+
+def _assert_trees_close(got, want, rtol=1e-5, atol=1e-6):
+    got, want = weights.flatten_keystr(got), weights.flatten_keystr(
+        jax.tree_util.tree_map(np.asarray, want))
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol,
+                                   err_msg=key)
+
+
+def _assert_moments_close(got, want):
+    got, want = weights.flatten_keystr(got), weights.flatten_keystr(
+        jax.tree_util.tree_map(np.asarray, want))
+    assert got.keys() == want.keys()
+    for key in want:
+        assert _rel_l2(got[key], want[key]) <= 1e-4, key
+
+
+def _adam_state(jstate, wd):
+    """optax's ScaleByAdamState: second in the chain under weight decay."""
+    return jstate.opt_state[1] if wd else jstate.opt_state
+
+
+def _check_state(state, jstate, name, wd):
+    trees = checkpoint_trees(state)
+    params = trees["raw_params"] if state.ema_model is not None else trees["params"]
+    _assert_trees_close(params, jstate.params)
+    _assert_trees_close(trees["bn_state"], jstate.bn_state)
+    if state.ema_model is not None:
+        _assert_trees_close(trees["params"], jstate.ema_params)
+    if name == "Adam":
+        mu, nu, count = weights.adam_moments_to_jax(state.model, state.optimizer,
+                                                    state.model.config)
+        adam = _adam_state(jstate, wd)
+        assert count == int(adam.count) == state.step
+        _assert_moments_close(mu, adam.mu)
+        _assert_moments_close(nu, adam.nu)
+
+
+@pytest.mark.parametrize("name,wd,ema_decay", [
+    ("Adam", 1e-5, 0.0), ("Adam", 0.0, 0.9), ("SGD", 1e-5, 0.0)],
+    ids=["adam-wd", "adam-ema", "sgd-wd"])
+def test_train_steps_match_jax(make_geotiff, name, wd, ema_decay):
+    ds, jconfig, params, state, model = _setup(make_geotiff)
+    batches = [_batch(ds, 0), _batch(ds, 6)]
+    jstate, jmetrics = _jax_run(ds, jconfig, params, state, batches, name, wd,
+                                ema_decay)
+    tstate, metrics = _port_run(ds, model, batches, name, wd, ema_decay)
+    np.testing.assert_allclose(metrics, jmetrics, rtol=1e-5)
+    assert tstate.step == 2
+    _check_state(tstate, jstate, name, wd)
+
+
+def test_steps_per_call_is_steps_in_sequence(make_geotiff):
+    """JAX's scanned 3-step call (steps_per_call=3) equals three of the
+    port's steps in sequence."""
+    ds, jconfig, params, state, model = _setup(make_geotiff, seed=1)
+    batches = [_batch(ds, 6 * k) for k in range(3)]
+    jstate, jmetrics = _jax_run(ds, jconfig, params, state, batches, "Adam",
+                                1e-5, steps_per_call=3)
+    tstate, metrics = _port_run(ds, model, batches, "Adam", 1e-5)
+    np.testing.assert_allclose(metrics, jmetrics, rtol=1e-5)
+    _check_state(tstate, jstate, "Adam", 1e-5)
+
+
+@pytest.mark.parametrize("name,wd", [("Adam", 1e-5), ("Adam", 0.0), ("SGD", 1e-5)],
+                         ids=["adam-chain", "adam-alone", "sgd"])
+def test_port_checkpoint_restores_in_jax(make_geotiff, tmp_path, name, wd):
+    """The port's .npz (EMA on, so raw_params too) loads in the JAX
+    load_checkpoint with JAX templates, every leaf at the port's value."""
+    ds, jconfig, params, state, model = _setup(make_geotiff, seed=2)
+    tstate, _ = _port_run(ds, model, [_batch(ds, 0)], name, wd, ema_decay=0.5)
+    path = str(tmp_path / "Model_last.npz")
+    trees = checkpoint_trees(tstate)
+    tckpt.save_checkpoint(path, epoch=4, lr=LR, loss_val=0.5, **trees)
+
+    tx = jbuild_optimizer(name, wd)
+    template = jinit_state(params, state, tx, LR)
+    meta, jparams, jbn, jopt, jraw = jckpt.load_checkpoint(
+        path, params_template=template.params, bn_template=template.bn_state,
+        opt_template=template.opt_state, raw_template=template.params)
+    assert meta["epoch"] == 4 and meta["loss_val"] == 0.5 and meta["format_version"] == 1
+    _assert_trees_close(trees["params"], jparams, rtol=0, atol=0)
+    _assert_trees_close(trees["bn_state"], jbn, rtol=0, atol=0)
+    _assert_trees_close(trees["raw_params"], jraw, rtol=0, atol=0)
+    assert (jax.tree_util.tree_structure(jopt)
+            == jax.tree_util.tree_structure(template.opt_state))
+    if name == "Adam":
+        mu, nu, count = weights.adam_moments_to_jax(tstate.model, tstate.optimizer,
+                                                    tstate.model.config)
+        adam = jopt[1] if wd else jopt
+        assert int(adam.count) == count == 1
+        _assert_trees_close(mu, adam.mu, rtol=0, atol=0)
+        _assert_trees_close(nu, adam.nu, rtol=0, atol=0)
+    else:
+        assert jax.tree_util.tree_leaves(jopt) == []
+    # and back into the port
+    loaded = tckpt.load_checkpoint(path)
+    assert loaded["meta"] == meta
+    _assert_trees_close(loaded["raw_params"], trees["raw_params"], rtol=0, atol=0)
+
+
+def test_jax_checkpoint_resumes_in_port(make_geotiff, tmp_path):
+    """JAX steps once and saves; the port restores the file (weights, BN,
+    Adam state) and steps on the next batch to JAX's second step."""
+    ds, jconfig, params, state, _ = _setup(make_geotiff, seed=3)
+    b1, b2 = _batch(ds, 0), _batch(ds, 6)
+    jstate1, _ = _jax_run(ds, jconfig, params, state, [b1], "Adam", 1e-5)
+    path = str(tmp_path / "Model_last.npz")
+    jckpt.save_checkpoint(path, epoch=0, params=jstate1.params,
+                          bn_state=jstate1.bn_state, opt_state=jstate1.opt_state,
+                          lr=LR)
+    jstate2, jmetrics = _jax_run(ds, jconfig, params, state, [b1, b2], "Adam", 1e-5)
+
+    model = tunet.init_unet(tunet.UNetConfig(**SETTINGS), torch.Generator().manual_seed(0))
+    tstate = init_train_state(model, "Adam", LR, 1e-5)
+    meta = cli.restore(tstate, path, model.config, "Adam", _Logger())
+    assert meta["epoch"] == 0
+    _, metrics = _port_run(ds, model, [b2], "Adam", 1e-5, state=tstate)
+    np.testing.assert_allclose(metrics, jmetrics[1:], rtol=1e-5)
+    tstate.step = 2
+    _check_state(tstate, jstate2, "Adam", 1e-5)
+
+
+class _Logger:
+    def info(self, message):
+        pass
+
+
+def test_reference_pth_warm_starts_with_adam_moments(tmp_path):
+    """A reference .pth ({model_state_dict, optimizer_state_dict, ...}) from
+    the torch oracle after one Adam step: the port restores the weights and
+    the moments by parameter position, as the JAX importer reads them."""
+    from resdepth_tpu.models import torch_import
+
+    torch.manual_seed(0)
+    oracle = TorchUNet(**SETTINGS)
+    opt = torch.optim.Adam(oracle.parameters(), lr=LR, weight_decay=1e-5)
+    x = torch.randn(2, 3, 16, 16)
+    oracle(x).square().mean().backward()
+    opt.step()
+    path = str(tmp_path / "Model_best.pth")
+    torch.save({"epoch": 7, "model_state_dict": oracle.state_dict(),
+                "optimizer_state_dict": opt.state_dict(), "loss_val": 0.25,
+                "scheduler_state_dict": {"last_epoch": 7, "_last_lr": [LR / 2],
+                                         "base_lrs": [LR], "step_size": 5,
+                                         "gamma": 0.5}}, path)
+
+    model = tunet.UNet(tunet.UNetConfig(**SETTINGS))
+    state = init_train_state(model, "Adam", LR, 1e-5)
+    meta = cli.restore(state, path, model.config, "Adam", _Logger())
+    for (name, p), q in zip(model.named_parameters(), oracle.parameters()):
+        assert torch.equal(p, q), name
+        entry = state.optimizer.state[p]
+        assert torch.equal(entry["exp_avg"], opt.state[q]["exp_avg"]), name
+        assert int(entry["step"]) == 1
+    assert meta["epoch"] == 7 and meta["loss_val"] == 0.25 and meta["lr"] == LR
+    assert meta["scheduler_state"]["lr"] == LR / 2
+
+    jconfig = junet.UNetConfig(**SETTINGS)
+    _, _, (jmu, jnu, jcount), jmeta = torch_import.load_reference_checkpoint(path, jconfig)
+    mu, nu, count = weights.adam_moments_to_jax(model, state.optimizer, model.config)
+    assert count == jcount == 1 and jmeta == meta
+    _assert_trees_close(mu, jmu, rtol=0, atol=0)
+    _assert_trees_close(nu, jnu, rtol=0, atol=0)
+
+
+# ------------------------------ the slice end to end ----------------------- #
+
+E2E_MODEL = dict(depth=2, start_kernel=4, max_filter_depth=8)
+
+
+def _e2e_config(work, scene, root, init, **overrides):
+    """Two epochs of 6 steps, augmentation and permutation off, warm-started
+    from ``init`` so both trainers begin from the same weights."""
+    sections = dict(
+        n_samples=24, suffix="e2e",
+        model={**E2E_MODEL, **({"pretrained_path": init} if init else {})},
+        training={"tile_size": 16, "batch_size": 4, "n_epochs": 2, "augment": False},
+        stereopair_settings={"use_all_stereo_pairs": True,
+                             "permute_images_within_pair": False},
+        optimizer={"name": "Adam", "learning_rate": LR},
+        scheduler={"enabled": True, "name": "StepLR",
+                   "settings": {"step_size": 1, "gamma": 0.5}},
+        general={"save_model_rate": 2, "evaluate_rate": 1, "random_seed": 0},
+        tpu={"data_parallel": False})
+    sections.update(overrides)
+    return chip_smoke.write_train_config(os.path.join(work, f"{os.path.basename(root)}.json"),
+                                         scene["paths"], root, **sections)
+
+
+def _val_maes(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return [(r["step"], r["value"]) for r in lines if r.get("tag") == "val/MAE_metric"]
+
+
+def _listing(run_dir):
+    return sorted(os.path.relpath(os.path.join(d, f), run_dir)
+                  for d, _, files in os.walk(run_dir) for f in files
+                  if not f.startswith("events."))
+
+
+@pytest.fixture(scope="module")
+def e2e_runs(tmp_path_factory):
+    """The JAX train.py and the port's CLI on the same scene and config."""
+    import train as jax_train
+    from resdepth_tpu.config.schema import count_input_channels
+
+    work = str(tmp_path_factory.mktemp("e2e"))
+    scene = chip_smoke.write_scene(os.path.join(work, "scene"), 96, 96)
+    jconfig = junet.UNetConfig(n_input_channels=count_input_channels("geom-stereo"),
+                               bias_conv_layer=True, **E2E_MODEL)
+    params, bn_state = junet.init_unet(jax.random.PRNGKey(5), jconfig)
+    init = os.path.join(work, "init", "checkpoints", "init.npz")
+    os.makedirs(os.path.dirname(init))
+    jckpt.save_checkpoint(init, epoch=-1, params=params, bn_state=bn_state,
+                          opt_state=jbuild_optimizer("Adam", 1e-5).init(params))
+    runs = {}
+    argv = sys.argv
+    try:
+        sys.argv = ["train.py", _e2e_config(work, scene, os.path.join(work, "jax"), init)]
+        jax_train.main()
+    finally:
+        sys.argv = argv
+    runs["jax"] = chip_smoke.run_dir_of(os.path.join(work, "jax"), "e2e")
+    trainer = cli.main([_e2e_config(work, scene, os.path.join(work, "port"), init),
+                        "--device", "cpu"])
+    runs["port"] = chip_smoke.run_dir_of(os.path.join(work, "port"), "e2e")
+    return {"work": work, "scene": scene, "runs": runs, "trainer": trainer}
+
+
+def test_cli_trains_like_train_py(e2e_runs):
+    """Same per-epoch val MAE and final weights as the JAX trainer."""
+    runs = e2e_runs["runs"]
+    want, got = _val_maes(runs["jax"]), _val_maes(runs["port"])
+    assert [e for e, _ in got] == [e for e, _ in want] == [0, 1]
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                               rtol=0, atol=1e-4)
+    assert e2e_runs["trainer"].val_history == got
+    last = {name: tckpt.load_checkpoint(os.path.join(run, "checkpoints",
+                                                     "Model_last.npz"))
+            for name, run in runs.items()}
+    assert last["port"]["meta"]["epoch"] == last["jax"]["meta"]["epoch"] == 1
+    np.testing.assert_allclose(last["port"]["meta"]["lr"], last["jax"]["meta"]["lr"],
+                               rtol=1e-6)
+    assert last["port"]["meta"]["scheduler_state"] == last["jax"]["meta"]["scheduler_state"]
+    for tree in ("params", "bn_state"):
+        got_leaves = weights.flatten_keystr(last["port"][tree])
+        want_leaves = weights.flatten_keystr(last["jax"][tree])
+        assert got_leaves.keys() == want_leaves.keys()
+        for key in want_leaves:
+            assert _rel_l2(got_leaves[key], want_leaves[key]) <= 1e-4, key
+    assert last["port"]["adam"][2] == last["jax"]["adam"][2] == 12
+
+
+def test_cli_writes_the_train_py_artifacts(e2e_runs):
+    runs = e2e_runs["runs"]
+    assert _listing(runs["port"]) == _listing(runs["jax"])
+    assert "checkpoints/Model_best.npz" in _listing(runs["port"])
+    for name in ("config.json", "model_config.json"):
+        with open(os.path.join(runs["port"], name)) as f:
+            port = json.load(f)
+        with open(os.path.join(runs["jax"], name)) as f:
+            want = json.load(f)
+        if name == "config.json":
+            for cfg in (port, want):
+                cfg["output"] = {k: v for k, v in cfg["output"].items()
+                                 if k == "suffix"}
+        assert port == want, name
+
+
+def test_port_checkpoint_serves_in_both_clis(e2e_runs, monkeypatch):
+    """The port's Model_best.npz refines the scene through the port's
+    predict CLI and through test.py, to the same heights within 1e-4 m."""
+    import test as jax_test
+    from resdepth_tpu.geo.raster import open_raster
+
+    work, scene = e2e_runs["work"], e2e_runs["scene"]
+    model = chip_smoke.serving_model_artifacts(e2e_runs["runs"]["port"])
+    out = {}
+    for name in ("port", "jax"):
+        out_dir = os.path.join(work, f"serve_{name}")
+        config = chip_smoke.write_config(os.path.join(work, f"serve_{name}.json"),
+                                         scene["paths"], model, out_dir,
+                                         tile_size=16, batch_size=8)
+        if name == "port":
+            chip_smoke.run_cli(config, "cpu")
+        else:
+            monkeypatch.setattr(sys, "argv", ["test.py", config])
+            jax_test.main()
+        path = chip_smoke.output_paths(out_dir)["prediction"]
+        out[name] = open_raster(path).band(1)
+    assert np.isfinite(out["port"]).all() and out["port"].shape == (96, 96)
+    np.testing.assert_allclose(out["port"], out["jax"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("overrides,item", [
+    (dict(tpu={"train_precision": "default"}), "item 6"),
+    (dict(tpu={"compute_dtype": "bfloat16"}), "item 6"),
+    (dict(tpu={"distributed": True}), "item 10"),
+    (dict(tpu={"dcn_slices": 2}), "item 10"),
+    (dict(tpu={"profile_dir": "trace"}), "item 11"),
+    (dict(tpu={"max_device_pixels": 2048}), "item 7")],
+    ids=["train_precision", "compute_dtype", "distributed", "dcn_slices",
+         "profile_dir", "max_device_pixels"])
+def test_not_ported_knobs_raise(e2e_runs, tmp_path, overrides, item):
+    config = _e2e_config(str(tmp_path), e2e_runs["scene"], str(tmp_path / "runs"),
+                         None, **overrides)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1 {item}"):
+        cli.main([config, "--device", "cpu"])
+
+
+def test_device_is_checked_before_training(e2e_runs, tmp_path, monkeypatch):
+    config = _e2e_config(str(tmp_path), e2e_runs["scene"], str(tmp_path / "runs"),
+                         None, tpu={"data_parallel": True})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([config])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.main([config, "--device", "cuda"])
+    monkeypatch.setenv("RESDEPTH_DISTRIBUTED", "1")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.main([config, "--device", "cpu"])
+
+
+def test_cli_auto_resumes_from_model_last(e2e_runs, tmp_path):
+    """``general.auto_resume`` continues from the newest ``Model_last.npz``
+    under the output root: epoch numbering goes on at 2, the resumed model
+    carries the first run's Model_best and its best loss."""
+    import shutil
+
+    root = str(tmp_path / "runs")
+    shutil.copytree(e2e_runs["runs"]["port"],
+                    os.path.join(root, os.path.basename(e2e_runs["runs"]["port"])))
+    config = _e2e_config(str(tmp_path), e2e_runs["scene"], root, None,
+                         suffix="resumed",
+                         training={"tile_size": 16, "batch_size": 4, "n_epochs": 1,
+                                   "augment": False},
+                         general={"save_model_rate": 2, "evaluate_rate": 1,
+                                  "random_seed": 0, "auto_resume": True})
+    trainer = cli.main([config, "--device", "cpu"])
+    first = e2e_runs["trainer"]
+    assert trainer.start_epoch == 2 and [e for e, _ in trainer.val_history] == [2]
+    assert trainer.best_loss == min(first.best_loss, trainer.val_history[0][1])
+    resumed = chip_smoke.run_dir_of(root, "resumed")
+    assert os.path.exists(os.path.join(resumed, "checkpoints", "Model_best.npz"))
+    meta = tckpt.load_meta(os.path.join(resumed, "checkpoints", "Model_last.npz"))
+    assert meta["epoch"] == 2
+    # StepLR(step_size 1, gamma 0.5) stepped once more after the resume
+    assert meta["scheduler_state"]["n_steps"] == 3

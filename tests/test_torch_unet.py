@@ -208,14 +208,6 @@ def test_bfloat16_close_to_jax_bfloat16():
     assert np.abs(got - want).mean() <= 2e-3
 
 
-def test_train_mode_raises():
-    model = tunet.UNet(tunet.UNetConfig(n_input_channels=1, depth=2,
-                                        start_kernel=4, max_filter_depth=8))
-    assert not model.training
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()
-
-
 def test_init_unet_is_seeded():
     config = tunet.UNetConfig(**_config(3, act_fn_encoder="prelu"))
     a = tunet.init_unet(config, torch.Generator().manual_seed(7)).state_dict()
@@ -224,3 +216,167 @@ def test_init_unet_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["encoder.0.0.0.weight"], c["encoder.0.0.0.weight"])
     assert torch.all(a["encoder.0.0.1.running_var"] == 1)
+
+
+# ------------------------------ training mode ------------------------------ #
+# Train-mode forward, new BatchNorm state and gradients against the JAX
+# apply_unet(train=True) and jax.grad, on the same weights and batch. The
+# loss is sum(y * g) for a fixed random g, so every output pixel carries
+# gradient. Tolerances: outputs and BN state as in eval mode (rtol 1e-5,
+# atol 1e-4); gradients to 1e-4 relative L2 per tensor (sums over batch and
+# pixels in another order than XLA's).
+
+TRAIN_CASES = [
+    dict(),
+    dict(act_fn_encoder="lrelu", act_fn_decoder="lrelu",
+         act_fn_bottleneck="lrelu", up_mode="bilinear", outer_skip_BN=True),
+    dict(act_fn_encoder="prelu", act_fn_decoder="prelu",
+         act_fn_bottleneck="prelu", outer_skip_BN=True),
+]
+TRAIN_IDS = ["relu-transpose", "lrelu-bilinear-skipbn", "prelu-transpose-skipbn"]
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _torch_train(model, x, g, weights=None, remat=False):
+    """Output, new BN state (by buffer name) and gradients (by parameter
+    name) of one train-mode forward and backward."""
+    model.zero_grad(set_to_none=True)
+    xt = torch.from_numpy(x)
+    w = None if weights is None else torch.from_numpy(weights)
+    y, bn_state = tunet.apply_unet(model, xt, train=True, sample_weights=w,
+                                   remat=remat)
+    (y * torch.from_numpy(g)).sum().backward()
+    grads = {name: p.grad.clone() for name, p in model.named_parameters()}
+    return y.detach().numpy(), bn_state, grads
+
+
+def _jax_train(jconfig, params, state, x, g, weights=None):
+    def loss(p):
+        y, new_state = junet.apply_unet(
+            jconfig, p, state, jnp.asarray(x), train=True,
+            sample_weights=None if weights is None else jnp.asarray(weights))
+        return (y * jnp.asarray(g)).sum(), (y, new_state)
+    grads, (y, new_state) = jax.grad(loss, has_aux=True)(params)
+    return np.asarray(y), new_state, grads
+
+
+def _check_against_jax(config, got, want):
+    y, bn_state, grads = got
+    jy, jstate, jgrads = want
+    np.testing.assert_allclose(y, jy, **F32)
+    torch_bn = {}
+    for name, value in bn_state.items():
+        torch_bn[name] = value
+    want_bn = weights.state_dict_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jgrads), jstate, config)
+    assert set(torch_bn) == {k for k in want_bn if k.endswith(("running_mean",
+                                                               "running_var"))}
+    for name, value in torch_bn.items():
+        np.testing.assert_allclose(value.numpy(), want_bn[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    want_grads = weights.state_dict_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jgrads), None, config)
+    assert set(grads) == set(want_grads)
+    for name, value in grads.items():
+        assert _rel_l2(value.numpy(), want_grads[name].numpy()) <= 1e-4, name
+
+
+@pytest.mark.parametrize("overrides", TRAIN_CASES, ids=TRAIN_IDS)
+def test_train_forward_and_grads_match_jax(overrides):
+    jconfig, params, state, model = _pair(3, overrides, seed=6)
+    model.train()
+    x = _input(3, seed=7, batch=3)
+    g = np.random.default_rng(8).normal(size=x.shape[:3] + (1,)).astype(np.float32)
+    got = _torch_train(model, x, g)
+    _check_against_jax(model.config, got, _jax_train(jconfig, params, state, x, g))
+    # apply_unet(train=True) leaves the buffers as they were
+    np.testing.assert_array_equal(model.state_dict()["encoder.0.0.1.running_mean"].numpy(),
+                                  state["encoder"][0]["bn"]["mean"])
+
+
+@pytest.mark.parametrize("overrides", TRAIN_CASES, ids=TRAIN_IDS)
+def test_zero_weight_padding_changes_nothing(overrides):
+    """Two zero-weight samples appended to a batch of three: the real
+    samples' outputs, the BN state and the gradients equal the unpadded
+    batch's, in the port and against JAX's padded batch."""
+    jconfig, params, state, model = _pair(3, overrides, seed=9)
+    x = _input(3, seed=10, batch=3)
+    pad = _input(3, seed=11, batch=2) * 5.0
+    xp = np.concatenate([x, pad])
+    w = np.array([1, 1, 1, 0, 0], np.float32)
+    g = np.random.default_rng(12).normal(size=x.shape[:3] + (1,)).astype(np.float32)
+    gp = np.concatenate([g, np.zeros((2,) + g.shape[1:], np.float32)])
+
+    y, bn_state, grads = _torch_train(model, x, g)
+    yp, bn_pad, grads_pad = _torch_train(model, xp, gp, weights=w)
+    np.testing.assert_allclose(yp[:3], y, **F32)
+    for name in bn_state:
+        np.testing.assert_allclose(bn_pad[name].numpy(), bn_state[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    for name in grads:
+        assert _rel_l2(grads_pad[name].numpy(), grads[name].numpy()) <= 1e-4, name
+    _check_against_jax(model.config, (yp, bn_pad, grads_pad),
+                       _jax_train(jconfig, params, state, xp, gp, weights=w))
+
+
+def test_remat_gives_the_same_gradients():
+    _, _, _, model = _pair(3, dict(act_fn_encoder="prelu", outer_skip_BN=True),
+                           seed=13)
+    x = _input(3, seed=14, batch=2)
+    g = np.random.default_rng(15).normal(size=x.shape[:3] + (1,)).astype(np.float32)
+    w = np.array([1, 0], np.float32)
+    y, bn_state, grads = _torch_train(model, x, g, weights=w)
+    y_r, bn_r, grads_r = _torch_train(model, x, g, weights=w, remat=True)
+    np.testing.assert_array_equal(y_r, y)
+    assert bn_r.keys() == bn_state.keys()
+    for name in grads:
+        np.testing.assert_allclose(grads_r[name].numpy(), grads[name].numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+def test_module_forward_in_training_mode_writes_running_stats():
+    """``model.train(); model(x)`` writes the new running statistics into
+    the buffers (torch's habit); ``apply_unet(train=True)`` returns them."""
+    _, _, _, model = _pair(1, dict(), seed=16)
+    x = _input(1, seed=17)
+    _, bn_state = tunet.apply_unet(model, torch.from_numpy(x), train=True)
+    model.train()
+    with torch.no_grad():
+        model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    buffers = dict(model.named_buffers())
+    for name, value in bn_state.items():
+        assert torch.equal(buffers[name], value), name
+    assert model.training
+
+
+def test_parameter_order_is_the_reference_order():
+    """Torch optimizer state indexes parameters by position: the port's
+    order must be the reference's for a .pth optimizer state to load."""
+    kwargs = _config(3, act_fn_encoder="prelu", outer_skip_BN=True)
+    oracle = TorchUNet(**kwargs)
+    model = tunet.UNet(tunet.UNetConfig(**kwargs))
+    assert list(model.state_dict()) == list(oracle.state_dict())
+    assert [n for n, _ in model.named_parameters()] == \
+        [n for n, _ in oracle.named_parameters()]
+
+
+@pytest.mark.parametrize("mode,n_in,overrides", CASES, ids=CASE_IDS)
+def test_jax_params_round_trip(mode, n_in, overrides):
+    """jax_params_from_state_dict inverts state_dict_from_jax_params, tree
+    for tree and leaf for leaf."""
+    jconfig, params, state, model = _pair(n_in, overrides, seed=18)
+    got_params, got_state = weights.jax_params_from_state_dict(model.state_dict(),
+                                                               model.config)
+    assert jax.tree_util.tree_structure(got_params) == \
+        jax.tree_util.tree_structure(params)
+    assert jax.tree_util.tree_structure(got_state) == \
+        jax.tree_util.tree_structure(state)
+    for a, b in zip(jax.tree_util.tree_leaves((got_params, got_state)),
+                    jax.tree_util.tree_leaves((params, state))):
+        np.testing.assert_array_equal(a, b)
+    assert set(weights.flatten_keystr(got_params)) == {
+        jax.tree_util.keystr(p) for p, _ in
+        jax.tree_util.tree_flatten_with_path(params)[0]}
