@@ -14,16 +14,20 @@ found:
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds every kernel source at once and the libraries load;
   3. kernels: K1 and K2 against the plain stitch at the main path's shape
-     (a batch of 128 tiles of 256 px on a 4096x4096 canvas), with times;
+     (a batch of 128 tiles of 256 px on a 4096x4096 canvas), with times
+     and their bound (the bytes they must move);
   4. flagship: a seeded 4096x4096 geom-stereo scene (961 tiles) refined by
      the CLI with K1 and with K2, in float32 (TF32 off) and in bfloat16;
      the outputs exist and are finite, the launch counters show that every
      stitch went through the kernels, and the K1 and K2 scenes agree;
   5. card against CPU: a 512x512 crop refined on the card (K2, whose sum
      order is the plain stitch's) and on the CPU, within 1e-4 m;
-  6. conv: kernel K3 at the flagship's 3x3 conv shapes at batch 128, in
-     float32 and bfloat16, against the plain version (cuDNN, TF32 off),
-     with times;
+  6. conv: kernel K3 (``wgmma`` fed by TMA; the SASS of its library must
+     hold HGMMA and UTMALDG) at the flagship's 3x3 conv shapes at batch 128
+     and at ragged shapes, in float32 (the 3-pass bf16 split) and bfloat16,
+     against the plain version on cuDNN, TF32 off; times of K3, the plain
+     version, one ``F.conv2d`` (``library_ms``), for float32 cuDNN with
+     TF32 on and the split pass alone, each beside K3's bound;
   7. train: the flagship trained on a seeded 2048x2048 scene by the train
      CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
      float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
@@ -83,6 +87,15 @@ CONV_CASES = ((256, 3, 64, "relu"), (256, 64, 64, "relu"),
               (128, 128, 128, "relu"), (64, 256, 256, "relu"),
               (32, 512, 512, "relu"), (16, 512, 512, "relu"),
               (128, 128, 128, "lrelu"), (64, 256, 256, "prelu"))
+# Ragged shapes (N, H, W, Cin, Cout, activation): pixel tiles past the
+# image's edge, Cin padded to 16, Cout not a multiple of 8 or of 64.
+CONV_RAGGED = ((1, 17, 23, 5, 7, "prelu"), (3, 40, 9, 16, 72, "lrelu"),
+               (2, 20, 150, 80, 40, "none"))
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# memory bytes/s and bf16 tensor-core FLOP/s, for the kernels' bounds.
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
 
 # Phase 7: training on a seeded scene at the flagship's width.
 TRAIN_SCENE = 2048
@@ -102,10 +115,8 @@ def write_scene(out_dir: str, rows: int, cols: int, seed: int = SEED) -> dict:
     hillshade ortho views, building and water masks) as uncompressed
     GeoTIFFs plus the image and pair lists. Returns the paths and the
     orthos' mean and standard deviation (the image normalisation)."""
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    from make_demo_data import GSD, NODATA, hillshade, synth_city
-
-    from resdepth_tpu.geo import tiff
+    from resdepth_tpu_torch.geo import tiff
+    from resdepth_tpu_torch.utils.synth import GSD, NODATA, hillshade, synth_city
 
     os.makedirs(out_dir, exist_ok=True)
     geotransform = (465000.0, GSD, 0.0, 5247000.0, 0.0, -GSD)
@@ -159,7 +170,7 @@ def write_model_artifacts(out_dir: str, config, input_channels: str,
     """The three artifacts an inference config names: a reference-layout
     ``.pth`` checkpoint, ``model_config.json`` and the normalisation
     pickles, as ``train.py`` writes them."""
-    from resdepth_tpu.data import control_files
+    from resdepth_tpu_torch.data import control_files
 
     os.makedirs(out_dir, exist_ok=True)
     weights = os.path.join(out_dir, "Model_best.pth")
@@ -317,8 +328,8 @@ def stitch_batches(size: int = SCENE_SIZE, tile: int = TILE,
     """The first two batches of the main path's grid (stride tile/2) with
     random normalised tiles, per-tile means near 420 m and the blend
     weights of ``ops.blend``; the second batch overlaps the first."""
-    from resdepth_tpu.geo.grid import create_regular_grid, positions_as_array
-    from resdepth_tpu.ops import blend
+    from resdepth_tpu_torch.geo.grid import create_regular_grid, positions_as_array
+    from resdepth_tpu_torch.ops import blend
     from resdepth_tpu_torch.ops.stitch import batch_bounds
 
     area = {"x_extent": [(0, size - 1)], "y_extent": [(0, size - 1)]}
@@ -391,8 +402,11 @@ def phase_kernels() -> dict:
         for name in order:
             times[name].append(cuda_ms(timers[name]))
     plain_ms = float(np.mean(times["plain"]))
+    bound, bound_by = stitch_bound(second)
     for key in ("k1", "k2"):
-        result[key].update(ms=float(np.mean(times[key])), plain_ms=plain_ms)
+        # No single PyTorch call computes the stitch: library_ms is None.
+        result[key].update(ms=float(np.mean(times[key])), plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by, library_ms=None)
     spread = "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
                        for k, v in times.items())
     log("kernels", f"B={BATCH} T={TILE} canvas {SCENE_SIZE}^2 at heights "
@@ -401,12 +415,27 @@ def phase_kernels() -> dict:
                     f"(bitwise equal to plain: {r['bitwise_plain']}), "
                     f"{r['ms']:.4f} ms" for k, r in result.items())
         + f"; K2 bitwise reproducible: True; plain on CUDA {plain_ms:.4f} ms "
-        f"(CUDA events, mean of 2x20 launches; the two means: {spread})")
+        f"(CUDA events, mean of 2x20 launches; the two means: {spread}); "
+        f"bound {bound:.4f} ms ({bound_by})")
     return result
 
 
+def stitch_bound(batch: dict) -> tuple:
+    """The stitch's bound for one batch: the tiles, positions, blend weights
+    and means read once, and the canvas pixels the batch covers read and
+    written once; a few operations a pixel, so bytes bound it."""
+    tile = batch["tiles"].shape[1]
+    covered = np.zeros((SCENE_SIZE, SCENE_SIZE), bool)
+    for y, x in batch["positions"].numpy():
+        covered[y:y + tile, x:x + tile] = True
+    n_bytes = sum(batch[k].numel() * batch[k].element_size()
+                  for k in ("tiles", "positions", "wy", "wx", "means"))
+    n_bytes += 2 * 4 * int(covered.sum())
+    return bound_ms(n_bytes, 3.0 * batch["tiles"].numel())
+
+
 def _check_outputs(out_dir: str, shape) -> np.ndarray:
-    from resdepth_tpu.geo.raster import open_raster
+    from resdepth_tpu_torch.geo.raster import open_raster
 
     paths = output_paths(out_dir)
     for path in paths.values():
@@ -487,7 +516,7 @@ TIMED_STEPS = ("TileDataset", "serving_model", "device_put_dataset",
 def _timed_steps():
     """Wrap the CLI's steps (and ``write_raster``) with host-clock timers
     while the block runs; yields the seconds summed per step."""
-    from resdepth_tpu.geo import raster as raster_mod
+    from resdepth_tpu_torch.geo import raster as raster_mod
     from resdepth_tpu_torch import predict
 
     seconds = {}
@@ -516,8 +545,8 @@ def _timed_steps():
 def _tile_dataset(paths: dict, size: int, image_mean: float, image_std: float,
                   tile: int = TILE, stride: int | None = None):
     """The 'test'-strategy TileDataset the CLI builds for the whole scene."""
-    from resdepth_tpu.data import control_files
-    from resdepth_tpu.data.dataset import TileDataset
+    from resdepth_tpu_torch.data import control_files
+    from resdepth_tpu_torch.data.dataset import TileDataset
 
     entry = {"raster_in": paths["raster_in"],
              "image_list": control_files.read_imagelist_from_file(
@@ -591,8 +620,8 @@ def phase_steady(scene: dict, model_path: str) -> dict:
 def phase_crop(work: str, scene: dict, model_path: str) -> float:
     """The f32 refined scene of a 512x512 crop on the card (TF32 off) against
     the port's CPU path (plain stitch)."""
-    from resdepth_tpu.geo import raster as raster_mod
-    from resdepth_tpu.geo import tiff
+    from resdepth_tpu_torch.geo import raster as raster_mod
+    from resdepth_tpu_torch.geo import tiff
     from resdepth_tpu_torch import predict
     from resdepth_tpu_torch.infer.tiled import predict_linear_blend
     from resdepth_tpu_torch.models import weights
@@ -647,65 +676,164 @@ def bf16_ulps(reference: np.ndarray, n: int = 2) -> float:
     return n * float(torch.finfo(torch.bfloat16).eps) * 2.0 ** np.floor(np.log2(top))
 
 
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16) -> tuple:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate; and which bounds it."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def conv_bound(x, c_out: int) -> tuple:
+    """K3's bound: x, the weights, bias and slopes read once and the output
+    written once in ``x.dtype``; 2·N·H·W·9·Cin·Cout operations at the bf16
+    tensor rate, three times that for float32's three bf16 passes."""
+    n, h, w, c_in = x.shape
+    size = x.element_size()
+    n_bytes = (x.numel() + 9 * c_in * c_out + n * h * w * c_out) * size + 8 * c_out
+    passes = 3 if x.dtype == torch.float32 else 1
+    return bound_ms(n_bytes, passes * 2.0 * n * h * w * 9 * c_in * c_out)
+
+
+def sass_counts(library: str) -> dict:
+    """Counts of the wgmma (HGMMA) and TMA load (UTMALDG) instructions in
+    the SASS of a built library (``cuobjdump -sass``)."""
+    from resdepth_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    words = sass.split()
+    return {op: sum(1 for w in words if w.split(".")[0] == op)
+            for op in ("HGMMA", "UTMALDG")}
+
+
+def _conv_inputs(generator, device, dtype, n, h, w, c_in, c_out):
+    x = torch.randn((n, h, w, c_in), generator=generator, device=device).to(dtype)
+    kernel = torch.randn((3, 3, c_in, c_out), generator=generator,
+                         device=device) / (3.0 * c_in ** 0.5)
+    bias = 0.1 * torch.randn(c_out, generator=generator, device=device)
+    slope = 0.3 * torch.rand(c_out, generator=generator, device=device)
+    return x, kernel, bias, slope
+
+
+def _library_conv(x, kernel, bias):
+    """One PyTorch call for the conv and its bias (cuDNN), on the NCHW view
+    of ``x`` in ``x.dtype``: the yardstick ``library_ms`` times."""
+    return F.conv2d(x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(3, 2, 0, 1),
+                    bias.to(x.dtype), padding=1)
+
+
 def phase_conv() -> dict:
-    """K3 against the plain version (cuDNN, TF32 off) at the flagship's
-    conv shapes. The launch counter is zeroed before each case's one call
-    through ``conv3x3_bias_act`` and read after it; the timing launches
-    come later and are not counted."""
-    from resdepth_tpu_torch.ops import conv
+    """K3 against the plain version at the flagship's conv shapes and at
+    ragged ones, in float32 and bfloat16; the SASS of the built library
+    holds wgmma and TMA loads. The launch counters are zeroed before each
+    case's one call through ``conv3x3_bias_act`` and read after it; the
+    timing launches come later and are not counted. Times, from CUDA events
+    in turns: K3, the plain version, ``F.conv2d`` in ``x.dtype`` with TF32
+    off (``library_ms``) and, for float32, with TF32 on and the split pass
+    alone."""
+    from resdepth_tpu_torch.ops import build, conv
+
+    sass = sass_counts(build.library_path("conv"))
+    report = [line.strip() for line in build.BUILD_LOGS.get("conv", "").splitlines()
+              if "registers" in line or "spill" in line]
+    log("conv", f"csrc/conv.cu SASS: {sass}; ptxas: {' | '.join(report) or 'reused build'}")
+    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        raise AssertionError(f"the conv library lacks wgmma or TMA loads: {sass}")
 
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     generator = torch.Generator(device=device).manual_seed(SEED)
     result = {}
+    cases = ([(CONV_BATCH, s, s, *rest) for s, *rest in CONV_CASES]
+             + list(CONV_RAGGED))
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        rows, launches = [], 0
-        for size, c_in, c_out, act in CONV_CASES:
-            x = torch.randn((CONV_BATCH, size, size, c_in), generator=generator,
-                            device=device).to(dtype)
-            kernel = torch.randn((3, 3, c_in, c_out), generator=generator,
-                                 device=device) / (3.0 * c_in ** 0.5)
-            bias = 0.1 * torch.randn(c_out, generator=generator, device=device)
-            slope = 0.3 * torch.rand(c_out, generator=generator, device=device)
-            conv.LAUNCHES["k3"] = 0
+        rows, launches, splits = [], 0, 0
+        for n, h, w, c_in, c_out, act in cases:
+            x, kernel, bias, slope = _conv_inputs(generator, device, dtype, n, h, w,
+                                                  c_in, c_out)
+            conv.LAUNCHES.update(k3=0, k3_split=0)
             got = conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act)
             torch.cuda.synchronize()
             launches += conv.LAUNCHES["k3"]
-            want = conv.conv3x3_bias_act_plain(x, kernel, bias, slope, act_fn=act)
-            want_np = want.float().cpu().numpy()
-            err = float((got.float() - want.float()).abs().max())
+            splits += conv.LAUNCHES["k3_split"]
+            want = conv.conv3x3_bias_act_plain(x, kernel, bias, slope,
+                                               act_fn=act).float()
+            want_np = want.cpu().numpy()
+            err = float((got.float() - want).abs().max())
             bar = (1e-4 * float(np.abs(want_np).max()) if dtype == torch.float32
                    else bf16_ulps(want_np))
+            shape = f"{n}x{h}x{w} {c_in}->{c_out} {act}"
             if not (np.isfinite(err) and err <= bar):
-                raise AssertionError(f"K3 {dtype_name} {size}^2 {c_in}->{c_out} {act}: "
-                                     f"max |diff| {err} above {bar}")
+                raise AssertionError(f"K3 {dtype_name} {shape}: max |diff| {err} "
+                                     f"above {bar}")
+            row = {"shape": shape, "err": err, "bar": bar}
+            if dtype == torch.float32:
+                ieee = conv._activate(_library_conv(x, kernel, bias).permute(0, 2, 3, 1)
+                                      .float(), act, slope)
+                row["ieee_rel"] = float((got - ieee).abs().max() / ieee.abs().max())
+                del ieee
             del got, want
-            timers = {"plain": lambda: conv.conv3x3_bias_act_plain(
-                          x, kernel, bias, slope, act_fn=act),
-                      "k3": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope,
-                                                          act_fn=act)}
-            times = {name: [] for name in timers}
-            for name in ("plain", "k3", "k3", "plain"):
-                times[name].append(cuda_ms(timers[name], iters=5, warmup=2))
-            rows.append({"shape": f"{size}^2 {c_in}->{c_out} {act}", "err": err,
-                         "bar": bar, "ms": float(np.mean(times["k3"])),
-                         "plain_ms": float(np.mean(times["plain"]))})
+            if n == CONV_BATCH:
+                row.update(_conv_times(conv, x, kernel, bias, slope, act, c_out))
+            rows.append(row)
             del x
-        if launches != len(CONV_CASES):
-            raise AssertionError(f"K3 launched {launches} times for "
-                                 f"{len(CONV_CASES)} calls in {dtype_name}")
+        # float32 splits x and the weights in each call; bfloat16 splits nothing
+        want_splits = 2 * len(cases) if dtype == torch.float32 else 0
+        if launches != len(cases) or splits != want_splits:
+            raise AssertionError(f"K3 launched {launches} times and its split "
+                                 f"{splits} for {len(cases)} calls in {dtype_name}")
+        timed = [r for r in rows if "ms" in r]
+        total_bound = sum(r["bound_ms"] for r in timed)
+        ops_share = sum(r["bound_ms"] for r in timed if r["bound_by"] == "operations")
         result[dtype_name] = {
             "launches": launches, "max_abs_err": max(r["err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows), "rows": rows}
-        log("conv", f"K3 {dtype_name}, batch {CONV_BATCH}, CUDA events (mean of "
-            "plain/K3/K3/plain, 5 launches each): " + "; ".join(
-                f"{r['shape']}: K3 {r['ms']:.3f} ms, cuDNN {r['plain_ms']:.3f} ms, "
-                f"max |diff| {r['err']:.3g} (bar {r['bar']:.3g})" for r in rows)
-            + f"; launches {launches}")
+            **{key: sum(r[key] for r in timed)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bound_by": "operations" if ops_share >= total_bound / 2 else "bytes",
+            "rows": rows}
+        log("conv", f"K3 {dtype_name}, CUDA events (mean of K3/plain/library/.../"
+            "plain/K3 turns, 5 launches each): " + "; ".join(
+                f"{r['shape']}: max |diff| {r['err']:.3g} (bar {r['bar']:.3g})"
+                + (f", IEEE dev {r['ieee_rel']:.3g} rel" if "ieee_rel" in r else "")
+                + (f", K3 {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, library "
+                   f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ({r['bound_by']}, "
+                   f"{100 * r['bound_ms'] / r['ms']:.0f} %)" if "ms" in r else "")
+                + (f", TF32 cuDNN {r['tf32_ms']:.3f}, split {r['split_ms']:.3f}"
+                   if "tf32_ms" in r else "")
+                for r in rows)
+            + f"; launches {launches}, split launches {splits}")
     torch.cuda.empty_cache()
     return result
+
+
+def _conv_times(conv, x, kernel, bias, slope, act, c_out) -> dict:
+    """CUDA-event times of one flagship conv case (not counted launches)."""
+    timers = {"k3": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act),
+              "plain": lambda: conv.conv3x3_bias_act_plain(x, kernel, bias, slope,
+                                                           act_fn=act),
+              "library": lambda: _library_conv(x, kernel, bias)}
+    order = ["k3", "plain", "library"]
+    if x.dtype == torch.float32:
+        c_in_p = -(-x.shape[3] // conv.CIN_ALIGN) * conv.CIN_ALIGN
+
+        def tf32():
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                return _library_conv(x, kernel, bias)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+
+        timers.update(tf32=tf32, split=lambda: conv._split(x, c_in_p))
+        order += ["tf32", "split"]
+    times = {name: [] for name in timers}
+    for name in order + order[::-1]:
+        times[name].append(cuda_ms(timers[name], iters=5, warmup=2))
+    bound, bound_by = conv_bound(x, c_out)
+    return {**{("ms" if k == "k3" else f"{k}_ms"): float(np.mean(v))
+               for k, v in times.items()},
+            "bound_ms": bound, "bound_by": bound_by}
 
 
 @contextlib.contextmanager
@@ -862,8 +990,8 @@ def phase_train_vs_cpu(scene: dict) -> dict:
     So the CPU step takes the card's pooling and ReLU decisions, the number
     of places it would have decided otherwise is printed, and what is held
     to 1e-4 is the arithmetic."""
-    from resdepth_tpu.data import control_files
-    from resdepth_tpu.data.dataset import TileDataset
+    from resdepth_tpu_torch.data import control_files
+    from resdepth_tpu_torch.data.dataset import TileDataset
     from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
     from resdepth_tpu_torch.models.unet import flagship_config, init_unet
     from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
@@ -977,17 +1105,16 @@ def main() -> int:
     phase_train_vs_cpu(train_scene)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
+    fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": replaces, "launches": flagship["launches"][key],
-         "max_abs_err": kernels[key]["max_abs_err"], "ms": kernels[key]["ms"],
-         "plain_ms": kernels[key]["plain_ms"]}
+         **{f: kernels[key][f] for f in fields}}
         for key, (name, replaces) in KERNELS.items()]}
     name, source, replaces = K3
     record["kernels"] += [
         {"name": f"{name} ({dtype})", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": r["launches"],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "replaces": replaces, "launches": r["launches"], **{f: r[f] for f in fields}}
         for dtype, r in convs.items()]
     print(json.dumps(record))
     print(device["nvidia_smi"])

@@ -1,1 +1,2 @@
-"""Inference batch assembly on the device."""
+"""TileDataset, normalization and control files (host), batch assembly on
+the device."""

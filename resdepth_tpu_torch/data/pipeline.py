@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from resdepth_tpu.data.dataset import TileDataset
+from resdepth_tpu_torch.data.dataset import TileDataset
 
 
 @dataclasses.dataclass

@@ -26,13 +26,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from resdepth_tpu.data.dataset import TileDataset
-from resdepth_tpu.ops import blend
+from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.data.pipeline import (BatchSpec, DeviceRasters,
                                               batch_spec_for, build_batch,
                                               device_put_dataset)
 from resdepth_tpu_torch.models.unet import UNet, apply_unet, fold_serving
-from resdepth_tpu_torch.ops import stitch
+from resdepth_tpu_torch.ops import blend, stitch
 
 # Dihedral-group subsets for test-time augmentation (general.tta). Element
 # g is rot90 by (g % 4) quarter turns, after a horizontal flip when g >= 4.

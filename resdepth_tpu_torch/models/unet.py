@@ -83,7 +83,7 @@ def unet_config_from_settings(settings: dict) -> UNetConfig:
 
 def flagship_config(input_channels: str = "geom-stereo") -> UNetConfig:
     """The paper's headline architecture: depth-5 UNet, start 64, cap 512."""
-    from resdepth_tpu.config.schema import count_input_channels
+    from resdepth_tpu_torch.config.schema import count_input_channels
     return UNetConfig(n_input_channels=count_input_channels(input_channels))
 
 

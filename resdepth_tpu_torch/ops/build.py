@@ -6,7 +6,9 @@ is compiled, so a build takes seconds. The library goes to
 ``build/resdepth_tpu_torch/`` beside the package, named by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one is
 reused. Different sources build concurrently when loaded from several
-threads. A failed build or load raises: there is no fallback.
+threads. A failed build or load raises: there is no fallback. ptxas
+reports each kernel's registers, shared memory and spills (``-Xptxas=-v``);
+a build keeps that report in ``BUILD_LOGS``.
 """
 
 from __future__ import annotations
@@ -24,13 +26,15 @@ _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "resdepth_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()                       # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}    # one build at a time per source
 _libraries: dict[str, ctypes.CDLL] = {}
-# Seconds each library took to build in this process (0.0 when reused).
+# Seconds each library took to build in this process (0.0 when reused),
+# and nvcc's report of each build in this process.
 BUILD_SECONDS: dict[str, float] = {}
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -62,6 +66,7 @@ def _build(name: str, target: str) -> None:
         result = subprocess.run(cmd, capture_output=True, text=True)
         if result.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{result.stderr}")
+        BUILD_LOGS[name] = result.stdout + result.stderr
         os.replace(tmp, target)
     finally:
         if os.path.exists(tmp):

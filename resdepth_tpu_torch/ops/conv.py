@@ -2,23 +2,33 @@
 
 Port of ``resdepth_tpu/ops/pallas_conv.py::conv3x3_bias_act``, with its
 contract: ``x`` (N, H, W, Cin) float32 or bfloat16, ``kernel`` (3, 3, Cin,
-Cout) cast to ``x.dtype``, ``bias`` and the prelu slopes ``act_param``
-(Cout,) in float32 added to a float32 accumulator (None reads as zeros),
-``act_fn`` one of relu, lrelu (slope 0.01), prelu (per channel) or any other
-name for identity; the result is (N, H, W, Cout) in ``x.dtype``.
+Cout), ``bias`` and the prelu slopes ``act_param`` (Cout,) in float32 added
+to a float32 accumulator (None reads as zeros), ``act_fn`` one of relu,
+lrelu (slope 0.01), prelu (per channel) or any other name for identity; the
+result is (N, H, W, Cout) in ``x.dtype``. The products are the TPU
+kernel's: bfloat16 is one bf16 pass with float32 accumulation; float32 is
+the 3-pass bf16 split of ``Precision.HIGH``, ``x = x_hi + x_lo`` and ``w =
+w_hi + w_lo`` in bf16, accumulating ``x_hi w_hi + x_hi w_lo + x_lo w_hi`` in
+float32.
 
 Two implementations of that one function:
 
   * ``conv3x3_bias_act`` on a CUDA tensor launches kernel K3
-    (``csrc/conv.cu``): IEEE fp32 FMAs for float32, bf16 loads with float32
-    accumulation for bfloat16.
-  * ``conv3x3_bias_act_plain``: ``F.conv2d`` on permuted tensors, then bias
-    and activation. The wrapper runs it for a CPU tensor; on the card it is
-    the yardstick K3 is held against and nothing else.
+    (``csrc/conv.cu``), an implicit GEMM with ``wgmma`` fed by TMA. It
+    hands the kernel bf16 operands (``kernel_operands``): Cin padded with
+    zeros to a multiple of 16 and the weights re-laid as (9, Cout, Cin_p);
+    for float32 the split kernel of the same source writes the hi and lo
+    halves.
+  * ``conv3x3_bias_act_plain``: ``F.conv2d`` on permuted tensors (for
+    float32 over the channel-concatenated ``[x_hi, x_hi, x_lo]`` and ``[w_hi,
+    w_lo, w_hi]``, whose products are exact in float32), then bias and
+    activation. The wrapper runs it for a CPU tensor; on the card it is the
+    yardstick K3 is held against and nothing else.
 
 Like the JAX function, K3 is not on the UNet's path (``models/unet.py``
 runs its convs through ``F.conv2d``, as the JAX UNet runs them through
-XLA). ``LAUNCHES`` counts kernel launches.
+XLA). ``LAUNCHES`` counts kernel launches: ``k3`` the conv, ``k3_split``
+the float32 operand split (two a float32 call: x and the weights).
 """
 
 from __future__ import annotations
@@ -31,22 +41,24 @@ import torch.nn.functional as F
 
 from resdepth_tpu_torch.ops import build
 
-LAUNCHES = {"k3": 0}
+LAUNCHES = {"k3": 0, "k3_split": 0}
 
 LRELU_SLOPE = 0.01
 _ACT_CODES = {"relu": 1, "lrelu": 2, "prelu": 3}   # any other name: identity
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CIN_ALIGN = 16     # TMA's 16-byte strides and wgmma's K step of 16
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built conv library with its entry point typed (once)."""
+    """The built conv library with its entry points typed (once)."""
     lib = build.load("conv")
-    lib.conv3x3_k3.argtypes = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                               _INT, _INT, _INT, _INT, _PTR]
+    lib.conv3x3_k3.argtypes = [_PTR] * 7 + [_INT] * 7 + [_PTR]
     lib.conv3x3_k3.restype = ctypes.c_int
+    lib.conv_split_hi_lo.argtypes = [_PTR, _PTR, _PTR, _LONG, _INT, _INT, _PTR]
+    lib.conv_split_hi_lo.restype = ctypes.c_int
     lib.conv_error_string.argtypes = [ctypes.c_int]
     lib.conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -60,7 +72,7 @@ def _epilogue_vectors(x, kernel, bias, act_param):
     b = zeros if bias is None else bias.to(device=x.device, dtype=torch.float32)
     a = zeros if act_param is None else act_param.to(device=x.device,
                                                      dtype=torch.float32)
-    return b, a
+    return b.contiguous(), a.contiguous()
 
 
 def _activate(v, act_fn, act_param):
@@ -73,14 +85,73 @@ def _activate(v, act_fn, act_param):
     return v
 
 
+def split_hi_lo_plain(t: torch.Tensor, cols_p: int | None = None):
+    """``t`` (..., C) float32 -> (hi, lo) bf16 with ``hi = bf16(t)`` and
+    ``lo = bf16(t - hi)``, the last dimension zero-padded to ``cols_p``: the
+    plain version of the split kernel."""
+    hi = t.to(torch.bfloat16)
+    lo = (t - hi.float()).to(torch.bfloat16)
+    pad = (cols_p or t.shape[-1]) - t.shape[-1]
+    return F.pad(hi, (0, pad)), F.pad(lo, (0, pad))
+
+
 def conv3x3_bias_act_plain(x, kernel, bias=None, act_param=None, *,
                            act_fn="relu"):
     """The plain version: ``F.conv2d`` (cuDNN on the card) on the NCHW view
-    of ``x``, then bias and activation in float32, cast to ``x.dtype``."""
+    of ``x``, then bias and activation in float32, cast to ``x.dtype``. For
+    float32 the conv runs over the 3-pass split, so it sums the same exact
+    products as K3 and the TPU kernel, in another order."""
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
-    weight = kernel.to(x.dtype).permute(3, 2, 0, 1)          # HWIO -> OIHW
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1)
+    if x.dtype == torch.float32:
+        x_hi, x_lo = (t.float() for t in split_hi_lo_plain(x))
+        w_hi, w_lo = (t.float() for t in split_hi_lo_plain(kernel.float()))
+        xs = torch.cat([x_hi, x_hi, x_lo], dim=3)
+        ws = torch.cat([w_hi, w_lo, w_hi], dim=2)
+    else:
+        xs, ws = x, kernel.to(x.dtype)
+    weight = ws.permute(3, 2, 0, 1)                          # HWIO -> OIHW
+    y = F.conv2d(xs.permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1)
     return _activate(y.float() + b, act_fn, a).to(x.dtype)
+
+
+def _split(t: torch.Tensor, cols_p: int):
+    """The split on ``t``'s device: the split kernel on CUDA (counted in
+    ``LAUNCHES['k3_split']``), its plain version elsewhere."""
+    if t.device.type != "cuda":
+        return split_hi_lo_plain(t, cols_p)
+    src = t.contiguous()
+    hi = torch.empty(src.shape[:-1] + (cols_p,), dtype=torch.bfloat16, device=t.device)
+    lo = torch.empty_like(hi)
+    lib = _library()
+    code = lib.conv_split_hi_lo(src.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                                src.numel() // src.shape[-1], src.shape[-1], cols_p,
+                                torch.cuda.current_stream(t.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"K3's split kernel failed to launch: "
+                           f"{lib.conv_error_string(code).decode()}")
+    LAUNCHES["k3_split"] += 1
+    return hi, lo
+
+
+def kernel_operands(x, kernel):
+    """The bf16 operands K3 reads: ``(x_hi, x_lo, w_hi, w_lo)``, x as
+    (N, H, W, Cin_p) and the weights as (9, Cout, Cin_p), K-major, with Cin
+    zero-padded to a multiple of 16. For bfloat16 the lo halves are None;
+    for float32 the split runs on ``x``'s device (the split kernel on
+    CUDA)."""
+    c_in = x.shape[3]
+    c_in_p = -(-c_in // CIN_ALIGN) * CIN_ALIGN
+    # (3, 3, Cin, Cout) -> (9, Cout, Cin): one small copy a call
+    w9 = kernel.to(device=x.device, dtype=x.dtype).reshape(9, c_in, -1).transpose(1, 2)
+    if x.dtype == torch.float32:
+        x_hi, x_lo = _split(x, c_in_p)
+        w_hi, w_lo = _split(w9, c_in_p)
+        return x_hi, x_lo, w_hi, w_lo
+    pad = c_in_p - c_in
+    x_p = F.pad(x, (0, pad)) if pad else x.contiguous()
+    if x_p.data_ptr() % 16:                  # TMA needs 16-byte aligned bases
+        x_p = x_p.clone()
+    return x_p, None, F.pad(w9, (0, pad)).contiguous(), None
 
 
 def _check_cuda_args(x, kernel) -> None:
@@ -108,15 +179,16 @@ def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu"):
         return conv3x3_bias_act_plain(x, kernel, bias, act_param, act_fn=act_fn)
     _check_cuda_args(x, kernel)
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
-    xc = x.contiguous()
-    kc = kernel.to(x.dtype).contiguous()
-    n, h, w, c_in = xc.shape
-    c_out = kc.shape[3]
+    x_hi, x_lo, w_hi, w_lo = kernel_operands(x, kernel)
+    n, h, w, c_in_p = x_hi.shape
+    c_out = kernel.shape[3]
     out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
+    lo = (x_lo, w_lo) if x_lo is not None else (x_hi, w_hi)
     lib = _library()
     code = lib.conv3x3_k3(
-        xc.data_ptr(), kc.data_ptr(), b.data_ptr(), a.data_ptr(), out.data_ptr(),
-        n, h, w, c_in, c_out, _ACT_CODES.get(act_fn, 0), _DTYPE_CODES[x.dtype],
+        x_hi.data_ptr(), lo[0].data_ptr(), w_hi.data_ptr(), lo[1].data_ptr(),
+        b.data_ptr(), a.data_ptr(), out.data_ptr(), n, h, w, c_in_p, c_out,
+        _ACT_CODES.get(act_fn, 0), _DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"conv kernel K3 failed to launch: "

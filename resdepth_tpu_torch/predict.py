@@ -2,11 +2,12 @@
 
     python -m resdepth_tpu_torch.predict config.json [--device {cuda,cpu}]
 
-Reads the same inference JSON config as ``test.py`` (validated by the
-shared ``resdepth_tpu.config.validate_infer``) and writes the same
-artifacts: per dataset and image pair the refined-DSM and residual GeoTIFFs
-and a statistics report, plus statistics pooled over the pairs. Weights come
-from a reference ``.pth`` file or a JAX ``.npz`` checkpoint.
+Reads the same inference JSON config as ``test.py`` (validated by
+``config/validate_infer.py``, the port's copy of the JAX validator) and
+writes the same artifacts: per dataset and image pair the refined-DSM and
+residual GeoTIFFs and a statistics report, plus statistics pooled over the
+pairs. Weights come from a reference ``.pth`` file or a JAX ``.npz``
+checkpoint.
 
 The scene runs on one device (``--device``, default ``cuda``, which raises
 when CUDA is absent; there is no silent move to the CPU). Not in this slice,
@@ -28,20 +29,21 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from resdepth_tpu import orchestration
-from resdepth_tpu.config import io as cfg_io
-from resdepth_tpu.config import validate_infer
-from resdepth_tpu.data import control_files
-from resdepth_tpu.data.dataset import TileDataset
-from resdepth_tpu.evaluation import (CLASS_TITLES, evaluate_performance,
-                                     get_statistics, print_statistics)
-from resdepth_tpu.geo import raster as raster_mod
-from resdepth_tpu.utils import fs
-from resdepth_tpu.utils.logging import add_console_logger, add_file_logger, setup_logger
+from resdepth_tpu_torch import orchestration
+from resdepth_tpu_torch.config import io as cfg_io
+from resdepth_tpu_torch.config import validate_infer
+from resdepth_tpu_torch.data import control_files
+from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.data.pipeline import device_put_dataset
+from resdepth_tpu_torch.evaluation import (CLASS_TITLES, evaluate_performance,
+                                           get_statistics, print_statistics)
+from resdepth_tpu_torch.geo import raster as raster_mod
 from resdepth_tpu_torch.infer.tiled import predict_linear_blend, serving_model
 from resdepth_tpu_torch.models import weights
 from resdepth_tpu_torch.models.unet import UNet, unet_config_from_settings
+from resdepth_tpu_torch.utils import fs
+from resdepth_tpu_torch.utils.logging import (add_console_logger, add_file_logger,
+                                              setup_logger)
 
 RESIDUAL_THRESHOLD = None
 

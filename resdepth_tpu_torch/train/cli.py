@@ -2,9 +2,9 @@
 
     python -m resdepth_tpu_torch.train config.json [--device {cuda,cpu}]
 
-Reads the same JSON config as ``train.py`` (validated by the shared
-``resdepth_tpu.config.validate_train``) and writes the same artifacts into a
-timestamped run directory: ``config.json`` and ``config.json.orig``,
+Reads the same JSON config as ``train.py`` (validated by
+``config/validate_train.py``, the port's copy of the JAX validator) and
+writes the same artifacts into a timestamped run directory: ``config.json`` and ``config.json.orig``,
 ``model_config.json``, ``DSM_normalization_parameters.p`` (and
 ``Image_normalization_parameters.p`` for image-guided modes), ``run.log``,
 ``training.log``, ``metrics.jsonl`` and ``checkpoints/{Model_best,
@@ -39,23 +39,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from resdepth_tpu import orchestration
-from resdepth_tpu.config import io as cfg_io
-from resdepth_tpu.config import validate_train
-from resdepth_tpu.config.defaults import default_cfg
-from resdepth_tpu.data import control_files, normalization
-from resdepth_tpu.data.dataset import TileDataset
-from resdepth_tpu.train.schedulers import build_scheduler
-from resdepth_tpu.utils import fs
-from resdepth_tpu.utils.logging import setup_logger
+from resdepth_tpu_torch import orchestration
+from resdepth_tpu_torch.config import io as cfg_io
+from resdepth_tpu_torch.config import validate_train
+from resdepth_tpu_torch.config.defaults import default_cfg
+from resdepth_tpu_torch.data import control_files, normalization
+from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.data.pipeline import (BatchIndexIterator, batch_spec_for,
                                               device_put_dataset)
 from resdepth_tpu_torch.models import weights
 from resdepth_tpu_torch.models.unet import init_unet, unet_config_from_settings
 from resdepth_tpu_torch.predict import resolve_device
 from resdepth_tpu_torch.train import checkpoint as ckpt_io
+from resdepth_tpu_torch.train.schedulers import build_scheduler
 from resdepth_tpu_torch.train.step import (init_train_state, make_eval_step,
                                            make_train_step, select_train_precision)
+from resdepth_tpu_torch.utils import fs
+from resdepth_tpu_torch.utils.logging import setup_logger
 from resdepth_tpu_torch.train.trainer import Trainer
 
 FREQ_AVERAGE_TRAIN_LOSS = 20  # reference constant (lib/utils.py:406)

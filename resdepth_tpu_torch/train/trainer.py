@@ -32,13 +32,13 @@ import time
 import numpy as np
 import torch
 
-from resdepth_tpu.train.metrics import AverageMeter, MetricsWriter
-from resdepth_tpu.utils import fs
-from resdepth_tpu.utils.logging import setup_logger
 from resdepth_tpu_torch.models.weights import (adam_moments_to_jax,
                                                jax_params_from_state_dict)
 from resdepth_tpu_torch.train import checkpoint as ckpt_io
+from resdepth_tpu_torch.train.metrics import AverageMeter, MetricsWriter
 from resdepth_tpu_torch.train.step import TrainState
+from resdepth_tpu_torch.utils import fs
+from resdepth_tpu_torch.utils.logging import setup_logger
 
 
 def epoch_seed(rng_seed: int, epoch: int) -> int:

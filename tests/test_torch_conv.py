@@ -4,23 +4,43 @@ runs it.
 
 On the CPU the wrapper runs its plain version (``F.conv2d`` + bias + act),
 the yardstick the CUDA kernel is held against on the card
-(``chip_smoke.py`` phase 6). Tolerance against the JAX kernel: rtol 1e-3,
-atol 5e-5 in f32, the bar of ``test_pallas_conv.py`` (the TPU kernel's f32
-is a 3-pass bf16 split, about 1e-5 from exact f32); in bf16, 2 bf16 ulps
-at the output's largest magnitude (both round the f32 sum to bf16 once;
-the plain version also rounds the conv before the bias).
+(``chip_smoke.py`` phase 6). Its float32 path is the TPU kernel's 3-pass
+bf16 split (``x_hi w_hi + x_hi w_lo + x_lo w_hi``), so both sides sum the
+same 27·Cin products, each exact in float32 (bf16 times bf16), and differ
+only in the order of the float32 sums. Such a sum's rounding errors add up
+like a random walk, about sqrt(n) ulps of the result for n terms, so the
+float32 bar is ``2·sqrt(27·Cin)`` f32 ulps at the output's largest
+magnitude, rtol 0 (measured: 2-13 ulps for Cin 3-64). In bf16 the bar is 2
+bf16 ulps at the output's largest magnitude (both round the f32 sum to
+bf16 once; the plain version also rounds the conv before the bias).
+
+The CUDA path's operands (``kernel_operands``: Cin zero-padded to a
+multiple of 16, weights re-laid as (9, Cout, Cin_p), the float32 hi/lo
+split) are held against JAX too, through the kernel's GEMM written out in
+float64 here, at channel counts that need the padding (Cin 3 and 5, Cout
+7).
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from resdepth_tpu.ops.pallas_conv import conv3x3_bias_act as jax_conv
 from resdepth_tpu_torch.ops import build
 from resdepth_tpu_torch.ops import conv
 
-F32 = dict(rtol=1e-3, atol=5e-5)
+
+def _f32_bar(want, c_in):
+    """2·sqrt(27·Cin) f32 ulps at the largest output (module docstring)."""
+    return 2.0 * np.sqrt(27 * c_in) * float(np.spacing(np.float32(np.abs(want).max())))
+
+
+def _bf16_bar(want):
+    """2 bf16 ulps at the largest output."""
+    return 2 * float(torch.finfo(torch.bfloat16).eps) * 2.0 ** np.floor(
+        np.log2(np.abs(want).max()))
 
 
 def _inputs(shape, act, seed=0, bias=True):
@@ -52,20 +72,26 @@ def _jax(x, k, b, ap, act, block_rows=8, dtype=jnp.float32):
     ((1, 32, 16, 4, 8), "lrelu"),
     ((2, 16, 32, 16, 8), "prelu"),
     ((1, 16, 16, 8, 8), "none"),
+    ((1, 16, 16, 64, 32), "relu"),
+    ((2, 16, 16, 3, 7), "relu"),
+    ((1, 16, 16, 5, 7), "prelu"),
 ])
 def test_plain_matches_jax_kernel(shape, act):
     inputs = _inputs(shape, act)
     got = _torch(*inputs, act)
     assert got.shape == shape[:3] + (shape[4],) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), _jax(*inputs, act), **F32)
+    want = _jax(*inputs, act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=_f32_bar(want, shape[3]))
 
 
 def test_plain_matches_jax_kernel_multi_row_blocks():
     """The JAX kernel over several row programs per image; the flagship
     first layer's 3 input channels; no bias (zeros)."""
     inputs = _inputs((2, 32, 16, 3, 8), "relu", seed=3, bias=False)
-    np.testing.assert_allclose(_torch(*inputs, "relu").numpy(),
-                               _jax(*inputs, "relu"), **F32)
+    want = _jax(*inputs, "relu")
+    np.testing.assert_allclose(_torch(*inputs, "relu").numpy(), want, rtol=0,
+                               atol=_f32_bar(want, 3))
 
 
 def test_plain_bfloat16_matches_jax_kernel():
@@ -73,9 +99,73 @@ def test_plain_bfloat16_matches_jax_kernel():
     got = _torch(*inputs, "lrelu", dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16
     want = _jax(*inputs, "lrelu", dtype=jnp.bfloat16)
-    bar = 2 * float(torch.finfo(torch.bfloat16).eps) * 2.0 ** np.floor(
-        np.log2(np.abs(want).max()))
-    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=bar)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=_bf16_bar(want))
+
+
+@pytest.mark.parametrize("shape,act", [
+    ((2, 16, 16, 3, 7), "relu"), ((1, 16, 32, 5, 7), "prelu"),
+    ((1, 16, 16, 5, 16), "lrelu")])
+def test_plain_bfloat16_ragged_channels_match_jax_kernel(shape, act):
+    inputs = _inputs(shape, act, seed=6)
+    got = _torch(*inputs, act, dtype=torch.bfloat16)
+    want = _jax(*inputs, act, dtype=jnp.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=_bf16_bar(want))
+
+
+def _gemm_from_operands(x_hi, x_lo, w_hi, w_lo):
+    """K3's implicit GEMM on its operands, in float64: for each tap (dy, dx)
+    the input window at (y+dy-1, x+dx-1), zero outside the image, times the
+    tap's (Cout, Cin_p) weights; the three split passes when lo is given."""
+    def window(t, dy, dx):
+        n, h, w, _ = t.shape
+        return F.pad(t.double(), (0, 0, 1, 1, 1, 1))[:, dy:dy + h, dx:dx + w]
+
+    passes = [(x_hi, w_hi)] + ([(x_hi, w_lo), (x_lo, w_hi)] if x_lo is not None else [])
+    acc = 0.0
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        for xs, ws in passes:
+            acc = acc + window(xs, dy, dx) @ ws[tap].double().T
+    return acc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,act", [
+    ((2, 16, 16, 3, 7), "relu"), ((1, 16, 16, 5, 7), "prelu"),
+    ((1, 16, 32, 16, 8), "lrelu"), ((1, 16, 16, 20, 64), "none")])
+def test_kernel_operands_match_jax_kernel(shape, act, dtype):
+    """The operands the CUDA path hands K3 (Cin padded to 16, weights re-laid
+    (9, Cout, Cin_p), the float32 split) give the JAX kernel's result
+    through the kernel's GEMM."""
+    x, k, b, ap = _inputs(shape, act, seed=8)
+    tdtype = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdtype)
+    x_hi, x_lo, w_hi, w_lo = conv.kernel_operands(xt, torch.from_numpy(k))
+    c_in_p = -(-shape[3] // 16) * 16
+    assert x_hi.dtype == w_hi.dtype == torch.bfloat16
+    assert x_hi.shape == shape[:3] + (c_in_p,) and w_hi.shape == (9, shape[4], c_in_p)
+    assert not x_hi[..., shape[3]:].any() and not w_hi[..., shape[3]:].any()
+    assert (x_lo is None) == (dtype == "bfloat16")
+    bias, slope = conv._epilogue_vectors(xt, torch.from_numpy(k),
+                                         None if b is None else torch.from_numpy(b),
+                                         None if ap is None else torch.from_numpy(ap))
+    acc = _gemm_from_operands(x_hi, x_lo, w_hi, w_lo).float()
+    got = conv._activate(acc + bias, act, slope).to(tdtype).float().numpy()
+    want = _jax(x, k, b, ap, act, dtype=getattr(jnp, dtype))
+    bar = _f32_bar(want, shape[3]) if dtype == "float32" else _bf16_bar(want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=bar)
+
+
+def test_split_matches_the_tpu_kernels_split():
+    """hi = bf16(v), lo = bf16(v - hi), bit for bit as ``pallas_conv.py``
+    splits, and zeros in the padded columns."""
+    v = np.random.default_rng(2).normal(size=(37, 5)).astype(np.float32) * 300.0
+    hi, lo = conv.split_hi_lo_plain(torch.from_numpy(v), 16)
+    jhi = jnp.asarray(v).astype(jnp.bfloat16)
+    jlo = (jnp.asarray(v) - jhi.astype(jnp.float32)).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(hi[:, :5].float().numpy(), np.asarray(jhi, np.float32))
+    np.testing.assert_array_equal(lo[:, :5].float().numpy(), np.asarray(jlo, np.float32))
+    assert hi.shape == lo.shape == (37, 16) and not hi[:, 5:].any() and not lo[:, 5:].any()
 
 
 def test_cpu_call_launches_nothing():
@@ -120,7 +210,7 @@ def test_device_tensor_never_runs_the_plain_version(monkeypatch):
     before = conv.LAUNCHES["k3"]
     out = conv.conv3x3_bias_act(x, k, act_fn="prelu")
     assert out.shape == (2, 16, 16, 8) and conv.LAUNCHES["k3"] == before + 1
-    assert calls[0][5:12] == (2, 16, 16, 4, 8, 3, 0)   # N H W Cin Cout act dtype
+    assert calls[0][7:14] == (2, 16, 16, 16, 8, 3, 0)  # N H W Cin_p Cout act dtype
     lib.code = 1
     with pytest.raises(RuntimeError, match="K3 failed to launch"):
         conv.conv3x3_bias_act(x, k)

@@ -9,9 +9,9 @@ the inference CLI against the committed goldens, and the import boundary.
   ``Model_best.npz`` that the JAX ``train.py`` writes on the golden scene
   matches ``tests/goldens/`` at the bars of ``test_demo_goldens.py``:
   1e-4 m on the refined DSM, 5e-3 on the statistics.
-* With ``jax`` and ``jaxlib`` blocked from importing, the port's CLIs and
-  ``chip_smoke.py``'s helpers import, refine a small scene and train on
-  another.
+* With ``jax``, ``jaxlib`` and the JAX package blocked from importing, the
+  port's CLIs and ``chip_smoke.py``'s helpers import, refine a small scene
+  and train on another.
 """
 
 import glob
@@ -25,11 +25,12 @@ import pytest
 import torch
 
 import chip_smoke
-from resdepth_tpu.data.dataset import TileDataset
+from resdepth_tpu.data.dataset import TileDataset as JTileDataset
 from resdepth_tpu.geo.raster import open_raster
 from resdepth_tpu.infer import tiled as jtiled
 from resdepth_tpu.models import unet as junet
 from resdepth_tpu_torch import predict
+from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.infer import tiled as ttiled
 from resdepth_tpu_torch.models import unet as tunet
 from resdepth_tpu_torch.models import weights
@@ -39,13 +40,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 TILE = 16
 
-# Installed first in a child interpreter: any import of JAX fails loudly.
+# Installed first in a child interpreter: any import of JAX or of the JAX
+# package fails loudly.
 BLOCK_JAX = textwrap.dedent("""
     import sys
 
     class _BlockJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in ("jax", "jaxlib", "resdepth_tpu"):
                 raise ImportError(f"{name}: the port must not import JAX")
             return None
 
@@ -53,7 +55,8 @@ BLOCK_JAX = textwrap.dedent("""
 """)
 
 
-def _scene_dataset(make_geotiff, stride):
+def _scene_datasets(make_geotiff, stride):
+    """The port's and the JAX package's TileDataset over the same files."""
     rows, cols = 48, 64
     rng = np.random.default_rng(11)
     yy, xx = np.mgrid[0:rows, 0:cols].astype(np.float32)
@@ -65,23 +68,24 @@ def _scene_dataset(make_geotiff, stride):
              "image_pairs": [(0, 1)],
              # off-grid region: edge-shifted tiles and clipped ramps
              "area_defn": {"x_extent": [(3, 60)], "y_extent": [(1, 46)]}}
-    return TileDataset(entry, input_channels="geom-stereo", tile_size=TILE,
-                       sampling_strategy="test", stride=stride, dsm_std=5.0,
-                       ortho_mean=None, ortho_std=25.0)
+    return [cls(entry, input_channels="geom-stereo", tile_size=TILE,
+                sampling_strategy="test", stride=stride, dsm_std=5.0,
+                ortho_mean=None, ortho_std=25.0)
+            for cls in (TileDataset, JTileDataset)]
 
 
 @pytest.mark.parametrize("stride", [TILE // 2, 3 * TILE // 4], ids=["T/2", "3T/4"])
 @pytest.mark.parametrize("tta_merge", ["mean", "median"])
 @pytest.mark.parametrize("tta", [1, 2, 4, 8])
 def test_scene_matches_jax(make_geotiff, tta, tta_merge, stride):
-    ds = _scene_dataset(make_geotiff, stride)
+    ds, jds = _scene_datasets(make_geotiff, stride)
     settings = dict(n_input_channels=3, start_kernel=4, max_filter_depth=8, depth=2)
     jconfig = junet.UNetConfig(**settings)
     params, state = _jax_weights(jconfig, seed=5)
     model = tunet.UNet(tunet.UNetConfig(**settings))
     model.load_state_dict(weights.state_dict_from_jax_params(params, state, model.config))
 
-    want = jtiled.predict_linear_blend(jconfig, params, state, ds, batch_size=5,
+    want = jtiled.predict_linear_blend(jconfig, params, state, jds, batch_size=5,
                                        use_pallas=False, tta=tta,
                                        tta_merge=tta_merge)
     got = ttiled.predict_linear_blend(model, ds, device="cpu", batch_size=5,
@@ -180,7 +184,7 @@ def test_port_runs_without_jax(tmp_path):
         run = chip_smoke.run_dir_of(os.path.join(work, "runs"), "nojax")
         assert os.path.exists(os.path.join(run, "checkpoints", "Model_last.npz"))
         assert np.isfinite(trainer.val_history[0][1])
-        assert not any(name.split(".")[0] in ("jax", "jaxlib")
+        assert not any(name.split(".")[0] in ("jax", "jaxlib", "resdepth_tpu")
                        for name in sys.modules)
         print("ok", float(np.abs(out - ds.dsm_input).mean()))
     """)

@@ -3,8 +3,10 @@ build_batch: under the inference spec of ``infer/tiled.py::_inference_spec``
 and under the training specs (target, loss mask, bounds, augmentation,
 view permutation), and the port's BatchIndexIterator against JAX's.
 
-The same 'test'-strategy TileDataset feeds both packages on the CPU. The
-DSM carries nodata pixels so that the masked patch mean has work to do.
+Each package reads the same files into its own 'test'-strategy
+TileDataset (``tests/test_torch_host.py`` holds the two datasets equal), and
+each package's batch assembly runs on its own dataset on the CPU. The DSM
+carries nodata pixels so that the masked patch mean has work to do.
 Tolerances, measured on this scene: XLA's CPU sum of a tile's 256 f32
 heights lands up to 1.6e-4 m from the float64 mean, the port's within
 4.3e-5 m (1.4 ulps at 400 m). So ``dsm_mean`` is held to 2.5e-4 m against
@@ -21,9 +23,10 @@ import pytest
 import torch
 
 from resdepth_tpu.data import pipeline as jpipe
-from resdepth_tpu.data.dataset import TileDataset
+from resdepth_tpu.data.dataset import TileDataset as JTileDataset
 from resdepth_tpu.infer import tiled as jtiled
 from resdepth_tpu_torch.data import pipeline as tpipe
+from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.infer import tiled as ttiled
 
 ROWS, COLS, TILE = 48, 64, 16
@@ -43,14 +46,15 @@ def _scene(make_geotiff, n_images=3):
                            for j in range(n_images)]}
 
 
-def _dataset(paths, channels, ortho_mean):
+def _dataset(paths, channels, ortho_mean, cls=TileDataset):
+    """The port's dataset, or with ``cls=JTileDataset`` the JAX package's."""
     entry = {"raster_in": paths["raster_in"],
              "area_defn": {"x_extent": [(0, COLS - 1)], "y_extent": [(0, ROWS - 1)]}}
     if channels != "geom":
         entry.update(image_list=paths["image_list"], image_pairs=[(2, 1)])
-    return TileDataset(entry, input_channels=channels, tile_size=TILE,
-                       sampling_strategy="test", dsm_std=5.0,
-                       ortho_mean=ortho_mean, ortho_std=25.0)
+    return cls(entry, input_channels=channels, tile_size=TILE,
+               sampling_strategy="test", dsm_std=5.0,
+               ortho_mean=ortho_mean, ortho_std=25.0)
 
 
 @pytest.mark.parametrize("channels,ortho_mean", [
@@ -112,28 +116,30 @@ def _training_scene(make_geotiff, n_images=3):
 
 
 def _training_dataset(paths, channels, strategy, strict_zero_mask=True,
-                      pairs=((2, 1),), **kwargs):
+                      pairs=((2, 1),), cls=TileDataset, **kwargs):
+    """The port's dataset, or with ``cls=JTileDataset`` the JAX package's."""
     entry = {"raster_in": paths["raster_in"], "raster_gt": paths["raster_gt"],
              "area_defn": {"x_extent": [(0, COLS - 1)], "y_extent": [(0, ROWS - 1)]},
              "n_samples": 24}
     if channels != "geom":
         entry.update(image_list=paths["image_list"], image_pairs=list(pairs))
-    return TileDataset(entry, input_channels=channels, tile_size=TILE,
-                       sampling_strategy=strategy, dsm_std=5.0, ortho_mean=None,
-                       ortho_std=25.0, strict_zero_mask=strict_zero_mask, seed=3,
-                       **kwargs)
+    return cls(entry, input_channels=channels, tile_size=TILE,
+               sampling_strategy=strategy, dsm_std=5.0, ortho_mean=None,
+               ortho_std=25.0, strict_zero_mask=strict_zero_mask, seed=3,
+               **kwargs)
 
 
-def _both(ds, spec_overrides=None, seed=0):
-    """The JAX and the port batch over the whole dataset, same spec."""
-    jspec = jpipe.batch_spec_for(ds)
+def _both(ds, jds, spec_overrides=None, seed=0):
+    """The JAX batch over ``jds`` and the port batch over ``ds``, the same
+    samples, same spec."""
+    jspec = jpipe.batch_spec_for(jds)
     if spec_overrides:
         jspec = dataclasses.replace(jspec, **spec_overrides)
     n = len(ds)
     bounds = (ds.valid_bounds if ds.valid_bounds is not None
               else np.zeros((n, 4), np.int32))
-    want = jpipe.build_batch(jpipe.device_put_dataset(ds),
-                             jnp.asarray(ds.positions), jnp.asarray(ds.pair_indices),
+    want = jpipe.build_batch(jpipe.device_put_dataset(jds),
+                             jnp.asarray(jds.positions), jnp.asarray(jds.pair_indices),
                              jnp.asarray(bounds), jax.random.PRNGKey(seed), jspec)
     tspec = tpipe.BatchSpec(**vars(jspec))
     assert tspec == tpipe.batch_spec_for(ds) or spec_overrides
@@ -156,10 +162,12 @@ def test_training_batch_matches_jax(make_geotiff, channels, strategy,
     """Target and loss mask (nodata, the ``!= 0`` quirk, the inclusive
     bounds) exactly; the normalised target and input at the inference
     tolerances."""
-    ds = _training_dataset(_training_scene(make_geotiff), channels, strategy,
-                           strict_zero_mask)
+    paths = _training_scene(make_geotiff)
+    ds = _training_dataset(paths, channels, strategy, strict_zero_mask)
+    jds = _training_dataset(paths, channels, strategy, strict_zero_mask,
+                            cls=JTileDataset)
     assert (ds.valid_bounds is not None) == (strategy == "val")
-    want, got = _both(ds)
+    want, got = _both(ds, jds)
     assert set(got) == {"input", "target", "loss_mask", "dsm_mean"}
     np.testing.assert_array_equal(got["loss_mask"], want["loss_mask"])
     assert got["loss_mask"].dtype == np.float32
@@ -247,11 +255,13 @@ def test_batch_index_iterator_matches_jax(make_geotiff, batch_size, emit_size,
                                           shuffle):
     """Same seed, same arrays: positions, pair indices, bounds and the
     zero-weight wrap-around padding, over two epochs."""
-    ds = _training_dataset(_training_scene(make_geotiff), "geom-stereo", "val",
-                           pairs=((2, 1), (0, 1)))
+    paths = _training_scene(make_geotiff)
+    ds = _training_dataset(paths, "geom-stereo", "val", pairs=((2, 1), (0, 1)))
+    jds = _training_dataset(paths, "geom-stereo", "val", pairs=((2, 1), (0, 1)),
+                            cls=JTileDataset)
     got = tpipe.BatchIndexIterator(ds, batch_size, shuffle, seed=7,
                                    emit_size=emit_size)
-    want = jpipe.BatchIndexIterator(ds, batch_size, shuffle, seed=7,
+    want = jpipe.BatchIndexIterator(jds, batch_size, shuffle, seed=7,
                                     emit_size=emit_size)
     assert len(got) == len(want)
     for _ in range(2):

@@ -36,6 +36,7 @@ import torch
 
 import chip_smoke
 from resdepth_tpu.data import pipeline as jpipe
+from resdepth_tpu.data.dataset import TileDataset as JTileDataset
 from resdepth_tpu.models import unet as junet
 from resdepth_tpu.train import checkpoint as jckpt
 from resdepth_tpu.train.optim import build_optimizer as jbuild_optimizer
@@ -58,13 +59,17 @@ SETTINGS = dict(n_input_channels=3, start_kernel=4, max_filter_depth=8, depth=2,
 
 
 def _setup(make_geotiff, seed=0):
-    ds = _training_dataset(_training_scene(make_geotiff), "geom-stereo", "train")
+    """The port's dataset, the JAX package's over the same files, and the
+    same weights in both packages."""
+    paths = _training_scene(make_geotiff)
+    ds = _training_dataset(paths, "geom-stereo", "train")
+    jds = _training_dataset(paths, "geom-stereo", "train", cls=JTileDataset)
     jconfig = junet.UNetConfig(**SETTINGS)
     params, state = _jax_weights(jconfig, seed)
     model = tunet.UNet(tunet.UNetConfig(**SETTINGS))
     model.load_state_dict(weights.state_dict_from_jax_params(params, state,
                                                              model.config))
-    return ds, jconfig, params, state, model
+    return ds, jds, jconfig, params, state, model
 
 
 def _batch(ds, start, size=6):
@@ -76,12 +81,12 @@ def _batch(ds, start, size=6):
             weights_)
 
 
-def _jax_run(ds, jconfig, params, state, batches, name, wd, ema_decay=0.0,
+def _jax_run(jds, jconfig, params, state, batches, name, wd, ema_decay=0.0,
              steps_per_call=1):
     tx = jbuild_optimizer(name, wd)
     jstate = jinit_state(params, state, tx, LR, ema=ema_decay > 0)
-    spec = jpipe.batch_spec_for(ds)
-    rasters = jpipe.device_put_dataset(ds)
+    spec = jpipe.batch_spec_for(jds)
+    rasters = jpipe.device_put_dataset(jds)
     key = jax.random.PRNGKey(0)
     metrics = []
     if steps_per_call > 1:
@@ -149,9 +154,9 @@ def _check_state(state, jstate, name, wd):
     ("Adam", 1e-5, 0.0), ("Adam", 0.0, 0.9), ("SGD", 1e-5, 0.0)],
     ids=["adam-wd", "adam-ema", "sgd-wd"])
 def test_train_steps_match_jax(make_geotiff, name, wd, ema_decay):
-    ds, jconfig, params, state, model = _setup(make_geotiff)
+    ds, jds, jconfig, params, state, model = _setup(make_geotiff)
     batches = [_batch(ds, 0), _batch(ds, 6)]
-    jstate, jmetrics = _jax_run(ds, jconfig, params, state, batches, name, wd,
+    jstate, jmetrics = _jax_run(jds, jconfig, params, state, batches, name, wd,
                                 ema_decay)
     tstate, metrics = _port_run(ds, model, batches, name, wd, ema_decay)
     np.testing.assert_allclose(metrics, jmetrics, rtol=1e-5)
@@ -162,9 +167,9 @@ def test_train_steps_match_jax(make_geotiff, name, wd, ema_decay):
 def test_steps_per_call_is_steps_in_sequence(make_geotiff):
     """JAX's scanned 3-step call (steps_per_call=3) equals three of the
     port's steps in sequence."""
-    ds, jconfig, params, state, model = _setup(make_geotiff, seed=1)
+    ds, jds, jconfig, params, state, model = _setup(make_geotiff, seed=1)
     batches = [_batch(ds, 6 * k) for k in range(3)]
-    jstate, jmetrics = _jax_run(ds, jconfig, params, state, batches, "Adam",
+    jstate, jmetrics = _jax_run(jds, jconfig, params, state, batches, "Adam",
                                 1e-5, steps_per_call=3)
     tstate, metrics = _port_run(ds, model, batches, "Adam", 1e-5)
     np.testing.assert_allclose(metrics, jmetrics, rtol=1e-5)
@@ -176,7 +181,7 @@ def test_steps_per_call_is_steps_in_sequence(make_geotiff):
 def test_port_checkpoint_restores_in_jax(make_geotiff, tmp_path, name, wd):
     """The port's .npz (EMA on, so raw_params too) loads in the JAX
     load_checkpoint with JAX templates, every leaf at the port's value."""
-    ds, jconfig, params, state, model = _setup(make_geotiff, seed=2)
+    ds, _, jconfig, params, state, model = _setup(make_geotiff, seed=2)
     tstate, _ = _port_run(ds, model, [_batch(ds, 0)], name, wd, ema_decay=0.5)
     path = str(tmp_path / "Model_last.npz")
     trees = checkpoint_trees(tstate)
@@ -211,14 +216,14 @@ def test_port_checkpoint_restores_in_jax(make_geotiff, tmp_path, name, wd):
 def test_jax_checkpoint_resumes_in_port(make_geotiff, tmp_path):
     """JAX steps once and saves; the port restores the file (weights, BN,
     Adam state) and steps on the next batch to JAX's second step."""
-    ds, jconfig, params, state, _ = _setup(make_geotiff, seed=3)
+    ds, jds, jconfig, params, state, _ = _setup(make_geotiff, seed=3)
     b1, b2 = _batch(ds, 0), _batch(ds, 6)
-    jstate1, _ = _jax_run(ds, jconfig, params, state, [b1], "Adam", 1e-5)
+    jstate1, _ = _jax_run(jds, jconfig, params, state, [b1], "Adam", 1e-5)
     path = str(tmp_path / "Model_last.npz")
     jckpt.save_checkpoint(path, epoch=0, params=jstate1.params,
                           bn_state=jstate1.bn_state, opt_state=jstate1.opt_state,
                           lr=LR)
-    jstate2, jmetrics = _jax_run(ds, jconfig, params, state, [b1, b2], "Adam", 1e-5)
+    jstate2, jmetrics = _jax_run(jds, jconfig, params, state, [b1, b2], "Adam", 1e-5)
 
     model = tunet.init_unet(tunet.UNetConfig(**SETTINGS), torch.Generator().manual_seed(0))
     tstate = init_train_state(model, "Adam", LR, 1e-5)
