@@ -13,9 +13,15 @@ found:
 
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds every kernel source at once and the libraries load;
-  3. kernels: K1 and K2 against the plain stitch at the main path's shape
-     (a batch of 128 tiles of 256 px on a 4096x4096 canvas), with times
-     and their bound (the bytes they must move);
+  3. kernels: K1 and K2 against the plain stitch (K2 bitwise and run to
+     run, K1 within 2 ulps, more where over 4 tiles meet) on the main
+     path's batch 2 (128 tiles of 256 px on a 4096x4096 canvas), its padded
+     last batch, every batch of a ragged 4001x3999 scene, and 300 tiles at
+     random spots at T 16 and 128; times of K1, K2 (device time, from
+     CUDA graphs) and the plain stitch at batch 2, and of K1 and K2 over
+     every batch of the 4096x4096 scene (K2 with the main path's padding
+     and with two others), each beside its bound (the bytes they must
+     move);
   4. flagship: a seeded 4096x4096 geom-stereo scene (961 tiles) refined by
      the CLI with K1 and with K2, in float32 (TF32 off) and in bfloat16;
      the outputs exist and are finite, the launch counters show that every
@@ -36,6 +42,10 @@ found:
      on the card and on the CPU (which takes the card's max-pool and ReLU
      decisions, see ``phase_train_vs_cpu``): loss, gradients, BatchNorm
      statistics and Adam moments within 1e-4 relative per tensor.
+
+``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
+kernels' times over the scene's batches alone, and prints no result line:
+run in two checkouts in one call, it compares their stitches on one card.
 
 Any failure raises and the script exits non-zero. Without CUDA, or outside a
 checkout of the repository, it exits non-zero before printing a result. The
@@ -284,6 +294,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 10) -> float:
+    """Mean device time of one call of ``fn`` in ms: ``iters`` calls
+    captured in a CUDA graph, replayed ``replays`` times after a warm-up
+    replay, between CUDA events. No host work runs between the launches,
+    so a kernel that takes less time than its wrapper's Python is timed,
+    and not the host (``cuda_ms`` times that: back-to-back eager calls)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def nvidia_smi_line() -> str:
     result = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -323,22 +357,34 @@ def phase_build() -> float:
     return seconds
 
 
-def stitch_batches(size: int = SCENE_SIZE, tile: int = TILE,
-                   batch: int = BATCH, seed: int = SEED):
-    """The first two batches of the main path's grid (stride tile/2) with
-    random normalised tiles, per-tile means near 420 m and the blend
-    weights of ``ops.blend``; the second batch overlaps the first."""
+def grid_batches(rows: int = SCENE_SIZE, cols: int = SCENE_SIZE,
+                 tile: int = TILE, batch: int = BATCH, seed: int = SEED,
+                 n_batches: int | None = None) -> list:
+    """The main path's batches over a (rows, cols) canvas: the
+    ``create_regular_grid`` tiling at stride tile/2, cut into batches of
+    ``batch`` and the last padded to ``batch`` as ``infer/tiled.py`` pads
+    it (zero-weight tiles at the origins of the last batch's real tiles, in
+    turn); random normalised tiles, per-tile means near 420 m, the blend
+    weights of ``ops.blend``. Each batch carries its box (``batch_bounds``)
+    and its count of padding tiles; ``n_batches`` stops after the first
+    few."""
     from resdepth_tpu_torch.geo.grid import create_regular_grid, positions_as_array
     from resdepth_tpu_torch.ops import blend
     from resdepth_tpu_torch.ops.stitch import batch_bounds
 
-    area = {"x_extent": [(0, size - 1)], "y_extent": [(0, size - 1)]}
+    area = {"x_extent": [(0, cols - 1)], "y_extent": [(0, rows - 1)]}
     positions, borders = create_regular_grid(area, tile, tile // 2)
     positions = positions_as_array(positions)
     wy, wx = blend.weight_table(tile, tile // 2, borders)
+    n = len(positions)
+    n_pad = -(-n // batch) * batch - n
+    last = positions[n // batch * batch:]
+    positions = np.concatenate([positions, np.resize(last, (n_pad, 2))])
+    wy = np.concatenate([wy, np.zeros((n_pad, tile), np.float32)])
+    wx = np.concatenate([wx, np.zeros((n_pad, tile), np.float32)])
     rng = np.random.default_rng(seed)
     batches = []
-    for first in (0, batch):
+    for first in range(0, len(positions), batch)[:n_batches]:
         sl = slice(first, first + batch)
         batches.append({
             "tiles": torch.from_numpy(
@@ -346,86 +392,264 @@ def stitch_batches(size: int = SCENE_SIZE, tile: int = TILE,
             "positions": torch.from_numpy(positions[sl]),
             "wy": torch.from_numpy(wy[sl]), "wx": torch.from_numpy(wx[sl]),
             "means": torch.from_numpy(rng.normal(420.0, 5.0, batch).astype(np.float32)),
-            "bounds": batch_bounds(positions[sl], tile)})
+            "bounds": batch_bounds(positions[sl], tile),
+            "n_pad": max(0, first + batch - n)})
     return batches
 
 
-def phase_kernels() -> dict:
-    """K1 and K2 against the plain stitch on the CPU, K2 run to run, and
-    CUDA-event times of K1, K2 and the plain stitch on the card."""
+def repadded(batch: dict, where: str) -> dict:
+    """``batch`` with its padding tiles all at (0, 0) (``where="origin"``,
+    as the JAX package pads) or all on its last real tile
+    (``"last_tile"``), and the box that padding gives."""
+    from resdepth_tpu_torch.ops.stitch import batch_bounds
+
+    positions = batch["positions"].clone()
+    n_pad = batch["n_pad"]
+    if n_pad:
+        positions[-n_pad:] = 0 if where == "origin" else positions[-n_pad - 1]
+    return {**batch, "positions": positions,
+            "bounds": batch_bounds(positions.numpy(), batch["tiles"].shape[1])}
+
+
+def overlap_batch(rows: int, cols: int, tile: int, n: int, seed: int = SEED) -> dict:
+    """``n`` tiles at random positions on a (rows, cols) canvas, eight of
+    them on one spot and two against the far corner, with random blend
+    weights in [0, 1): many tiles on some pixels, tile columns at every
+    residue mod 4."""
+    from resdepth_tpu_torch.ops.stitch import batch_bounds
+
+    rng = np.random.default_rng(seed)
+    positions = np.stack([rng.integers(0, rows - tile + 1, n),
+                          rng.integers(0, cols - tile + 1, n)], 1).astype(np.int32)
+    positions[n // 2:n // 2 + 8] = positions[n // 2]
+    positions[-2:] = (rows - tile, cols - tile)
+    return {"tiles": torch.from_numpy(rng.standard_normal((n, tile, tile), np.float32)),
+            "positions": torch.from_numpy(positions),
+            "wy": torch.from_numpy(rng.random((n, tile), np.float32)),
+            "wx": torch.from_numpy(rng.random((n, tile), np.float32)),
+            "means": torch.from_numpy(rng.normal(420.0, 5.0, n).astype(np.float32)),
+            "bounds": batch_bounds(positions, tile), "n_pad": 0}
+
+
+def max_cover(batches: list, shape) -> int:
+    """The most weighted tiles of ``batches`` on one pixel of a canvas of
+    ``shape`` (a tile with zero weights adds exact zeros)."""
+    count = np.zeros(shape, np.int32)
+    for batch in batches:
+        tile = batch["tiles"].shape[1]
+        weighted = ((batch["wy"] != 0).any(1) & (batch["wx"] != 0).any(1)).numpy()
+        for (y, x), w in zip(batch["positions"].numpy(), weighted):
+            count[y:y + tile, x:x + tile] += int(w)
+    return int(count.max())
+
+
+def k1_ulps(cover: int) -> int:
+    """K1's bar in f32 ulps at the largest height, where at most ``cover``
+    weighted tiles meet on a pixel: 2, as where the scene's grid puts 4,
+    and cover / 2 above that. K1's atomics add in no fixed order, and a sum
+    of n terms in another order may move by more than 2 ulps once n passes
+    about 8 (``tests/test_torch_stitch.py::test_free_order_needs_k1_bar``)."""
+    return max(2, -(-cover // 2))
+
+
+def _stitch_args(batch: dict, device) -> list:
+    return [batch[k].to(device) for k in ("tiles", "positions", "wy", "wx", "means")]
+
+
+def stitch_cases() -> tuple:
+    """The cases phase 3 holds K1 and K2 to the plain stitch on: (name,
+    canvas shape, canvas on the CPU, batches). The 4096^2 scene's batch 2
+    and its padded last batch go onto the canvas the plain stitch made of
+    the batches before them."""
     from resdepth_tpu_torch.ops import stitch
 
-    device = torch.device("cuda", 0)
-    first, second = stitch_batches()
-
-    def args(batch, dev):
-        return [batch[k].to(dev) for k in ("tiles", "positions", "wy", "wx", "means")]
-
+    scene = grid_batches()
     canvas = torch.zeros((SCENE_SIZE, SCENE_SIZE), dtype=torch.float32)
-    stitch.stitch_tiles_plain(canvas, *args(first, "cpu"), DSM_STD)
-    want = stitch.stitch_tiles_plain(canvas.clone(), *args(second, "cpu"),
-                                     DSM_STD).numpy()
-    tol = ulps(want)
-    on_card = args(second, device)
+    for index, batch in enumerate(scene[:-1]):
+        if index == 1:
+            before_second = canvas.clone()
+        stitch.stitch_tiles_plain(canvas, *_stitch_args(batch, "cpu"), DSM_STD)
+    ragged = (4001, 3999)
+    cases = [
+        (f"{SCENE_SIZE}^2 batch 2", before_second, [scene[1]]),
+        (f"{SCENE_SIZE}^2 last batch ({BATCH - scene[-1]['n_pad']} tiles + "
+         f"{scene[-1]['n_pad']} padding)", canvas, [scene[-1]]),
+        (f"{ragged[0]}x{ragged[1]} scene, all batches",
+         torch.zeros(ragged, dtype=torch.float32), grid_batches(*ragged)),
+        ("random overlap T=16 B=300 on 96x128", torch.zeros((96, 128)),
+         [overlap_batch(96, 128, 16, 300)]),
+        ("random overlap T=128 B=300 on 1021x1023", torch.zeros((1021, 1023)),
+         [overlap_batch(1021, 1023, 128, 300, seed=SEED + 1)]),
+    ]
+    return cases, scene
 
-    def run(use_pallas):
-        out = canvas.to(device)
-        stitch.stitch_tiles(out, *on_card, DSM_STD, use_pallas=use_pallas,
-                            bounds=second["bounds"])
-        torch.cuda.synchronize()
-        return out.cpu().numpy()
 
-    k1 = run(True)
-    k2, k2_again = run("fused"), run("fused")
-    result = {}
-    for key, got in (("k1", k1), ("k2", k2)):
-        err = float(np.abs(got - want).max())
-        if not err <= tol:
-            raise AssertionError(f"{key} differs from the plain stitch by {err} m "
-                                 f"(tolerance 2 ulps = {tol} m)")
-        result[key] = {"max_abs_err": err,
-                       "bitwise_plain": bool(np.array_equal(got, want))}
-    if not np.array_equal(k2, k2_again):
-        raise AssertionError("K2 is not bitwise reproducible run to run")
-    if not result["k2"]["bitwise_plain"]:
-        raise AssertionError("K2 does not keep the plain stitch's batch order")
+def phase_kernels() -> tuple:
+    """K1 and K2 against the plain stitch on the CPU, on each of
+    ``stitch_cases``: K2 bitwise equal to it and run to run, K1 within
+    ``k1_ulps``; both of K2's canvas paths (float4, scalar) taken. Then
+    CUDA-event times of K1, K2 and the plain stitch on the scene's batch 2,
+    the main path's shape, whose errors the kernels' record keeps. Returns
+    that record and the scene's batches."""
+    from resdepth_tpu_torch.ops import build, stitch
 
-    scratch = canvas.to(device)
-    timers = {
+    device = torch.device("cuda", 0)
+    ptxas = [line.strip() for line in build.BUILD_LOGS.get("stitch", "").splitlines()
+             if "registers" in line or "spill" in line]
+    log("kernels", f"csrc/stitch.cu ptxas: {' | '.join(ptxas) or 'reused build'}")
+    cases, scene = stitch_cases()
+    result, paths, lines = {}, set(), []
+    for name, canvas, batches in cases:
+        want = canvas.clone()
+        for batch in batches:
+            stitch.stitch_tiles_plain(want, *_stitch_args(batch, "cpu"), DSM_STD)
+        want = want.numpy()
+        cover = max_cover(batches, canvas.shape)
+        tol = ulps(want, k1_ulps(cover))
+        on_card = [_stitch_args(batch, device) for batch in batches]
+
+        def run(use_pallas):
+            out = canvas.to(device, copy=True)
+            for batch, args in zip(batches, on_card):
+                stitch.stitch_tiles(out, *args, DSM_STD, use_pallas=use_pallas,
+                                    bounds=batch["bounds"])
+            torch.cuda.synchronize()
+            return out.cpu().numpy()
+
+        k1, k2, k2_again = run(True), run("fused"), run("fused")
+        errs = {"k1": float(np.abs(k1 - want).max()), "k2": float(np.abs(k2 - want).max())}
+        if not errs["k1"] <= tol:
+            raise AssertionError(f"{name}: K1 differs from the plain stitch by "
+                                 f"{errs['k1']} m (tolerance {k1_ulps(cover)} ulps "
+                                 f"= {tol} m)")
+        if not np.array_equal(k2, want):
+            raise AssertionError(f"{name}: K2 is not bitwise equal to the plain "
+                                 f"stitch (max |diff| {errs['k2']} m)")
+        if not np.array_equal(k2, k2_again):
+            raise AssertionError(f"{name}: K2 is not bitwise reproducible run to run")
+        if not result:   # batch 2, the main path's shape
+            result = {key: {"max_abs_err": err} for key, err in errs.items()}
+        route = stitch.k2_vector_paths(canvas.to(device, copy=True),
+                                       on_card[0][0], on_card[0][3])
+        paths.add(route[0])
+        misaligned = sum(int((b["positions"][:, 1] % 4 != 0).sum()) for b in batches)
+        lines.append(f"{name}: {len(batches)} batch(es), up to {cover} weighted "
+                     f"tiles a pixel, K2 canvas "
+                     f"{'float4' if route[0] else 'scalar'}, tile rows "
+                     f"{'float4' if route[1] else 'scalar'} ({misaligned} tiles at "
+                     f"x % 4 != 0 load by scalars); K2 bitwise equal to plain and "
+                     f"run to run; K1 max err {errs['k1']:.3g} m = "
+                     f"{errs['k1'] / ulps(want, 1):.2f} ulps (bar {k1_ulps(cover)} "
+                     f"ulps = {tol:.3g} m)")
+        del on_card
+    if paths != {True, False}:
+        raise AssertionError(f"K2's canvas paths taken: {paths}; both must be")
+    log("kernels", "; ".join(lines))
+
+    second = scene[1]
+    on_card = _stitch_args(second, device)
+    scratch = cases[0][1].to(device, copy=True)
+    calls = {
         "plain": lambda: stitch.stitch_tiles_plain(scratch, *on_card, DSM_STD),
         "k1": lambda: stitch.stitch_tiles(scratch, *on_card, DSM_STD, use_pallas=True),
         "k2": lambda: stitch.stitch_tiles(scratch, *on_card, DSM_STD,
                                           use_pallas="fused", bounds=second["bounds"]),
     }
-    times = {name: [] for name in timers}
+    # K1 and K2 take less time than their wrappers' Python, so back-to-back
+    # eager calls time the host: their device times come from CUDA graphs.
+    # The plain stitch (many PyTorch calls, a host tensor) is timed eagerly.
+    times = {name: [] for name in calls}
+    eager = {name: [] for name in ("k1", "k2")}
     for order in (("plain", "k1", "k2"), ("k2", "k1", "plain")):
         for name in order:
-            times[name].append(cuda_ms(timers[name]))
+            times[name].append(cuda_ms(calls[name]) if name == "plain"
+                               else graph_ms(calls[name]))
+            if name != "plain":
+                eager[name].append(cuda_ms(calls[name]))
     plain_ms = float(np.mean(times["plain"]))
-    bound, bound_by = stitch_bound(second)
+    bound, bound_by = stitch_bound(second, (SCENE_SIZE, SCENE_SIZE))
     for key in ("k1", "k2"):
         # No single PyTorch call computes the stitch: library_ms is None.
         result[key].update(ms=float(np.mean(times[key])), plain_ms=plain_ms,
                            bound_ms=bound, bound_by=bound_by, library_ms=None)
     spread = "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
                        for k, v in times.items())
-    log("kernels", f"B={BATCH} T={TILE} canvas {SCENE_SIZE}^2 at heights "
-        f"{float(np.abs(want).max()):.1f} m: 2-ulp tolerance {tol:.3g} m; "
-        + "; ".join(f"{k.upper()} max err {r['max_abs_err']:.3g} m "
-                    f"(bitwise equal to plain: {r['bitwise_plain']}), "
-                    f"{r['ms']:.4f} ms" for k, r in result.items())
-        + f"; K2 bitwise reproducible: True; plain on CUDA {plain_ms:.4f} ms "
-        f"(CUDA events, mean of 2x20 launches; the two means: {spread}); "
-        f"bound {bound:.4f} ms ({bound_by})")
+    log("kernels", f"batch 2: B={BATCH} T={TILE} canvas {SCENE_SIZE}^2: "
+        + "; ".join(f"{k.upper()} {r['ms']:.4f} ms ({100 * bound / r['ms']:.0f} % "
+                    "of bound)" for k, r in result.items())
+        + f"; plain on CUDA {plain_ms:.4f} ms (K1, K2: CUDA graphs of 20 "
+        "launches replayed 10 times; plain: CUDA events around 20 eager calls; "
+        f"mean of 2 turns: {spread}); bound {bound:.4f} ms ({bound_by}); eager "
+        "back-to-back calls (host-bound): " + ", ".join(
+            f"{k.upper()} {float(np.mean(v)):.4f} ms" for k, v in eager.items()))
+    return result, scene
+
+
+def phase_stitch_scene(scene: list) -> dict:
+    """Device times (CUDA graphs) of K2 over every batch of the 4096^2
+    scene with the main path's padding (on the last batch's real tiles in
+    turn), with all padding tiles on the last real tile, and with the JAX
+    package's padding at the origin (whose box reaches the canvas's
+    origin); and of K1 over the same batches; each beside the sum of the
+    batches' bounds. Each batch is timed alone (a graph of 20 launches of
+    it) and the scene as a whole (a graph of 4 passes over its 8 batches,
+    so each launch finds in L2 what the batch before it left), in turns."""
+    from resdepth_tpu_torch.ops import stitch
+
+    device = torch.device("cuda", 0)
+    shape = (SCENE_SIZE, SCENE_SIZE)
+    canvas = torch.zeros(shape, dtype=torch.float32, device=device)
+    on_card = [_stitch_args(batch, device) for batch in scene]
+    variants = {"k2": scene, "k2_last_tile_pad": [repadded(b, "last_tile") for b in scene],
+                "k2_origin_pad": [repadded(b, "origin") for b in scene], "k1": scene}
+    positions = {name: [b["positions"].to(device) for b in batches]
+                 for name, batches in variants.items()}
+
+    def launcher(name, index):
+        args = list(on_card[index])
+        args[1] = positions[name][index]
+        if name == "k1":
+            return lambda: stitch.stitch_tiles(canvas, *args, DSM_STD, use_pallas=True)
+        bounds = variants[name][index]["bounds"]
+        return lambda: stitch.stitch_tiles_fused(canvas, *args, DSM_STD, bounds=bounds)
+
+    def whole(name):
+        launches = [launcher(name, index) for index in range(len(scene))]
+        return lambda: [launch() for launch in launches]
+
+    times = {name: [[] for _ in scene] for name in variants}
+    whole_ms = {name: [] for name in variants}
+    order = tuple(variants)
+    for name in order + order[::-1]:
+        for index in range(len(scene)):
+            times[name][index].append(graph_ms(launcher(name, index)))
+        whole_ms[name].append(graph_ms(whole(name), iters=4))
+    bounds = [stitch_bound(batch, shape)[0] for batch in scene]
+    result = {name: {"scene_ms": float(np.mean(whole_ms[name])),
+                     "per_batch_ms": [float(np.mean(t)) for t in ts]}
+              for name, ts in times.items()}
+    result["bound_ms"] = sum(bounds)
+    log("stitch-scene", f"{len(scene)} batches of the {SCENE_SIZE}^2 scene (the "
+        f"last with {scene[-1]['n_pad']} padding tiles), device time from CUDA "
+        "graphs, mean of 2 turns: " + "; ".join(
+            f"{name} {r['scene_ms']:.4f} ms a scene ({100 * result['bound_ms'] / r['scene_ms']:.0f} % "
+            f"of bound; each batch alone {', '.join(f'{t:.4f}' for t in r['per_batch_ms'])}, "
+            f"sum {sum(r['per_batch_ms']):.4f})"
+            for name, r in result.items() if name != "bound_ms")
+        + f"; bound {result['bound_ms']:.4f} ms a scene (per batch "
+        f"{', '.join(f'{b:.4f}' for b in bounds)}); last batch's box: "
+        + ", ".join(f"{name} {batches[-1]['bounds']}"
+                    for name, batches in variants.items() if name != "k1"))
     return result
 
 
-def stitch_bound(batch: dict) -> tuple:
-    """The stitch's bound for one batch: the tiles, positions, blend weights
-    and means read once, and the canvas pixels the batch covers read and
-    written once; a few operations a pixel, so bytes bound it."""
+def stitch_bound(batch: dict, shape) -> tuple:
+    """The stitch's bound for one batch on a canvas of ``shape``: the tiles,
+    positions, blend weights and means read once, and the canvas pixels the
+    batch covers read and written once; a few operations a pixel, so bytes
+    bound it."""
     tile = batch["tiles"].shape[1]
-    covered = np.zeros((SCENE_SIZE, SCENE_SIZE), bool)
+    covered = np.zeros(shape, bool)
     for y, x in batch["positions"].numpy():
         covered[y:y + tile, x:x + tile] = True
     n_bytes = sum(batch[k].numel() * batch[k].element_size()
@@ -1070,17 +1294,33 @@ def phase_train_vs_cpu(scene: dict) -> dict:
             **{g: v[1] for g, v in worst.items()}}
 
 
-def main() -> int:
+def main(argv: list | None = None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--stitch-scene", action="store_true",
+                        help="only build the stitch kernels and time them over "
+                             "the 4096x4096 scene's batches (phase stitch-scene), "
+                             "to compare two checkouts on one card; prints no "
+                             "result line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs one GPU",
               file=sys.stderr)
         return 1
     import resdepth_tpu_torch  # noqa: F401  (fails outside a checkout)
     from resdepth_tpu_torch.models.unet import flagship_config
+    from resdepth_tpu_torch.ops import stitch
 
     device = phase_device()
+    if args.stitch_scene:
+        stitch._library()
+        phase_stitch_scene(grid_batches())
+        return 0
     phase_build()
-    kernels = phase_kernels()
+    kernels, stitch_scene = phase_kernels()
+    phase_stitch_scene(stitch_scene)
+    del stitch_scene
 
     shutil.rmtree(WORK_DIR, ignore_errors=True)
     start = time.perf_counter()

@@ -77,6 +77,29 @@ def _pad_round_up(array, n, pad_value=0):
     return np.concatenate([array, pad_block], axis=0)
 
 
+def _pad_positions(positions, n, batch_size):
+    """Pad (n_tiles, 2) tile origins to ``n`` rows, a multiple of
+    ``batch_size``, with the origins of the last batch's real tiles in
+    turn.
+
+    The padding tiles carry zero blend weights. The canvas starts at +0.0
+    and never holds -0.0 (+0 + -0 = +0), so adding a zero-weight tile
+    anywhere leaves it bitwise unchanged for finite predictions: where the
+    padding sits does not change the scene. On the last batch's real tiles
+    it keeps that batch's box (``stitch.batch_bounds``), and so K2's
+    launch, to the real tiles; taken in turn, no tile gets more than
+    ceil(pad / real) of them, so no canvas block's list of covering tiles
+    in K2 grows by more than that. The JAX package pads at (0, 0)
+    (``resdepth_tpu/infer/tiled.py::_predict_tiles``), which stretches that
+    box to the canvas's origin.
+    """
+    pad = n - len(positions)
+    if pad == 0:
+        return positions
+    last = positions[len(positions) // batch_size * batch_size:]
+    return np.concatenate([positions, np.resize(last, (pad, 2))])
+
+
 def _inference_spec(ds: TileDataset) -> BatchSpec:
     """Prediction needs no loss mask or target gather: strip them (the
     stitch uses blend weights, not exclusive bounds)."""
@@ -108,7 +131,7 @@ def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
     # correct but wasted forward compute).
     batch_size = max(1, min(batch_size, n))
     n_padded = -(-n // batch_size) * batch_size
-    positions = _pad_round_up(positions, n_padded)
+    positions = _pad_positions(positions, n_padded, batch_size)
     pair_idx = _pad_round_up(pair_idx, n_padded)
     wy = _pad_round_up(wy, n_padded, 0.0)   # zero weights: padding adds nothing
     wx = _pad_round_up(wx, n_padded, 0.0)

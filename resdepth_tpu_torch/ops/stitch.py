@@ -10,7 +10,8 @@ Three implementations of that one function:
     the port of ``stitch_tiles_pallas``): f32 atomics, any sum order.
   * ``stitch_tiles_fused`` on a CUDA canvas launches kernel K2 (the port of
     ``stitch_tiles_pallas_fused``): output-stationary, tiles summed in batch
-    order, bitwise reproducible.
+    order, bitwise reproducible. It loads and stores by float4 where the
+    shapes allow it (``k2_vector_paths``) and by scalars where they do not.
   * ``stitch_tiles_plain``, the torch twin of ``stitch_tiles_xla``
     (``index_add_`` along the flattened canvas, in batch order on the CPU).
     Both wrappers run it for a CPU canvas; it is the reference the kernels
@@ -37,7 +38,7 @@ _ARGTYPES = {
     "stitch_k1": [_PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _FLOAT,
                   _INT, _INT, _PTR],
     "stitch_k2": [_PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _FLOAT,
-                  _INT, _INT, _INT, _INT, _INT, _INT, _PTR],
+                  _INT, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _PTR],
 }
 
 
@@ -172,13 +173,27 @@ def batch_bounds(positions, tile: int) -> tuple[int, int, int, int]:
             int(positions[:, 0].max()) + tile, int(positions[:, 1].max()) + tile)
 
 
+def k2_vector_paths(scene, tiles, wx) -> tuple[bool, bool]:
+    """Which of K2's float4 paths a call takes, from shapes and alignment:
+    (canvas, tiles). The canvas path needs ``cols % 4 == 0`` and a 16-byte
+    aligned canvas; the tile path needs ``T % 4 == 0`` and 16-byte aligned
+    tiles and ``wx``, and then serves each tile whose column origin is a
+    multiple of 4 (the others load by scalars)."""
+    canvas = scene.shape[1] % 4 == 0 and scene.data_ptr() % 16 == 0
+    tile_rows = (tiles.shape[-1] % 4 == 0 and tiles.data_ptr() % 16 == 0
+                 and wx.data_ptr() % 16 == 0)
+    return canvas, tile_rows
+
+
 def stitch_tiles_fused(scene, tiles, positions, wy, wx, means, sigma,
                        bounds=None):
     """Same contract as ``stitch_tiles``; a CUDA canvas runs K2.
 
     ``bounds`` = (y0, x0, y1, x1), a box of the canvas that holds every
-    tile of the batch (end-exclusive); K2 launches one block per 32x32
-    canvas block of it. None takes the whole canvas.
+    tile of the batch (end-exclusive; ``batch_bounds`` gives the least
+    one). K2 launches one CTA per 16x128 canvas block of it; each finds the
+    tiles that cover its block on the device, and a block that no tile
+    covers leaves the canvas untouched. None takes the whole canvas.
     """
     if scene.device.type == "cpu":
         return stitch_tiles_plain(scene, tiles, positions, wy, wx, means, sigma)
@@ -189,12 +204,13 @@ def stitch_tiles_fused(scene, tiles, positions, wy, wx, means, sigma,
     y0, x0, y1, x1 = max(0, y0), max(0, x0), min(rows, y1), min(cols, x1)
     if y1 <= y0 or x1 <= x0:
         return scene   # no tile meets the canvas
+    vec_canvas, vec_tiles = k2_vector_paths(scene, tiles, wx)
     lib = _library()
     code = lib.stitch_k2(
         scene.data_ptr(), rows, cols, tiles.data_ptr(), positions.data_ptr(),
         wy.data_ptr(), wx.data_ptr(), means.data_ptr(), float(sigma),
-        tiles.shape[0], tiles.shape[1], y0, x0, y1, x1,
-        torch.cuda.current_stream(scene.device).cuda_stream)
+        tiles.shape[0], tiles.shape[1], y0, x0, y1, x1, int(vec_canvas),
+        int(vec_tiles), torch.cuda.current_stream(scene.device).cuda_stream)
     _raise_on(lib, code, "K2")
     LAUNCHES["k2"] += 1
     return scene

@@ -74,16 +74,23 @@ def _scene_datasets(make_geotiff, stride):
             for cls in (TileDataset, JTileDataset)]
 
 
-@pytest.mark.parametrize("stride", [TILE // 2, 3 * TILE // 4], ids=["T/2", "3T/4"])
-@pytest.mark.parametrize("tta_merge", ["mean", "median"])
-@pytest.mark.parametrize("tta", [1, 2, 4, 8])
-def test_scene_matches_jax(make_geotiff, tta, tta_merge, stride):
-    ds, jds = _scene_datasets(make_geotiff, stride)
+def _small_scene_models():
+    """The JAX UNet's config and seeded weights, and the port's UNet
+    holding the same weights."""
     settings = dict(n_input_channels=3, start_kernel=4, max_filter_depth=8, depth=2)
     jconfig = junet.UNetConfig(**settings)
     params, state = _jax_weights(jconfig, seed=5)
     model = tunet.UNet(tunet.UNetConfig(**settings))
     model.load_state_dict(weights.state_dict_from_jax_params(params, state, model.config))
+    return jconfig, params, state, model
+
+
+@pytest.mark.parametrize("stride", [TILE // 2, 3 * TILE // 4], ids=["T/2", "3T/4"])
+@pytest.mark.parametrize("tta_merge", ["mean", "median"])
+@pytest.mark.parametrize("tta", [1, 2, 4, 8])
+def test_scene_matches_jax(make_geotiff, tta, tta_merge, stride):
+    ds, jds = _scene_datasets(make_geotiff, stride)
+    jconfig, params, state, model = _small_scene_models()
 
     want = jtiled.predict_linear_blend(jconfig, params, state, jds, batch_size=5,
                                        use_pallas=False, tta=tta,
@@ -93,6 +100,73 @@ def test_scene_matches_jax(make_geotiff, tta, tta_merge, stride):
     assert got.shape == ds.dsm_input.shape and got.dtype == np.float32
     assert np.abs(got[1:47, 3:61]).min() > 350.0      # every region pixel stitched
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch_size", [6, 8])
+def test_padding_at_the_last_tile_keeps_the_scene(make_geotiff, monkeypatch,
+                                                  batch_size):
+    """The last batch's zero-weight padding sits on its real tiles; the
+    scene is bitwise the one that padding at (0, 0), as the JAX package
+    pads, gives, and within 2 ulps of the JAX scene (35 tiles: 1 and 5
+    padding tiles)."""
+    ds, jds = _scene_datasets(make_geotiff, TILE // 2)
+    assert len(ds.positions) % batch_size
+    jconfig, params, state, model = _small_scene_models()
+    got = ttiled.predict_linear_blend(model, ds, device="cpu", batch_size=batch_size)
+    with monkeypatch.context() as patch:
+        patch.setattr(ttiled, "_pad_positions",
+                      lambda positions, n, _: ttiled._pad_round_up(positions, n))
+        at_origin = ttiled.predict_linear_blend(model, ds, device="cpu",
+                                                batch_size=batch_size)
+    np.testing.assert_array_equal(got, at_origin)
+    want = np.asarray(jtiled.predict_linear_blend(jconfig, params, state, jds,
+                                                  batch_size=batch_size,
+                                                  use_pallas=False))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 * float(np.spacing(np.abs(want).max())))
+
+
+def test_last_batch_box_is_the_real_tiles(make_geotiff, monkeypatch):
+    """Every batch's stitch gets the box of its real tiles (the box K2
+    launches over), the padded last batch included, whose padding tiles
+    take its real tiles' origins in turn."""
+    ds, _ = _scene_datasets(make_geotiff, TILE // 2)
+    _, _, _, model = _small_scene_models()
+    calls = []
+    stitch_tiles = ttiled.stitch.stitch_tiles
+
+    def record(canvas, tiles, positions, wy, wx, means, sigma, **kwargs):
+        calls.append((positions.numpy().copy(), kwargs["bounds"]))
+        return stitch_tiles(canvas, tiles, positions, wy, wx, means, sigma, **kwargs)
+
+    monkeypatch.setattr(ttiled.stitch, "stitch_tiles", record)
+    batch_size = 8
+    ttiled.predict_linear_blend(model, ds, device="cpu", batch_size=batch_size)
+    n = len(ds.positions)
+    assert len(calls) == -(-n // batch_size)
+    for index, (positions, bounds) in enumerate(calls):
+        real = ds.positions[index * batch_size:(index + 1) * batch_size]
+        assert bounds == (real[:, 0].min(), real[:, 1].min(),
+                          real[:, 0].max() + TILE, real[:, 1].max() + TILE)
+        np.testing.assert_array_equal(
+            positions[len(real):], np.resize(real, (batch_size - len(real), 2)))
+    assert len(calls[-1][0]) - len(real) == -n % batch_size > 0
+
+
+def test_chip_smoke_pads_as_the_main_path():
+    """chip_smoke's scene batches carry the main path's padding and box."""
+    batches = chip_smoke.grid_batches(101, 99, tile=16, batch=7)
+    last = batches[-1]
+    positions = np.concatenate([b["positions"].numpy() for b in batches])
+    n = len(positions) - last["n_pad"]
+    np.testing.assert_array_equal(
+        positions, ttiled._pad_positions(positions[:n], len(positions), 7))
+    real = last["positions"].numpy()[:7 - last["n_pad"]]
+    assert last["bounds"] == ttiled.stitch.batch_bounds(real, 16)
+    assert chip_smoke.repadded(last, "origin")["bounds"][:2] == (0, 0)
+    on_one = chip_smoke.repadded(last, "last_tile")
+    assert on_one["bounds"] == last["bounds"]
+    assert (on_one["positions"][len(real):] == torch.from_numpy(real[-1])).all()
 
 
 RUN_CLI = ("import runpy; "

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from resdepth_tpu.geo.grid import create_regular_grid, positions_as_array
 from resdepth_tpu.ops import blend
 from resdepth_tpu.ops.pallas_stitch import (crop_scene, pad_scene,
@@ -171,3 +172,87 @@ def test_use_pallas_false_raises_on_cuda():
         stitch.validate_use_pallas(value, torch.device("cuda"))
     with pytest.raises(ValueError, match="use_pallas"):
         stitch.validate_use_pallas("atomic", torch.device("cpu"))
+
+
+def _overlap_case():
+    """chip_smoke's heavy-overlap case: 300 tiles of 16 px at random spots
+    on a 96x128 canvas, up to 18 of them on a pixel."""
+    return chip_smoke.overlap_batch(96, 128, 16, 300)
+
+
+def _batch_inputs(batch, shape):
+    return (np.zeros(shape, np.float32),
+            *(batch[k].numpy() for k in ("tiles", "positions", "wy", "wx", "means")))
+
+
+@pytest.mark.parametrize("kind", ["xla", "pallas_fused"])
+def test_plain_matches_jax_on_heavy_overlap(kind):
+    """More tiles than one of K2's scan rounds (256), many on each pixel."""
+    batch = _overlap_case()
+    assert chip_smoke.max_cover([batch], (96, 128)) >= 8
+    inputs = _batch_inputs(batch, (96, 128))
+    want = _jax(kind, *inputs, sigma=chip_smoke.DSM_STD)
+    got = _plain(*inputs, sigma=chip_smoke.DSM_STD)
+    np.testing.assert_allclose(got, want, rtol=0, atol=_ulps(want))
+
+
+def test_free_order_needs_k1_bar():
+    """K1's atomics add in no fixed order. On the heavy-overlap case a sum
+    in a random tile order leaves 2 ulps of the ordered sum but stays
+    within ``chip_smoke.k1_ulps``, K1's bar on the card."""
+    batch = _overlap_case()
+    inputs = _batch_inputs(batch, (96, 128))
+    want = _plain(*inputs, sigma=chip_smoke.DSM_STD)
+    pred = batch["tiles"] * torch.tensor(chip_smoke.DSM_STD) + batch["means"][:, None, None]
+    weighted = (pred * (batch["wy"][:, :, None] * batch["wx"][:, None, :])).numpy()
+    positions = batch["positions"].numpy()
+    t = weighted.shape[1]
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for _ in range(20):
+        acc = np.zeros_like(want)
+        for i in rng.permutation(len(positions)):
+            y, x = positions[i]
+            acc[y:y + t, x:x + t] += weighted[i]
+        worst = max(worst, float(np.abs(acc - want).max()))
+    ulp = _ulps(want, 1)
+    bar = chip_smoke.k1_ulps(chip_smoke.max_cover([batch], want.shape))
+    assert 2 * ulp < worst <= bar * ulp
+
+
+@pytest.mark.parametrize("case", ["overlap", "ragged"])
+def test_fused_on_cpu_runs_plain_with_bounds(case):
+    """``stitch_tiles_fused`` with a box on a CPU canvas is the plain twin,
+    bitwise, and launches nothing: B = 300, and a ragged 101x99 grid whose
+    last batch is padded as the main path pads it."""
+    if case == "overlap":
+        shape, batches = (96, 128), [_overlap_case()]
+    else:
+        shape = (101, 99)
+        batches = chip_smoke.grid_batches(*shape, tile=16, batch=7)
+        assert batches[-1]["n_pad"] > 0
+    want = torch.zeros(shape)
+    got = torch.zeros(shape)
+    before = dict(stitch.LAUNCHES)
+    for batch in batches:
+        args = [batch[k] for k in ("tiles", "positions", "wy", "wx", "means")]
+        stitch.stitch_tiles_plain(want, *args, SIGMA)
+        assert stitch.stitch_tiles_fused(got, *args, SIGMA,
+                                         bounds=batch["bounds"]) is got
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert stitch.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,tile,offset,want", [
+    ((64, 80), 16, 0, (True, True)),
+    ((64, 81), 16, 0, (False, True)),
+    ((64, 80), 18, 0, (True, False)),
+    ((64, 80), 16, 1, (False, True)),      # canvas 4 bytes off alignment
+], ids=["aligned", "odd-width", "odd-tile", "offset-canvas"])
+def test_k2_vector_paths(shape, tile, offset, want):
+    """K2's float4 paths follow from shapes and alignment alone."""
+    storage = torch.zeros(offset + shape[0] * shape[1])
+    scene = storage[offset:].view(shape)
+    tiles = torch.zeros((3, tile, tile))
+    wx = torch.zeros((3, tile))
+    assert stitch.k2_vector_paths(scene, tiles, wx) == want
