@@ -26,14 +26,29 @@ found:
      the CLI with K1 and with K2, in float32 (TF32 off) and in bfloat16;
      the outputs exist and are finite, the launch counters show that every
      stitch went through the kernels, and the K1 and K2 scenes agree;
+     "steady": the float32 and bfloat16 scene with rasters resident;
+     "modes": the five string serving modes (mixed, fast32, act2pass,
+     balanced, balanced16) on that scene through ``predict_linear_blend``:
+     K3's launches by pass count (12/12/12/3/2 a forward for
+     fast32/act2pass/balanced/balanced16/mixed, times the 8 batches),
+     scene time, tiles/s, forward ms, peak memory, and the deviation from
+     the float32 scene in cm;
   5. card against CPU: a 512x512 crop refined on the card (K2, whose sum
-     order is the plain stitch's) and on the CPU, within 1e-4 m;
+     order is the plain stitch's) and on the CPU, float32 within 1e-4 m,
+     and each serving mode's UNet outputs on the crop's tiles, the mean
+     |diff| within a share of its own deviation from float32
+     (``CROP_SHARES``) that every other compute dtype served on the card
+     in its place misses; "modes-cli": one CLI run at ``compute_dtype:
+     "balanced16"`` that writes its rasters;
   6. conv: kernel K3 (``wgmma`` fed by TMA; the SASS of its library must
-     hold HGMMA and UTMALDG) at the flagship's 3x3 conv shapes at batch 128
-     and at ragged shapes, in float32 (the 3-pass bf16 split) and bfloat16,
-     against the plain version on cuDNN, TF32 off; times of K3, the plain
-     version, one ``F.conv2d`` (``library_ms``), for float32 cuDNN with
-     TF32 on and the split pass alone, each beside K3's bound;
+     hold HGMMA and UTMALDG) at batch 128 at every 3x3 conv the served
+     flagship hands it in the modes (``mode_k3_convs``, traced: one a
+     block and the composed top's two) and at ragged shapes, in float32 at
+     3, 1 and 2 bf16 passes and in bfloat16, against the plain version on
+     cuDNN, TF32 off; times of K3, the plain version, one ``F.conv2d``
+     (``library_ms``), the split of x and, at 3 passes, cuDNN with TF32
+     on, each beside K3's bound (its passes' operations); K3's time in one
+     forward of each mode;
   7. train: the flagship trained on a seeded 2048x2048 scene by the train
      CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
      float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
@@ -51,8 +66,10 @@ Any failure raises and the script exits non-zero. Without CUDA, or outside a
 checkout of the repository, it exits non-zero before printing a result. The
 scene and the CLI's outputs go to ``build/chip_smoke/`` and are removed at
 the end of a passing run. The last three lines of standard output are the
-kernels' JSON record, the card's name and power limit as ``nvidia-smi``
-prints them, and ``{"ok": true, "device": {...}}``.
+kernels' JSON record (K3 once per float32 pass count, with its launches on
+the mode paths and its times and bound over one forward of each mode at
+that pass count, and once for bfloat16), the card's name and power limit
+as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -90,13 +107,11 @@ KERNEL_SOURCE = "resdepth_tpu_torch/csrc/stitch.cu"
 K3 = ("conv3x3_k3", "resdepth_tpu_torch/csrc/conv.cu",
       "resdepth_tpu/ops/pallas_conv.py:101")
 
-# Phase 6: the flagship's 3x3 conv shapes at batch 128, (H = W, Cin, Cout,
-# activation), in float32 and bfloat16.
+# Phase 6: K3 at batch 128 at the 3x3 convs the served flagship hands it
+# in the serving modes (``mode_k3_convs``), in float32 at each pass count
+# (3: the TPU's HIGH) and in bfloat16.
 CONV_BATCH = 128
-CONV_CASES = ((256, 3, 64, "relu"), (256, 64, 64, "relu"),
-              (128, 128, 128, "relu"), (64, 256, 256, "relu"),
-              (32, 512, 512, "relu"), (16, 512, 512, "relu"),
-              (128, 128, 128, "lrelu"), (64, 256, 256, "prelu"))
+CONV_PASSES = (3, 1, 2)
 # Ragged shapes (N, H, W, Cin, Cout, activation): pixel tiles past the
 # image's edge, Cin padded to 16, Cout not a multiple of 8 or of 64.
 CONV_RAGGED = ((1, 17, 23, 5, 7, "prelu"), (3, 40, 9, 16, 72, "lrelu"),
@@ -112,6 +127,64 @@ TRAIN_SCENE = 2048
 TRAIN_BATCH = 20
 TRAIN_SAMPLES = 200          # 10 steps an epoch
 TRAIN_WARMUP = 3             # steps before the steady-state timing
+
+
+def k3_calls_a_forward(mode: str, depth: int = 5) -> dict:
+    """K3 launches of one forward of a folded transpose-mode UNet of
+    ``depth`` in a serving mode, by pass count: every 3x3 conv with a pass
+    count. The f32-storage modes run all 2 depth + 2 of them on K3 (depth
+    encoder blocks, the bottleneck, depth - 1 decoder blocks and the
+    composed top's two convs), balanced with encoder0 and the top at 3
+    passes; balanced16 runs encoder0 and the top's two at 3 passes; mixed
+    the top's two at 1."""
+    every = 2 * depth + 2
+    return {"fast32": {1: every}, "act2pass": {2: every},
+            "balanced": {1: every - 3, 3: 3}, "balanced16": {3: 3},
+            "mixed": {1: 2}}[mode]
+
+
+def mode_k3_convs(mode: str, config=None) -> list:
+    """The 3x3 convs one forward of the served (folded) flagship hands to
+    ``conv3x3_bias_act`` in a serving mode, in order, as ``(H, Cin, Cout,
+    act, passes)`` at tiles of ``TILE``: traced through ``apply_unet`` on
+    meta tensors, the wrapper swapped for a recorder (nothing runs)."""
+    from unittest import mock
+
+    from resdepth_tpu_torch.models import unet
+
+    config = config or unet.flagship_config("geom-stereo")
+    model = unet.UNet(dataclasses.replace(config, do_BN=False), "meta",
+                      composed_top=config.up_mode == "transpose")
+    calls = []
+
+    def record(x, kernel, bias=None, act_param=None, *, act_fn="relu", passes=None):
+        calls.append((x.shape[1], kernel.shape[2], kernel.shape[3], act_fn, passes))
+        return x.new_zeros(x.shape[:3] + (kernel.shape[3],))
+
+    x = torch.zeros((1, TILE, TILE, config.n_input_channels), device="meta")
+    with mock.patch.object(unet, "conv3x3_bias_act", record), torch.inference_mode():
+        unet.apply_unet(model, x, **unet.serving_precision(mode).apply_kwargs())
+    return calls
+
+
+def k3_cases() -> dict:
+    """Each distinct ``(H, Cin, Cout, act)`` the five modes' forwards hand
+    K3, with its launches in one forward of each mode by pass count
+    (``mode_k3_convs``); the pass counts add up to ``k3_calls_a_forward``."""
+    from collections import Counter
+
+    from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES
+
+    cases = {}
+    for mode in SERVING_PRECISION_MODES:
+        convs = mode_k3_convs(mode)
+        if Counter(p for *_, p in convs) != k3_calls_a_forward(mode):
+            raise AssertionError(f"{mode}: the traced forward hands K3 {convs}, "
+                                 f"not {k3_calls_a_forward(mode)} by pass count")
+        for *shape, p in convs:
+            cases.setdefault(tuple(shape), {1: 0, 2: 0, 3: 0})[p] += 1
+    order = [tuple(c[:4]) for c in mode_k3_convs("fast32")]   # every shape, in order
+    return {shape: cases[shape] for shape in sorted(cases, key=order.index)}
 
 
 def log(phase: str, message: str) -> None:
@@ -224,6 +297,7 @@ def run_cli(config_path: str, device: str) -> float:
 def output_paths(out_dir: str) -> dict:
     pair_dir = os.path.join(out_dir, "smoke_city", "Stereopair_0_1")
     return {"prediction": os.path.join(pair_dir, "initial_DSM_prediction.tif"),
+            "residuals": os.path.join(pair_dir, "initial_DSM_residuals.tif"),
             "statistics": os.path.join(pair_dir,
                                        "initial_DSM_prediction_statistics.txt")}
 
@@ -841,9 +915,235 @@ def phase_steady(scene: dict, model_path: str) -> dict:
     return result
 
 
-def phase_crop(work: str, scene: dict, model_path: str) -> float:
+# Kernel-name fragments by which ``device_breakdown`` groups device time.
+KERNEL_GROUPS = (("K3", ("conv3x3_k3",)), ("K3 split", ("split_hi_lo",)),
+                 ("stitch", ("stitch_k",)),
+                 ("cuDNN convs", ("conv", "cudnn", "xmma", "cutlass", "gemm")))
+
+
+def device_breakdown(fn) -> dict:
+    """Device time of the kernels ``fn`` launches, from ``torch.profiler``
+    (CUPTI): ms by group (``KERNEL_GROUPS``, the rest "other"), the
+    kernel count, and each group's two longest kernels by total time;
+    empty when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names, count = {}, 0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            names[event.name] = names.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
+            count += 1
+    groups, top = {}, {}
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1]):
+        lower = name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in lower for k in keys)),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + ms
+        top.setdefault(group, [])
+        if len(top[group]) < 2:
+            top[group].append(f"{name[:60]} {ms:.2f}")
+    return {"ms": groups, "kernels": count, "top": top} if groups else {}
+
+
+def phase_modes(scene: dict, model_path: str) -> dict:
+    """The five string serving modes on the 4096^2 scene, rasters resident,
+    through ``predict_linear_blend(compute_dtype=mode)``. For each mode the
+    K3 launch counters are zeroed just before its first scene run and read
+    just after it: they must be the forward's launches by pass count
+    (``k3_calls_a_forward``) times the batches. Then the scene time (median
+    of 3 more runs), tiles/s, the UNet forward of one batch of 128 (CUDA
+    events) and the peak memory; and the mean and p99 |deviation| of the
+    first run's scene from the float32 scene, in cm (random weights, so
+    this is no budget check). Returns the per-mode records and the K3
+    launches of the mode paths by pass count."""
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import build_batch, device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import (_inference_spec, predict_linear_blend,
+                                                serving_model)
+    from resdepth_tpu_torch.models import weights
+    from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
+                                                apply_unet, flagship_config,
+                                                serving_precision)
+    from resdepth_tpu_torch.ops import conv
+
+    device = torch.device("cuda", 0)
+    ds = _tile_dataset(scene["paths"], SCENE_SIZE, scene["image_mean"],
+                       scene["image_std"])
+    rasters = device_put_dataset(ds, device)
+    config = flagship_config("geom-stereo")
+    base = UNet(config)
+    base.load_state_dict(weights.load_state_dict(model_path, config))
+    n_batches = -(-len(ds.positions) // BATCH)
+    x = build_batch(rasters, torch.from_numpy(ds.positions[:BATCH]).to(device),
+                    torch.from_numpy(ds.pair_indices[:BATCH]).to(device),
+                    _inference_spec(ds))["input"]
+
+    def run(served, dtype):
+        return predict_linear_blend(served, ds, device=device, batch_size=BATCH,
+                                    compute_dtype=dtype, rasters=rasters,
+                                    fold_bn=False, as_numpy=False)
+
+    dtype = predict.select_compute_dtype("float32", device)
+    served = serving_model(base, device, dtype)
+    reference = run(served, dtype).cpu().numpy()
+    breakdowns = {"float32": device_breakdown(lambda: run(served, dtype))}
+    result, launches = {}, {1: 0, 2: 0, 3: 0}
+    for mode in SERVING_PRECISION_MODES:
+        dtype = predict.select_compute_dtype(mode, device)
+        served = serving_model(base, device, dtype)
+        for key in conv.LAUNCHES:
+            conv.LAUNCHES[key] = 0
+        canvas = run(served, dtype)
+        torch.cuda.synchronize()
+        counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in launches}
+        want = {p: n * n_batches
+                for p, n in k3_calls_a_forward(mode, config.depth).items()}
+        if ({p: c for p, c in counts.items() if c} != want
+                or conv.LAUNCHES["k3"] != sum(want.values())):
+            raise AssertionError(f"{mode}: K3 launches {conv.LAUNCHES}, expected "
+                                 f"{want} by pass count ({n_batches} batches)")
+        for p, c in counts.items():
+            launches[p] += c
+        out = canvas.cpu().numpy()
+        if not np.isfinite(out).all():
+            raise AssertionError(f"{mode}: non-finite refined scene")
+        dev_cm = np.abs(out - reference) * 100.0
+        torch.cuda.reset_peak_memory_stats(device)
+        walls = []
+        for _ in range(3):
+            start = time.perf_counter()
+            run(served, dtype)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        kwargs = serving_precision(mode).apply_kwargs()
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: apply_unet(served, x, **kwargs), iters=5,
+                                 warmup=2)
+        result[mode] = {
+            "scene_s": float(np.median(walls)), "walls": walls,
+            "tiles_per_s": len(ds.positions) / float(np.median(walls)),
+            "forward_ms": forward_ms,
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            "launches": want, "mean_dev_cm": float(dev_cm.mean()),
+            "p99_dev_cm": float(np.percentile(dev_cm, 99))}
+        breakdowns[mode] = device_breakdown(lambda: run(served, dtype))
+        del served, canvas
+    torch.cuda.empty_cache()
+    log("modes", f"predict_linear_blend(compute_dtype=mode) on the card, rasters "
+        f"resident, {len(ds.positions)} tiles, {n_batches} batches of {BATCH}; "
+        "median of 3 after a counted run: " + "; ".join(
+            f"{m} scene {r['scene_s']:.3f} s ({r['tiles_per_s']:.1f} tiles/s; runs "
+            f"{', '.join(f'{w:.3f}' for w in r['walls'])} s), UNet forward "
+            f"{r['forward_ms']:.2f} ms per batch of {BATCH}, peak {r['peak_gib']:.2f} "
+            f"GiB, K3 launches by passes {r['launches']}, |dev| from float32 mean "
+            f"{r['mean_dev_cm']:.4g} cm, p99 {r['p99_dev_cm']:.4g} cm"
+            for m, r in result.items())
+        + f"; K3 launches of the mode paths by passes {launches}")
+    walls = {"float32": None, **{m: r["scene_s"] for m, r in result.items()}}
+    log("modes", "device time of one scene run by kernel group (torch.profiler; "
+        "idle share against the median unprofiled scene time): " + "; ".join(
+            f"{m}: " + (", ".join(f"{g} {t:.2f} ms ({' | '.join(b['top'][g])})"
+                                  for g, t in sorted(b["ms"].items(), key=lambda kv: -kv[1]))
+                + f", {b['kernels']} kernels, busy {sum(b['ms'].values()):.2f} ms"
+                + (f", idle {100 * (1 - sum(b['ms'].values()) / 1e3 / walls[m]):.1f} %"
+                   if walls[m] else "") if b else "no device time")
+            for m, b in breakdowns.items()))
+    return {"modes": result, "launches": launches, "breakdowns": breakdowns}
+
+
+# The bar of each serving mode on the crop, card against CPU: the mean
+# |diff| of the UNet's outputs as a share of the mode's own mean deviation
+# from float32 on the card, a tenth. The two sides differ only in how the
+# sums are taken (K3's and cuDNN's against the CPU's), which moves a bf16
+# rounding of an activation now and then: measured fast32 0.025, act2pass
+# 0.0005, mixed 0.027, balanced16 0.070. Except balanced, whose own
+# deviation with random weights is 0.015 cm on the crop, as small as those
+# moved roundings (0.0037 cm, fast32's 0.0093): measured 0.25, so its bar
+# is 0.5 and the tenth is not met. Every bar must also reject the nearest
+# other compute dtype served on the card in the mode's place, measured at
+# 0.59-1.0. ``bfloat16`` is reported beside them, with no bar.
+CROP_SHARES = {"fast32": 0.1, "act2pass": 0.1, "balanced": 0.5,
+               "mixed": 0.1, "balanced16": 0.1}
+
+
+def _crop_modes(model, ds) -> dict:
+    """Each serving mode on the crop's tiles, card against CPU: the card's
+    batch of the crop's tiles through the served UNet on the card and on
+    the CPU. The mean |diff| of the UNet's outputs must be within a share of
+    the mode's own mean deviation from float32 on the card
+    (``CROP_SHARES``), and that bar must reject every other compute dtype
+    served on the card in the mode's place (the controls: each other
+    mode's, float32's and bfloat16's card outputs against the mode's CPU
+    outputs). They are compared before the stitch: its denormalised
+    heights, near 420 m, round at 3.05e-5 m, as large as balanced's own
+    deviation on the crop. The stitched crops' mean |diff| is reported
+    beside them."""
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import build_batch, device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import (_inference_spec, _storage,
+                                                predict_linear_blend, serving_model)
+    from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES, apply_unet
+
+    devices = {"cpu": torch.device("cpu"), "card": torch.device("cuda", 0)}
+    x = build_batch(device_put_dataset(ds, devices["card"]),
+                    torch.from_numpy(ds.positions.astype(np.int32)).to(devices["card"]),
+                    torch.from_numpy(ds.pair_indices.astype(np.int64)).to(devices["card"]),
+                    _inference_spec(ds))["input"].cpu()
+
+    def forward(mode, name):
+        dtype = predict.select_compute_dtype(mode, devices[name])
+        storage, kwargs = _storage(dtype)
+        served = serving_model(model, devices[name], dtype)
+        with torch.inference_mode():
+            y = apply_unet(served, x.to(devices[name], storage), **kwargs)
+        return y.float().cpu().numpy()
+
+    served = ("float32", "bfloat16") + SERVING_PRECISION_MODES
+    cards = {mode: forward(mode, "card") for mode in served}
+    cm = ds.dsm_std * 100.0          # a normalised unit in cm
+    modes = {}
+    for mode in served[1:]:
+        cpu = forward(mode, "cpu")
+        diff = float(np.abs(cards[mode] - cpu).mean())
+        own = float(np.abs(cards[mode] - cards["float32"]).mean())
+        controls = {other: float(np.abs(card - cpu).mean()) / own
+                    for other, card in cards.items() if other != mode}
+        nearest = min(controls, key=controls.get)
+        scenes = [predict_linear_blend(model, ds, device=devices[name], batch_size=BATCH,
+                                       compute_dtype=predict.select_compute_dtype(
+                                           mode, devices[name]), use_pallas="fused")
+                  for name in ("card", "cpu")]
+        modes[mode] = {"card_vs_cpu_cm": diff * cm, "own_dev_cm": own * cm,
+                       "share": diff / own, "bar_share": CROP_SHARES.get(mode),
+                       "nearest": nearest, "nearest_share": controls[nearest],
+                       "card_vs_cpu_max_cm": float(np.abs(cards[mode] - cpu).max()) * cm,
+                       "stitched_card_vs_cpu_m": float(np.abs(scenes[0] - scenes[1]).mean()),
+                       "finite": bool(np.isfinite(cards[mode]).all())}
+    log("crop", f"serving modes on the crop's {len(ds.positions)} tiles, card vs CPU, "
+        "UNet output mean |diff| as a share of the mode's own mean |dev| from "
+        "float32 on the card, beside the nearest control (another compute dtype's "
+        "card outputs against the mode's CPU outputs): " + "; ".join(
+            f"{m} {r['card_vs_cpu_cm']:.3g} cm (max {r['card_vs_cpu_max_cm']:.3g}) against "
+            f"own {r['own_dev_cm']:.3g} cm: {r['share']:.3g} (bar {r['bar_share']}; "
+            f"nearest control {r['nearest']} {r['nearest_share']:.3g}); "
+            f"stitched crop mean |diff| {r['stitched_card_vs_cpu_m']:.3g} m"
+            for m, r in modes.items()))
+    failed = {m: r for m, r in modes.items() if not r["finite"] or (
+        r["bar_share"] is not None
+        and not r["share"] <= r["bar_share"] < r["nearest_share"])}
+    if failed:
+        raise AssertionError(f"card and CPU differ on the crop's tiles above the "
+                             f"bar, or a control passes it: {failed}")
+    return modes
+
+
+def phase_crop(work: str, scene: dict, model_path: str) -> dict:
     """The f32 refined scene of a 512x512 crop on the card (TF32 off) against
-    the port's CPU path (plain stitch)."""
+    the port's CPU path (plain stitch), within 1e-4 m; then each serving
+    mode on the crop, card against CPU (``_crop_modes``)."""
     from resdepth_tpu_torch.geo import raster as raster_mod
     from resdepth_tpu_torch.geo import tiff
     from resdepth_tpu_torch import predict
@@ -891,7 +1191,36 @@ def phase_crop(work: str, scene: dict, model_path: str) -> float:
     log("crop", f"{CROP_SIZE}^2 crop, {len(ds.positions)} tiles, float32 with "
         f"TF32 off: card (K2) vs CPU (plain stitch) max |diff| {errs['k2']:.3g} m "
         f"(tolerance 1e-4 m); card with K1: {errs['k1']:.3g} m")
-    return errs["k2"]
+    modes = _crop_modes(model, ds)
+    return {"float32_k2_max_m": errs["k2"], "modes": modes}
+
+
+def phase_modes_cli(work: str, scene: dict, model: dict) -> dict:
+    """One CLI run over the 4096^2 scene with ``general.compute_dtype:
+    "balanced16"``: it writes its rasters and statistics, the scene is
+    finite, and K3 ran at 3 passes three times a batch (its counters zeroed
+    just before the run and read just after)."""
+    from resdepth_tpu_torch.ops import conv
+
+    n_batches = -(-(((SCENE_SIZE - TILE) // (TILE // 2) + 1) ** 2) // BATCH)
+    out_dir = os.path.join(work, "eval", "balanced16")
+    config = write_config(os.path.join(work, "config_balanced16.json"),
+                          scene["paths"], model, out_dir, tile_size=TILE,
+                          batch_size=BATCH, compute_dtype="balanced16")
+    for key in conv.LAUNCHES:
+        conv.LAUNCHES[key] = 0
+    wall = run_cli(config, "cuda")
+    launches = dict(conv.LAUNCHES)
+    prediction = _check_outputs(out_dir, (SCENE_SIZE, SCENE_SIZE))
+    want = k3_calls_a_forward("balanced16")[3] * n_batches
+    if launches["k3_p3"] != want or launches["k3"] != want:
+        raise AssertionError(f"the balanced16 CLI run launched K3 {launches}, "
+                             f"expected {want} at 3 passes")
+    log("modes-cli", f"python -m resdepth_tpu_torch.predict with compute_dtype "
+        f"balanced16: CLI wall {wall:.2f} s, wrote "
+        f"{', '.join(os.path.basename(p) for p in output_paths(out_dir).values())}; "
+        f"K3 launches {launches}; scene finite, mean {float(prediction.mean()):.2f} m")
+    return {"wall_s": wall, "launches": launches}
 
 
 def bf16_ulps(reference: np.ndarray, n: int = 2) -> float:
@@ -907,14 +1236,13 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16) -> tuple
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def conv_bound(x, c_out: int) -> tuple:
+def conv_bound(x, c_out: int, passes: int = 1) -> tuple:
     """K3's bound: x, the weights, bias and slopes read once and the output
     written once in ``x.dtype``; 2·N·H·W·9·Cin·Cout operations at the bf16
-    tensor rate, three times that for float32's three bf16 passes."""
+    tensor rate for each of its bf16 passes."""
     n, h, w, c_in = x.shape
     size = x.element_size()
     n_bytes = (x.numel() + 9 * c_in * c_out + n * h * w * c_out) * size + 8 * c_out
-    passes = 3 if x.dtype == torch.float32 else 1
     return bound_ms(n_bytes, passes * 2.0 * n * h * w * 9 * c_in * c_out)
 
 
@@ -948,14 +1276,21 @@ def _library_conv(x, kernel, bias):
 
 
 def phase_conv() -> dict:
-    """K3 against the plain version at the flagship's conv shapes and at
-    ragged ones, in float32 and bfloat16; the SASS of the built library
-    holds wgmma and TMA loads. The launch counters are zeroed before each
-    case's one call through ``conv3x3_bias_act`` and read after it; the
-    timing launches come later and are not counted. Times, from CUDA events
-    in turns: K3, the plain version, ``F.conv2d`` in ``x.dtype`` with TF32
-    off (``library_ms``) and, for float32, with TF32 on and the split pass
-    alone."""
+    """K3 against the plain version at every 3x3 conv the serving modes
+    hand it (``k3_cases``: the served flagship's own shapes, batch 128) and
+    at ragged ones: float32 at 3, 1 and 2 bf16 passes, and bfloat16; the
+    SASS of the built library holds wgmma and TMA loads. The launch
+    counters are zeroed before each case's one call through
+    ``conv3x3_bias_act`` and read after it; the timing launches come later
+    and are not counted. Times, from CUDA events in turns: K3, the plain
+    version, ``F.conv2d`` in ``x.dtype`` with TF32 off (``library_ms``), for
+    float32 the split of x alone and, at 3 passes, cuDNN with TF32 on.
+    Returns a record per variant, "float32" (3 passes), "float32_p1",
+    "float32_p2" and "bfloat16": its times and bound summed over the
+    shapes, each float32 shape weighted by its launches at that pass count
+    in one forward of each mode (``k3_cases``; bfloat16, on no path, each
+    shape once), and per mode the K3 time of one forward."""
+    from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES
     from resdepth_tpu_torch.ops import build, conv
 
     sass = sass_counts(build.library_path("conv"))
@@ -969,79 +1304,99 @@ def phase_conv() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     generator = torch.Generator(device=device).manual_seed(SEED)
+    weights = k3_cases()
+    cases = [(CONV_BATCH, h, h, c_in, c_out, act)
+             for h, c_in, c_out, act in weights] + list(CONV_RAGGED)
+    variants = [(f"float32{'' if p == 3 else f'_p{p}'}", torch.float32, p)
+                for p in CONV_PASSES] + [("bfloat16", torch.bfloat16, None)]
     result = {}
-    cases = ([(CONV_BATCH, s, s, *rest) for s, *rest in CONV_CASES]
-             + list(CONV_RAGGED))
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for name, dtype, passes in variants:
         rows, launches, splits = [], 0, 0
         for n, h, w, c_in, c_out, act in cases:
             x, kernel, bias, slope = _conv_inputs(generator, device, dtype, n, h, w,
                                                   c_in, c_out)
-            conv.LAUNCHES.update(k3=0, k3_split=0)
-            got = conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act)
+            for key in conv.LAUNCHES:
+                conv.LAUNCHES[key] = 0
+            got = conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act, passes=passes)
             torch.cuda.synchronize()
             launches += conv.LAUNCHES["k3"]
             splits += conv.LAUNCHES["k3_split"]
-            want = conv.conv3x3_bias_act_plain(x, kernel, bias, slope,
-                                               act_fn=act).float()
+            if passes and conv.LAUNCHES[f"k3_p{passes}"] != 1:
+                raise AssertionError(f"K3 {name}: not counted at {passes} passes: "
+                                     f"{conv.LAUNCHES}")
+            want = conv.conv3x3_bias_act_plain(x, kernel, bias, slope, act_fn=act,
+                                               passes=passes).float()
             want_np = want.cpu().numpy()
             err = float((got.float() - want).abs().max())
             bar = (1e-4 * float(np.abs(want_np).max()) if dtype == torch.float32
                    else bf16_ulps(want_np))
             shape = f"{n}x{h}x{w} {c_in}->{c_out} {act}"
             if not (np.isfinite(err) and err <= bar):
-                raise AssertionError(f"K3 {dtype_name} {shape}: max |diff| {err} "
-                                     f"above {bar}")
-            row = {"shape": shape, "err": err, "bar": bar}
-            if dtype == torch.float32:
+                raise AssertionError(f"K3 {name} {shape}: max |diff| {err} above {bar}")
+            row = {"shape": shape, "key": (h, c_in, c_out, act), "err": err, "bar": bar}
+            if passes:
                 ieee = conv._activate(_library_conv(x, kernel, bias).permute(0, 2, 3, 1)
                                       .float(), act, slope)
                 row["ieee_rel"] = float((got - ieee).abs().max() / ieee.abs().max())
                 del ieee
             del got, want
             if n == CONV_BATCH:
-                row.update(_conv_times(conv, x, kernel, bias, slope, act, c_out))
+                row.update(_conv_times(conv, x, kernel, bias, slope, act, c_out, passes))
+                row["weight"] = weights[row["key"]][passes] if passes else 1
             rows.append(row)
             del x
         # float32 splits x and the weights in each call; bfloat16 splits nothing
         want_splits = 2 * len(cases) if dtype == torch.float32 else 0
         if launches != len(cases) or splits != want_splits:
             raise AssertionError(f"K3 launched {launches} times and its split "
-                                 f"{splits} for {len(cases)} calls in {dtype_name}")
+                                 f"{splits} for {len(cases)} calls in {name}")
         timed = [r for r in rows if "ms" in r]
-        total_bound = sum(r["bound_ms"] for r in timed)
-        ops_share = sum(r["bound_ms"] for r in timed if r["bound_by"] == "operations")
-        result[dtype_name] = {
-            "launches": launches, "max_abs_err": max(r["err"] for r in rows),
-            **{key: sum(r[key] for r in timed)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "bound_by": "operations" if ops_share >= total_bound / 2 else "bytes",
+        total = {key: sum(r["weight"] * r[key] for r in timed)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        ops_bound = sum(r["weight"] * r["bound_ms"] for r in timed
+                        if r["bound_by"] == "operations")
+        by_shape = {r["key"]: r["ms"] for r in timed}
+        result[name] = {
+            "passes": passes, "launches": launches,
+            "max_abs_err": max(r["err"] for r in rows), **total,
+            "bound_by": "operations" if ops_bound >= total["bound_ms"] / 2 else "bytes",
+            "forward_ms": {mode: sum(by_shape[tuple(c[:4])] for c in mode_k3_convs(mode)
+                                     if c[4] == passes)
+                           for mode in SERVING_PRECISION_MODES} if passes else {},
             "rows": rows}
-        log("conv", f"K3 {dtype_name}, CUDA events (mean of K3/plain/library/.../"
+        log("conv", f"K3 {name}, CUDA events (mean of K3/plain/library/.../"
             "plain/K3 turns, 5 launches each): " + "; ".join(
                 f"{r['shape']}: max |diff| {r['err']:.3g} (bar {r['bar']:.3g})"
                 + (f", IEEE dev {r['ieee_rel']:.3g} rel" if "ieee_rel" in r else "")
                 + (f", K3 {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, library "
                    f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ({r['bound_by']}, "
-                   f"{100 * r['bound_ms'] / r['ms']:.0f} %)" if "ms" in r else "")
-                + (f", TF32 cuDNN {r['tf32_ms']:.3f}, split {r['split_ms']:.3f}"
-                   if "tf32_ms" in r else "")
+                   f"{100 * r['bound_ms'] / r['ms']:.0f} %), launches a forward of each "
+                   f"mode {r['weight']}" if "ms" in r else "")
+                + (f", split of x {r['split_ms']:.3f}" if "split_ms" in r else "")
+                + (f", TF32 cuDNN {r['tf32_ms']:.3f}" if "tf32_ms" in r else "")
                 for r in rows)
-            + f"; launches {launches}, split launches {splits}")
+            + f"; launches {launches}, split launches {splits}; summed over the shapes "
+            f"{'by their launches a forward of each mode' if passes else 'once each'}: "
+            f"K3 {total['ms']:.3f} ms, plain {total['plain_ms']:.3f}, library "
+            f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f}"
+            + (f"; K3 in one forward: " + ", ".join(
+                f"{m} {t:.3f} ms" for m, t in result[name]["forward_ms"].items() if t)
+               if passes else ""))
     torch.cuda.empty_cache()
     return result
 
 
-def _conv_times(conv, x, kernel, bias, slope, act, c_out) -> dict:
-    """CUDA-event times of one flagship conv case (not counted launches)."""
-    timers = {"k3": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act),
+def _conv_times(conv, x, kernel, bias, slope, act, c_out, passes) -> dict:
+    """CUDA-event times of one timed conv case (not counted launches)."""
+    timers = {"k3": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act,
+                                                  passes=passes),
               "plain": lambda: conv.conv3x3_bias_act_plain(x, kernel, bias, slope,
-                                                           act_fn=act),
+                                                           act_fn=act, passes=passes),
               "library": lambda: _library_conv(x, kernel, bias)}
-    order = ["k3", "plain", "library"]
-    if x.dtype == torch.float32:
+    if passes:
         c_in_p = -(-x.shape[3] // conv.CIN_ALIGN) * conv.CIN_ALIGN
-
+        timers["split"] = lambda: conv._split(x, c_in_p, with_lo=passes >= 2)
+    if passes == 3:
         def tf32():
             torch.backends.cudnn.allow_tf32 = True
             try:
@@ -1049,12 +1404,12 @@ def _conv_times(conv, x, kernel, bias, slope, act, c_out) -> dict:
             finally:
                 torch.backends.cudnn.allow_tf32 = False
 
-        timers.update(tf32=tf32, split=lambda: conv._split(x, c_in_p))
-        order += ["tf32", "split"]
+        timers["tf32"] = tf32
+    order = list(timers)
     times = {name: [] for name in timers}
     for name in order + order[::-1]:
         times[name].append(cuda_ms(timers[name], iters=5, warmup=2))
-    bound, bound_by = conv_bound(x, c_out)
+    bound, bound_by = conv_bound(x, c_out, passes or 1)
     return {**{("ms" if k == "k3" else f"{k}_ms"): float(np.mean(v))
                for k, v in times.items()},
             "bound_ms": bound, "bound_by": bound_by}
@@ -1332,7 +1687,9 @@ def main(argv: list | None = None) -> int:
         f"artifacts written in {time.perf_counter() - start:.1f} s")
     flagship = phase_flagship(WORK_DIR, scene, model)
     phase_steady(scene, model["weights"])
+    modes = phase_modes(scene, model["weights"])
     phase_crop(WORK_DIR, scene, model["weights"])
+    phase_modes_cli(WORK_DIR, scene, model)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     convs = phase_conv()
@@ -1351,11 +1708,19 @@ def main(argv: list | None = None) -> int:
          "replaces": replaces, "launches": flagship["launches"][key],
          **{f: kernels[key][f] for f in fields}}
         for key, (name, replaces) in KERNELS.items()]}
+    # K3 once per float32 pass count, with its launches on the mode paths
+    # (phase modes) and its times and bound over one forward of each mode
+    # at that pass count (phase 6); bfloat16 K3 is on no path (the bf16
+    # trunks run cuDNN): its launches are phase 6's, its times each shape's
+    # once.
     name, source, replaces = K3
     record["kernels"] += [
-        {"name": f"{name} ({dtype})", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": r["launches"], **{f: r[f] for f in fields}}
-        for dtype, r in convs.items()]
+        {"name": (f"{name} (float32, {r['passes']} pass{'es' if r['passes'] > 1 else ''})"
+                  if r["passes"] else f"{name} ({key})"),
+         "route": "cuda", "source": source, "replaces": replaces,
+         "launches": modes["launches"][r["passes"]] if r["passes"] else r["launches"],
+         **{f: r[f] for f in fields}}
+        for key, r in convs.items()]
     print(json.dumps(record))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

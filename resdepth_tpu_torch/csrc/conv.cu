@@ -11,7 +11,11 @@
 // bf16 inputs take one bf16 product pass with f32 accumulation; f32 inputs
 // take the TPU kernel's Precision.HIGH decomposition, x = x_hi + x_lo and
 // w = w_hi + w_lo in bf16, accumulating x_hi*w_hi + x_hi*w_lo + x_lo*w_hi in
-// f32 (three bf16 passes). The TPU kernel cuts the padded input into three
+// f32 (three bf16 passes). f32 inputs may also ask for fewer passes, the
+// TPU's other MXU precisions on f32 operands (the serving modes): 1 pass,
+// x_hi*w_hi (Precision.DEFAULT), or 2 passes, x_hi*w_hi + x_lo*w_hi
+// ((HIGH, DEFAULT): the activation split, the weights single-rounded); a
+// stage then holds only the tiles its passes read. The TPU kernel cuts the padded input into three
 // row-shifted views so that its BlockSpecs hand each grid program a halo
 // window in VMEM; here TMA fetches each tap's window itself.
 //
@@ -26,7 +30,7 @@
 // (64, or all of a narrow layer's 16 or 32), the A tile (the input window
 // shifted by the tap, 128 MT px x KC bf16, from a 4-D tensor map (C, W, H, N)
 // at (c0, x0+dx-1, y0+dy-1, n)) and the B tile (the tap's weights, BN x KC
-// bf16), and for f32 the lo tiles beside the hi ones. TMA fills zeros
+// bf16), and for f32 the lo tiles its passes read beside the hi ones. TMA fills zeros
 // outside the tensor, negative coordinates included: that is the conv's
 // same padding and the Cin / Cout tails, with no padded copy of x and no
 // bounds check in the loads. The tiles arrive in the swizzle of their row
@@ -37,16 +41,16 @@
 // The wrapper (ops/conv.py) hands the kernel bf16 operands: x as it is, or
 // padded with zero channels to a multiple of 16 (TMA needs 16-byte strides,
 // wgmma takes K in steps of 16); the weights re-laid once a call as
-// (9, Cout, Cin_p), K-major. For f32 the split kernel below writes x_hi and
-// x_lo (bf16, NHWC, Cin padded), and the weights' hi and lo the same way:
-// one extra read of x and write of 2 bf16 copies, not yet fused into the
-// load.
+// (9, Cout, Cin_p), K-major. For f32 the split kernel below writes x_hi,
+// and x_lo from 2 passes (bf16, NHWC, Cin padded), and the weights' hi,
+// and lo at 3 passes, the same way: one extra read of x and write of 1 or
+// 2 bf16 copies, not yet fused into the load.
 //
-// What bounds it: at the flagship shapes (batch 128) a 3x3 conv is 0.62
-// TFLOP against 1-4 GB of activations, so bf16 is bound by the tensor
-// cores' 989 TFLOP/s (0.63 ms) except the first layer (Cin 3), which is
-// bound by writing its output (about 1 GB, 0.34 ms); the f32 path does three
-// passes (1.9 ms). This design reaches the tensor cores, with the loads
+// What bounds it: at the flagship UNet's convs (batch 128) most 3x3 convs
+// are 0.31 TFLOP against 0.5-2 GB of activations, so bf16 is bound by the
+// tensor cores' 989 TFLOP/s (0.31 ms) except the first layer (Cin 3) and
+// the top's (Cout 1 and 4), which are bound by their bytes (the first
+// writes about 1 GB, 0.34 ms); f32 does 1 to 3 passes (up to 0.94 ms). This design reaches the tensor cores, with the loads
 // overlapped by the ring, and runs at 40-50 % of the bound in bf16 and
 // 50-60 % in f32 at Cin >= 128 (PERF.md). What it leaves: each tap reloads
 // its window from L2 (9 A tiles a chunk; at 128 px x 128 Cout that was
@@ -75,19 +79,21 @@ enum Act { kIdentity = 0, kRelu = 1, kLrelu = 2, kPrelu = 3 };
 constexpr int kErrNoEncoder = 10001;         // cuTensorMapEncodeTiled not found
 constexpr int kErrEncode = 10002;            // cuTensorMapEncodeTiled refused a map
 
-// BN output channels a CTA, f32 split or not, KC input channels a stage
+// BN output channels a CTA, kPasses bf16 product passes (1, 2 or 3) and
+// kF32 the f32 path (f32 output; bf16 takes 1 pass), KC input channels a stage
 // (16, 32 or 64: rows of 32, 64 or 128 bytes, under the swizzle of that
 // width; 16 and 32 serve layers with few input channels, such as the
 // first, whose stages would otherwise be mostly TMA's zero fill), and MT
 // m64 tiles a consumer warpgroup: 128 MT output pixels a CTA.
-template <int BN, bool kSplit, int KC, int MT>
+template <int BN, int kPasses, int KC, int MT>
 struct Config {
   static constexpr int kBM = 128 * MT;
   static constexpr int kRowBytes = KC * 2;
-  static constexpr int kOperands = kSplit ? 2 : 1;      // hi, and lo for f32
+  static constexpr int kATiles = kPasses >= 2 ? 2 : 1;  // x_hi, and x_lo from 2 passes
+  static constexpr int kBTiles = kPasses == 3 ? 2 : 1;  // w_hi, and w_lo at 3 passes
   static constexpr int kATileBytes = kBM * kRowBytes;   // 16 KB at KC 64, MT 1
   static constexpr int kBTileBytes = BN * kRowBytes;
-  static constexpr int kStageBytes = kOperands * (kATileBytes + kBTileBytes);
+  static constexpr int kStageBytes = kATiles * kATileBytes + kBTiles * kBTileBytes;
   static constexpr int kStages = kStageBytes > 49152 ? 3 : (kStageBytes >= 24576 ? 4 : 6);
   // stages, then the full and empty barriers, plus slack to align to 1 KB
   static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
@@ -262,17 +268,17 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
 // multiply, the first thread of warp 8 loads. The Cout block varies
 // fastest, so the CTAs that share an input window run together and find it
 // in L2.
-template <int BN, bool kSplit, int KC, int MT>
+template <int BN, int kPasses, bool kF32, int KC, int MT>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
                   __grid_constant__ const CUtensorMap x_lo,
                   __grid_constant__ const CUtensorMap w_hi,
                   __grid_constant__ const CUtensorMap w_lo,
                   const float* __restrict__ bias, const float* __restrict__ prelu,
-                  typename std::conditional<kSplit, float, __nv_bfloat16>::type* __restrict__ out,
+                  typename std::conditional<kF32, float, __nv_bfloat16>::type* __restrict__ out,
                   int H, int W, int Cout, int n_chunks, int last_ksteps, int tile_w_log2,
                   int tile_h, int tiles_x, int tiles_y, int n_cb, int act) {
-  using Cfg = Config<BN, kSplit, KC, MT>;
+  using Cfg = Config<BN, kPasses, KC, MT>;
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle needs 1 KB-aligned tiles.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -316,12 +322,14 @@ conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
         mbar_wait(empty(stage), phase ^ 1u);
         mbar_expect_tx(full(stage), Cfg::kStageBytes);
         const uint32_t a = base + stage * Cfg::kStageBytes;
-        const uint32_t b = a + Cfg::kOperands * Cfg::kATileBytes;
+        const uint32_t b = a + Cfg::kATiles * Cfg::kATileBytes;
         tma_load_4d(a, &x_hi, full(stage), chunk * KC, x0 + dx - 1, y0 + dy - 1, n);
         tma_load_3d(b, &w_hi, full(stage), chunk * KC, n0, tap);
-        if constexpr (kSplit) {
+        if constexpr (kPasses >= 2) {
           tma_load_4d(a + Cfg::kATileBytes, &x_lo, full(stage), chunk * KC, x0 + dx - 1,
                       y0 + dy - 1, n);
+        }
+        if constexpr (kPasses == 3) {
           tma_load_3d(b + Cfg::kBTileBytes, &w_lo, full(stage), chunk * KC, n0, tap);
         }
         if (++stage == Cfg::kStages) {
@@ -353,7 +361,7 @@ conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
     const int ksteps = it / 9 == n_chunks - 1 ? last_ksteps : KC / 16;
     mbar_wait(full(stage), phase);
     const uint32_t a_hi = base + stage * Cfg::kStageBytes + wg * MT * 64 * Cfg::kRowBytes;
-    const uint32_t b_hi = base + stage * Cfg::kStageBytes + Cfg::kOperands * Cfg::kATileBytes;
+    const uint32_t b_hi = base + stage * Cfg::kStageBytes + Cfg::kATiles * Cfg::kATileBytes;
     const uint32_t b_lo = b_hi + Cfg::kBTileBytes;
     fence_all();
     wgmma_fence();
@@ -365,9 +373,12 @@ conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
         if constexpr (MT > 1) {
           wgmma_tile<BN>(acc1, smem_desc<KC>(a_hi + 64 * Cfg::kRowBytes + 32 * k), b);
         }
-        if constexpr (kSplit) {        // MT is 1 for f32
+        // MT is 1 for f32; the passes in the TPU kernel's order
+        if constexpr (kPasses == 3) {
           wgmma_tile<BN>(acc0, smem_desc<KC>(a_hi + 32 * k),
                          smem_desc<KC>(b_lo + 32 * k));
+        }
+        if constexpr (kPasses >= 2) {
           wgmma_tile<BN>(acc0, smem_desc<KC>(a_hi + Cfg::kATileBytes + 32 * k), b);
         }
       }
@@ -422,7 +433,8 @@ conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
 
 // The f32 path's operand split: src (rows, cols) f32 -> hi, lo (rows,
 // cols_p) bf16 with hi = bf16(v), lo = bf16(v - hi), zeros in columns
-// [cols, cols_p). cols_p is a multiple of 16; each thread takes 4 columns.
+// [cols, cols_p); lo null writes hi alone (no pass reads lo). cols_p is a
+// multiple of 16; each thread takes 4 columns.
 __global__ void __launch_bounds__(256)
 split_hi_lo_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ hi,
                    __nv_bfloat16* __restrict__ lo, long long rows, int cols, int cols_p) {
@@ -452,7 +464,7 @@ split_hi_lo_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ hi
       l[e] = *reinterpret_cast<const uint32_t*>(&lv);
     }
     *reinterpret_cast<uint2*>(hi + r * cols_p + c) = make_uint2(h[0], h[1]);
-    *reinterpret_cast<uint2*>(lo + r * cols_p + c) = make_uint2(l[0], l[1]);
+    if (lo != nullptr) *reinterpret_cast<uint2*>(lo + r * cols_p + c) = make_uint2(l[0], l[1]);
   }
 }
 
@@ -490,13 +502,13 @@ bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, bool kSplit, int KC, int MT>
+template <int BN, int kPasses, bool kF32, int KC, int MT>
 int launch(const CUtensorMap* maps, const float* bias, const float* prelu, void* out, int N,
            int H, int W, int Cout, int n_chunks, int last_ksteps, int tile_w_log2, int tile_h,
            int act, cudaStream_t stream) {
-  using Cfg = Config<BN, kSplit, KC, MT>;
-  using Out = typename std::conditional<kSplit, float, __nv_bfloat16>::type;
-  auto kernel = conv3x3_k3_kernel<BN, kSplit, KC, MT>;
+  using Cfg = Config<BN, kPasses, KC, MT>;
+  using Out = typename std::conditional<kF32, float, __nv_bfloat16>::type;
+  auto kernel = conv3x3_k3_kernel<BN, kPasses, kF32, KC, MT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Cfg::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -518,13 +530,16 @@ extern "C" {
 // kErr codes above): a launch the runtime refuses never runs, and only this
 // call reports it. x_* are (N, H, W, Cin_p) bf16 and w_* (9, Cout, Cin_p)
 // bf16, Cin_p a multiple of 16, all 16-byte aligned; ``dtype`` 1 (bfloat16)
-// reads x_hi and w_hi only and writes bf16, ``dtype`` 0 (float32) runs the
-// three passes and writes f32. bias and prelu are f32 (Cout,).
+// reads x_hi and w_hi only, takes ``passes`` 1 and writes bf16, ``dtype`` 0
+// (float32) runs ``passes`` bf16 passes (1: x_hi w_hi; 2: + x_lo w_hi; 3: +
+// x_hi w_lo) and writes f32; x_lo is read from 2 passes, w_lo at 3 only
+// (the others may be null). bias and prelu are f32 (Cout,).
 int conv3x3_k3(const void* x_hi, const void* x_lo, const void* w_hi, const void* w_lo,
                const float* bias, const float* prelu, void* out, int N, int H, int W,
-               int Cin_p, int Cout, int act, int dtype, void* stream) {
+               int Cin_p, int Cout, int act, int dtype, int passes, void* stream) {
   if (encoder() == nullptr) return kErrNoEncoder;
-  if (Cin_p % 16 != 0 || (dtype != 0 && dtype != 1)) {
+  if (Cin_p % 16 != 0 || (dtype != 0 && dtype != 1) || passes < 1 || passes > 3 ||
+      (dtype == 1 && passes != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool split = dtype == 0;
@@ -551,27 +566,33 @@ int conv3x3_k3(const void* x_hi, const void* x_lo, const void* w_hi, const void*
   const cuuint32_t w_box[3] = {static_cast<cuuint32_t>(KC), static_cast<cuuint32_t>(BN), 1};
   CUtensorMap maps[4];
   if (!encode(&maps[0], x_hi, 4, x_dims, x_strides, x_box) ||
-      !encode(&maps[1], split ? x_lo : x_hi, 4, x_dims, x_strides, x_box) ||
+      !encode(&maps[1], passes >= 2 ? x_lo : x_hi, 4, x_dims, x_strides, x_box) ||
       !encode(&maps[2], w_hi, 3, w_dims, w_strides, w_box) ||
-      !encode(&maps[3], split ? w_lo : w_hi, 3, w_dims, w_strides, w_box)) {
+      !encode(&maps[3], passes == 3 ? w_lo : w_hi, 3, w_dims, w_strides, w_box)) {
     return kErrEncode;
   }
   const int n_chunks = (Cin_p + KC - 1) / KC;
   const int last_ksteps = (Cin_p - (n_chunks - 1) * KC) / 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K3_LAUNCH(BN_, SPLIT_, KC_, MT_)                                                   \
-  launch<BN_, SPLIT_, KC_, MT_>(maps, bias, prelu, out, N, H, W, Cout, n_chunks,         \
-                                last_ksteps, tile_w_log2, tile_h, act, s)
-  if (BN == 128) return split ? K3_LAUNCH(128, true, 64, 1) : K3_LAUNCH(128, false, 64, 2);
-  if (KC == 16) return split ? K3_LAUNCH(64, true, 16, 1) : K3_LAUNCH(64, false, 16, 1);
-  if (KC == 32) return split ? K3_LAUNCH(64, true, 32, 1) : K3_LAUNCH(64, false, 32, 1);
-  return split ? K3_LAUNCH(64, true, 64, 1) : K3_LAUNCH(64, false, 64, 1);
+#define K3_LAUNCH(BN_, PASSES_, F32_, KC_, MT_)                                            \
+  launch<BN_, PASSES_, F32_, KC_, MT_>(maps, bias, prelu, out, N, H, W, Cout, n_chunks,  \
+                                       last_ksteps, tile_w_log2, tile_h, act, s)
+  // f32 at ``passes`` passes for one configuration (BN_, KC_), MT 1
+#define K3_F32(BN_, KC_)                                     \
+  (passes == 1   ? K3_LAUNCH(BN_, 1, true, KC_, 1)           \
+   : passes == 2 ? K3_LAUNCH(BN_, 2, true, KC_, 1)           \
+                 : K3_LAUNCH(BN_, 3, true, KC_, 1))
+  if (BN == 128) return split ? K3_F32(128, 64) : K3_LAUNCH(128, 1, false, 64, 2);
+  if (KC == 16) return split ? K3_F32(64, 16) : K3_LAUNCH(64, 1, false, 16, 1);
+  if (KC == 32) return split ? K3_F32(64, 32) : K3_LAUNCH(64, 1, false, 32, 1);
+  return split ? K3_F32(64, 64) : K3_LAUNCH(64, 1, false, 64, 1);
+#undef K3_F32
 #undef K3_LAUNCH
 }
 
 // The f32 operand split (split_hi_lo_kernel) on ``stream``; returns
 // cudaGetLastError(). src is (rows, cols) f32, hi and lo (rows, cols_p)
-// bf16 with cols_p a multiple of 16; all 16-byte aligned.
+// bf16 with cols_p a multiple of 16; all 16-byte aligned; lo may be null.
 int conv_split_hi_lo(const float* src, void* hi, void* lo, long long rows, int cols, int cols_p,
                      void* stream) {
   if (cols_p % 16 != 0 || cols > cols_p) return static_cast<int>(cudaErrorInvalidValue);

@@ -13,9 +13,13 @@ Blend semantics are the reference's (``resdepth_tpu/ops/blend.py``):
 partition of unity over the region, weight 1 in each tile's exclusive area
 and linear ramps over the overlap bands.
 
+``compute_dtype`` is a torch dtype (float32 or bfloat16) or one of the
+string serving modes (``models.unet.SERVING_PRECISION_MODES``), which keep
+f32 weights and run the UNet on the f32 batch at the mode's precisions.
+
 Not in this slice: the row-band streaming and scene-sharded paths
 (``predict_linear_blend_streaming``, ``predict_linear_blend_scene_sharded``,
-ROADMAP.md section 1 item 7) and the string serving modes (item 6).
+ROADMAP.md section 1 item 7).
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.data.pipeline import (BatchSpec, DeviceRasters,
                                               batch_spec_for, build_batch,
                                               device_put_dataset)
-from resdepth_tpu_torch.models.unet import UNet, apply_unet, fold_serving
+from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
+                                            apply_unet, fold_serving,
+                                            serving_precision)
 from resdepth_tpu_torch.ops import blend, stitch
 
 # Dihedral-group subsets for test-time augmentation (general.tta). Element
@@ -100,6 +106,18 @@ def _pad_positions(positions, n, batch_size):
     return np.concatenate([positions, np.resize(last, (pad, 2))])
 
 
+def _storage(compute_dtype) -> tuple:
+    """``compute_dtype`` as ``(dtype of the weights and input, apply_unet
+    keyword arguments)``: a serving mode keeps float32 and runs at its
+    precisions (``serving_precision``)."""
+    if isinstance(compute_dtype, str):
+        if compute_dtype not in SERVING_PRECISION_MODES:
+            raise ValueError(f"unknown serving mode {compute_dtype!r}: one of "
+                             f"{SERVING_PRECISION_MODES} or a torch dtype")
+        return torch.float32, serving_precision(compute_dtype).apply_kwargs()
+    return compute_dtype, {}
+
+
 def _inference_spec(ds: TileDataset) -> BatchSpec:
     """Prediction needs no loss mask or target gather: strip them (the
     stitch uses blend weights, not exclusive bounds)."""
@@ -141,8 +159,10 @@ def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
     wy_d = torch.from_numpy(wy).to(device)
     wx_d = torch.from_numpy(wx).to(device)
 
+    dtype, kwargs = _storage(compute_dtype)
+
     def run_model(x):
-        return apply_unet(model, x.to(compute_dtype))[..., 0].to(torch.float32)
+        return apply_unet(model, x.to(dtype), **kwargs)[..., 0].to(torch.float32)
 
     canvas = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
     with torch.inference_mode():
@@ -173,19 +193,20 @@ def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
 
 
 def serving_model(model: UNet, device,
-                  compute_dtype: torch.dtype = torch.float32) -> UNet:
+                  compute_dtype: torch.dtype | str = torch.float32) -> UNet:
     """A new module for the scene loop: ``fold_serving`` applied (BatchNorm
     folded into the convs, top upconv composed into the final conv), on
-    ``device`` in ``compute_dtype``. ``model`` is left as it is."""
+    ``device`` in ``compute_dtype`` (float32 for a serving mode). ``model``
+    is left as it is."""
     served = fold_serving(model)
     if served is model:   # nothing to fold: still hand back a new module
         served = copy.deepcopy(model)
-    return served.to(device=device, dtype=compute_dtype)
+    return served.to(device=device, dtype=_storage(compute_dtype)[0])
 
 
 def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
                          batch_size: int = 64,
-                         compute_dtype: torch.dtype = torch.float32,
+                         compute_dtype: torch.dtype | str = torch.float32,
                          rasters: DeviceRasters | None = None,
                          use_pallas: bool | str | None = None,
                          fold_bn: bool = True, as_numpy: bool = True,
@@ -203,8 +224,12 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     the plain stitch runs whatever the value.
 
     ``compute_dtype``: torch.float32 (parity path; the caller turns TF32
-    off) or torch.bfloat16 (the whole network in bf16, the outer skip
-    included, as the JAX ``bfloat16`` mode). The stitch and canvas are f32.
+    off), torch.bfloat16 (the whole network in bf16, the outer skip
+    included, as the JAX ``bfloat16`` mode) or a string serving mode
+    (``mixed``, ``fast32``, ``act2pass``, ``balanced``, ``balanced16``: f32
+    weights, the UNet at the mode's bf16 passes, its 3x3 convs with a pass
+    count on kernel K3; the caller turns TF32 off). The stitch and canvas
+    are f32.
 
     ``as_numpy``: True returns a host numpy array (waits for the device).
     False returns the device canvas as soon as the work is queued; fetch it
@@ -220,9 +245,10 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     if fold_bn:
         model = serving_model(model, device, compute_dtype)
     elif (model.device != device
-          or model.last_layer.weight.dtype != compute_dtype):
+          or model.last_layer.weight.dtype != _storage(compute_dtype)[0]):
         raise ValueError(f"with fold_bn=False the model must already be on "
-                         f"{device} in {compute_dtype} (see serving_model)")
+                         f"{device} in {_storage(compute_dtype)[0]} for "
+                         f"{compute_dtype} (see serving_model)")
     if rasters is None:
         rasters = device_put_dataset(ds, device)
     rasters = dataclasses.replace(rasters, dsm_target=None)

@@ -18,6 +18,13 @@ Layouts: NCHW inside the module (PyTorch's and cuDNN's habit);
 The serving rewrites (``fold_batchnorm``, ``fold_top_decoder``,
 ``fold_serving``) return new modules and leave their input untouched.
 
+The string serving modes (``serving_precision``: ``mixed``, ``fast32``,
+``act2pass``, ``balanced``, ``balanced16``) run the eval forward at the JAX
+package's per-layer precisions, each an explicit number of bf16 product
+passes with float32 sums (``Precision``, ``ops/passes.py``): the 3x3 convs
+on kernel K3 (``ops.conv.conv3x3_bias_act``), the upconvs through
+``ops.passes``. See ``apply_unet``.
+
 Training mode keeps the JAX package's BatchNorm rather than torch's: the
 batch moments are ``E[x]`` and ``E[x^2] - E[x]^2`` (clamped at 0), taken
 over (N, H, W) with optional per-sample weights, so that zero-weight padding
@@ -30,6 +37,7 @@ writes them, as torch modules do.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import math
 
 import numpy as np
@@ -38,6 +46,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from resdepth_tpu_torch.ops import passes as pass_ops
+from resdepth_tpu_torch.ops.conv import _activate, conv3x3_bias_act
+
 ACTIVATIONS = ("relu", "lrelu", "prelu")
 UP_MODES = ("transpose", "bilinear")
 
@@ -45,6 +56,87 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 LRELU_SLOPE = 0.01
 PRELU_INIT = 0.25
+
+
+class Precision(enum.Enum):
+    """The port's names for the JAX package's conv precisions
+    (``jax.lax.Precision``) on float32 operands: ``DEFAULT`` is one bf16
+    product pass, ``HIGH`` three (the hi/lo split of both operands),
+    ``HIGHEST`` exact float32 (IEEE, TF32 off). The pair ``(HIGH,
+    DEFAULT)`` splits the activation and rounds the weights once: two
+    passes. bfloat16 operands take one native pass at any precision."""
+    DEFAULT = "default"
+    HIGH = "high"
+    HIGHEST = "highest"
+
+
+_PASSES = {Precision.DEFAULT: 1, (Precision.HIGH, Precision.DEFAULT): 2,
+           Precision.HIGH: 3}
+
+
+def precision_passes(precision) -> int | None:
+    """bf16 passes of ``precision`` on float32 operands; None for exact
+    float32: ``HIGHEST``, and None, which keeps the port's float32 meaning
+    (IEEE; the JAX package reads None on float32 as HIGH)."""
+    if precision is None or precision == Precision.HIGHEST:
+        return None
+    if precision not in _PASSES:
+        raise ValueError(f"unknown precision {precision!r}: one of "
+                         f"{list(Precision)} or (HIGH, DEFAULT)")
+    return _PASSES[precision]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMode:
+    """How ``apply_unet`` runs one string serving mode (port of the JAX
+    ``ServingMode``).
+
+    ``mixed``: bf16 activation trunk (requires f32 input ``x``).
+    ``precision`` / ``layer_precisions``: per-conv precision (``Precision``).
+    ``hifi_endpoints``: on the bf16 trunk, the first conv reads the raw f32
+    input and the composed top runs on f32-upcast activations with f32
+    weights.
+    """
+    mixed: bool = False
+    precision: object = None
+    layer_precisions: dict | None = None
+    hifi_endpoints: bool = False
+
+    def apply_kwargs(self) -> dict:
+        """Keyword arguments for ``apply_unet``."""
+        return dict(mixed_precision=self.mixed, precision=self.precision,
+                    layer_precisions=self.layer_precisions,
+                    hifi_endpoints=self.hifi_endpoints)
+
+
+def serving_precision(mode: str) -> ServingMode:
+    """The string ``compute_dtype`` serving modes, as the JAX package
+    defines them in TPU MXU passes (``resdepth_tpu/models/unet.py``):
+
+    - ``mixed``: bf16 trunk; the composed top's two convs take the bf16
+      activations and bf16-rounded weights with float32 sums (1 pass).
+    - ``fast32``: f32 storage, 1 pass everywhere.
+    - ``act2pass``: f32 storage, 2 passes everywhere (activation split).
+    - ``balanced``: f32 storage, 1 pass except ``encoder0`` and ``last`` at
+      3 passes.
+    - ``balanced16``: bf16 trunk with ``hifi_endpoints``; ``encoder0`` and
+      the top at 3 passes.
+    """
+    H, D = Precision.HIGH, Precision.DEFAULT
+    table = {
+        "mixed": ServingMode(mixed=True),
+        "fast32": ServingMode(precision=D),
+        "act2pass": ServingMode(precision=(H, D)),
+        "balanced": ServingMode(precision=D,
+                                layer_precisions={"encoder0": H, "last": H}),
+        "balanced16": ServingMode(mixed=True, hifi_endpoints=True,
+                                  layer_precisions={"encoder0": H, "last": H}),
+    }
+    return table[mode]
+
+
+SERVING_PRECISION_MODES = ("mixed", "fast32", "act2pass", "balanced",
+                           "balanced16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,15 +234,7 @@ class ComposedTop(nn.Module):
         return self
 
     def forward(self, skip, d1, last: nn.Conv2d):
-        ys = F.conv2d(skip, last.weight, None, padding=1)
-        yd = F.conv2d(d1, self.ck, None, padding=1)
-        ones = torch.ones((1, 1) + skip.shape[2:], dtype=torch.float32,
-                          device=skip.device)
-        bias_map = F.conv2d(ones, self.s_map, None, padding=1)
-        y = ys + F.pixel_shuffle(yd, 2) + bias_map.to(ys.dtype)
-        if last.bias is not None:
-            y = y + last.bias.view(1, -1, 1, 1)
-        return y
+        return _composed_top_at(self, last, skip, d1)
 
 
 class UNet(nn.Module):
@@ -213,7 +297,7 @@ class UNet(nn.Module):
         return y
 
     def run(self, x, *, train: bool = False, sample_weights=None,
-            remat: bool = False):
+            remat: bool = False, serving: ServingMode | None = None):
         """The forward pass -> ``(y, bn_state)``, whatever the module's mode.
 
         ``train`` selects batch statistics for BatchNorm (``batch_norm_train``,
@@ -221,53 +305,87 @@ class UNet(nn.Module):
         each BatchNorm buffer name (``encoder.0.0.1.running_mean``, ...) to
         its new value, and is empty otherwise. ``remat`` (training only)
         recomputes each conv(+BN+act) block in the backward pass
-        (``torch.utils.checkpoint``) instead of storing its activations."""
-        depth = self.config.depth
-        bn_state: dict = {}
-
-        def block(prefix, seq, inp):
-            if not train:
-                return _conv_block_eval(seq, inp)
-            if remat:
-                out, mean, var = torch.utils.checkpoint.checkpoint(
-                    _conv_block_train, seq, inp, sample_weights,
-                    use_reentrant=False)
-            else:
-                out, mean, var = _conv_block_train(seq, inp, sample_weights)
-            if mean is not None:
-                bn_state[f"{prefix}.1.running_mean"] = mean
-                bn_state[f"{prefix}.1.running_var"] = var
-            return out
-
+        (``torch.utils.checkpoint``) instead of storing its activations.
+        ``serving`` (eval only) runs the same graph at a serving mode's
+        precisions (``_AtPrecision``) instead of the module's own layers."""
+        ops = (_Layers(train, sample_weights, remat) if serving is None
+               else _AtPrecision(serving))
         skips = []
-        out = x
+        out = ops.input(x)
         for i, level in enumerate(self.encoder):
-            out = block(f"encoder.{i}.0", level[0], out)
+            out = ops.trunk(ops.block(f"encoder.{i}.0", level[0], out))
             skips.append(out)
             out = level[1](out)
-        out = block("bottleneck", self.bottleneck, out)
+        out = ops.block("bottleneck", self.bottleneck, out)
         for i, level in enumerate(self.decoder):
-            if i < depth - 1:
-                out = skips[-1 - i] + level[0](out)   # additive skip
-                out = block(f"decoder.{i}.1", level[1], out)
+            if i < self.config.depth - 1:
+                out = skips[-1 - i] + ops.up(i, level[0], out)   # additive skip
+                out = ops.block(f"decoder.{i}.1", level[1], out)
             else:
-                out = skips[0] + level(out)   # deepest level: no conv after
+                out = skips[0] + ops.up(i, level, out)   # deepest level: no conv after
         if self.top_composed is not None:
-            out = self.top_composed(skips[0], out, self.last_layer)
+            out = ops.top(self.top_composed, skips[0], out, self.last_layer)
         else:
-            out = self.last_layer(out)
+            out = ops.last(self.last_layer, out)
+        out = ops.result(out, x)
         if self.config.outer_skip:
-            x0 = x[:, 0:1]
-            if self.config.outer_skip_BN:
-                bn = self.layer_outer_skip[0]
-                if train:
-                    x0, mean, var = batch_norm_train(bn, x0, sample_weights)
-                    bn_state["layer_outer_skip.0.running_mean"] = mean
-                    bn_state["layer_outer_skip.0.running_var"] = var
-                else:
-                    x0 = _batch_norm_eval(bn, x0)
-            out = out + x0
-        return out, bn_state
+            bn = self.layer_outer_skip[0] if self.config.outer_skip_BN else None
+            out = out + ops.outer_skip(bn, x[:, 0:1])
+        return out, ops.bn_state
+
+
+class _Layers:
+    """The layers of ``UNet.run``: the module's own, in its dtype, with
+    BatchNorm on running statistics, or in training on the batch's (their
+    new running values collected in ``bn_state``)."""
+
+    def __init__(self, train: bool, sample_weights, remat: bool):
+        self.train, self.sample_weights, self.remat = train, sample_weights, remat
+        self.bn_state: dict = {}
+
+    def input(self, x):
+        """The first conv's input."""
+        return x
+
+    def trunk(self, x):
+        """An encoder block's output as the trunk stores it."""
+        return x
+
+    def block(self, prefix, seq, x):
+        if not self.train:
+            return _conv_block_eval(seq, x)
+        if self.remat:
+            out, mean, var = torch.utils.checkpoint.checkpoint(
+                _conv_block_train, seq, x, self.sample_weights, use_reentrant=False)
+        else:
+            out, mean, var = _conv_block_train(seq, x, self.sample_weights)
+        if mean is not None:
+            self.bn_state[f"{prefix}.1.running_mean"] = mean
+            self.bn_state[f"{prefix}.1.running_var"] = var
+        return out
+
+    def up(self, i, module, x):
+        return module(x)
+
+    def top(self, top, skip, d1, last):
+        return top(skip, d1, last)
+
+    def last(self, last, x):
+        return last(x)
+
+    def result(self, y, x):
+        """The network's output before the outer skip."""
+        return y
+
+    def outer_skip(self, bn, x0):
+        if bn is None:
+            return x0
+        if not self.train:
+            return _batch_norm_eval(bn, x0)
+        x0, mean, var = batch_norm_train(bn, x0, self.sample_weights)
+        self.bn_state["layer_outer_skip.0.running_mean"] = mean
+        self.bn_state["layer_outer_skip.0.running_var"] = var
+        return x0
 
 
 def batch_norm_train(bn: nn.BatchNorm2d, x, sample_weights=None):
@@ -338,18 +456,203 @@ def commit_bn_state(model: nn.Module, bn_state: dict) -> None:
 
 
 def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
-               sample_weights=None, remat: bool = False):
+               sample_weights=None, remat: bool = False,
+               mixed_precision: bool = False, precision=None,
+               layer_precisions: dict | None = None,
+               hifi_endpoints: bool = False):
     """``apply_unet``'s contract: NHWC in, (N, H, W, 1) out.
 
     ``train=False`` returns the output. ``train=True`` uses batch statistics
     (weighted by ``sample_weights``) and returns ``(y, bn_state)``, the new
     running statistics by buffer name, leaving the module's buffers as they
     are (``commit_bn_state`` writes them), as the JAX function returns its
-    new state."""
+    new state.
+
+    ``mixed_precision``, ``precision``, ``layer_precisions`` and
+    ``hifi_endpoints`` are the JAX function's (``ServingMode.apply_kwargs``),
+    for eval only (``_AtPrecision``); training at a precision is ROADMAP.md
+    section 1 item 6b."""
+    serving = None
+    if mixed_precision or precision is not None or layer_precisions:
+        if train:
+            raise NotImplementedError(
+                "training at a precision is not ported yet: ROADMAP.md section 1 "
+                "item 6b (training precisions)")
+        serving = ServingMode(mixed_precision, precision, layer_precisions,
+                              hifi_endpoints)
     y, bn_state = model.run(x.permute(0, 3, 1, 2), train=train,
-                            sample_weights=sample_weights, remat=remat)
+                            sample_weights=sample_weights, remat=remat,
+                            serving=serving)
     y = y.permute(0, 2, 3, 1)
     return (y, bn_state) if train else y
+
+
+# ------------------------- eval at a precision ---------------------------- #
+# The module's parameters as they are (float32 for a serving mode: each conv
+# casts its weights, as the JAX graph casts its kernels per conv).
+
+class _AtPrecision(_Layers):
+    """``UNet.run``'s layers at a serving mode's precisions: the eval
+    forward of the JAX ``apply_unet`` with ``mixed_precision``,
+    ``precision``, ``layer_precisions`` and ``hifi_endpoints``.
+
+    Each conv takes the precision of its layer (``layer_precisions[name]``,
+    else ``precision``), by the JAX names: ``encoder{i}``, ``bottleneck``,
+    ``up{i}``, ``decoder{i}`` and ``last`` (both convs of a composed top).
+    None on float32 operands is HIGH, as the JAX package reads it (the
+    module's own float32 layers, ``serving`` None, are IEEE instead).
+    ``mixed`` (float32 input only) runs a bf16 trunk, cast where the JAX
+    graph casts: the input, every encoder output; the top gives float32 and
+    the outer skip adds the raw f32 channel 0. ``hifi_endpoints`` (with
+    ``mixed``) feeds ``encoder0`` the raw f32 input and runs the composed
+    top on f32-upcast activations with f32 weights. The bias map of a
+    composed top is exact float32 (HIGHEST), as in JAX."""
+
+    def __init__(self, serving: ServingMode):
+        super().__init__(False, None, False)
+        self.mode = serving
+
+    def _precision(self, name: str):
+        layers = self.mode.layer_precisions or {}
+        precision = layers.get(name, self.mode.precision)
+        return Precision.HIGH if precision is None else precision
+
+    def input(self, x):
+        if not self.mode.mixed:
+            return x
+        if x.dtype != torch.float32:
+            raise ValueError(f"mixed_precision needs a float32 input, got {x.dtype}")
+        # hifi_endpoints: the first conv reads the raw f32 input
+        return x if self.mode.hifi_endpoints else x.to(torch.bfloat16)
+
+    def trunk(self, x):
+        return x.to(torch.bfloat16) if self.mode.mixed else x
+
+    def block(self, prefix, seq, x):
+        # "encoder.0.0" -> encoder0, "decoder.1.1" -> decoder1, "bottleneck"
+        return _block_at(seq, x, self._precision("".join(prefix.split(".")[:2])))
+
+    def up(self, i, module, x):
+        return _upconv_at(module, x, self._precision(f"up{i}"))
+
+    def top(self, top, skip, d1, last):
+        return _composed_top_at(top, last, skip, d1, self.mode.mixed,
+                                self._precision("last"), self.mode.hifi_endpoints)
+
+    def last(self, last, x):
+        return _conv3x3(x.float() if self.mode.mixed else x, last.weight,
+                        last.bias, self._precision("last"))
+
+    def result(self, y, x):
+        return y.to(torch.float32 if self.mode.mixed else x.dtype)
+
+    def outer_skip(self, bn, x0):
+        return x0 if bn is None else _batch_norm_f32(bn, x0)
+
+
+def _act_spec(module: nn.Module, channels: int):
+    """An activation module as K3's ``act_fn`` and per-channel slopes."""
+    if isinstance(module, nn.ReLU):
+        return "relu", None
+    if isinstance(module, nn.LeakyReLU):
+        return "lrelu", None
+    return "prelu", module.weight.expand(channels)
+
+
+def _activate_nchw(y, act_fn, slope):
+    """``_activate`` on NCHW ``y`` with (C,) slopes."""
+    return _activate(y, act_fn, None if slope is None else slope.view(-1, 1, 1))
+
+
+def _batch_norm_f32(bn: nn.BatchNorm2d, x):
+    """Eval BatchNorm on ``x`` in float32, cast back to ``x.dtype``."""
+    return _batch_norm_eval(bn, x.float()).to(x.dtype)
+
+
+def _add_bias(y, bias):
+    """``y + bias`` per channel in ``y``'s dtype (after the conv rounded its
+    sums to it, as the JAX ``_conv`` adds its bias)."""
+    return y if bias is None else y + bias.to(y.dtype).view(-1, 1, 1)
+
+
+def _conv3x3(x, weight, bias, precision=None, act_fn="none", slope=None):
+    """Same-padded 3x3 conv + bias + activation on NCHW ``x`` with an OIHW
+    ``weight``, as the JAX ``_conv`` at ``precision``. bf16 ``x``: cuDNN in
+    bf16, a bf16 result, then the bf16 bias (the JAX order); f32 ``x``:
+    kernel K3 at the precision's passes, or IEEE float32 where it has none
+    (``precision_passes``)."""
+    if x.dtype == torch.bfloat16:
+        y = _add_bias(F.conv2d(x, weight.to(x.dtype), None, padding=1), bias)
+        return _activate_nchw(y, act_fn, slope)
+    passes = precision_passes(precision)
+    if passes is None:
+        return _activate_nchw(F.conv2d(x, weight, bias, padding=1), act_fn, slope)
+    y = conv3x3_bias_act(x.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0), bias,
+                         slope, act_fn=act_fn, passes=passes)
+    return y.permute(0, 3, 1, 2)
+
+
+def _block_at(seq: nn.Sequential, x, precision):
+    """conv (+BN with running statistics) + activation at ``precision``."""
+    conv = seq[0]
+    act_fn, slope = _act_spec(seq[-1], conv.out_channels)
+    if not isinstance(seq[1], nn.BatchNorm2d):
+        return _conv3x3(x, conv.weight, conv.bias, precision, act_fn, slope)
+    y = _conv3x3(x, conv.weight, conv.bias, precision)
+    return _activate_nchw(_batch_norm_f32(seq[1], y), act_fn, slope)
+
+
+def _resize2x(x):
+    """The half-pixel bilinear 2x resize as ``jax.image.resize`` computes
+    it: one axis at a time, rows then columns, each in float32 and rounded
+    to ``x.dtype``."""
+    h, w = x.shape[2:]
+    for size in ((2 * h, w), (2 * h, 2 * w)):
+        x = F.interpolate(x.float(), size=size, mode="bilinear",
+                          align_corners=False).to(x.dtype)
+    return x
+
+
+def _upconv_at(module: nn.Module, x, precision):
+    """The 2x upsampling of ``x`` at ``precision`` (``ops.passes``; bf16
+    ``x`` runs in bf16, its bias added after the conv's rounding): the 2x2
+    stride-2 transposed conv, or the half-pixel bilinear resize
+    (``_resize2x``) and the 1x1 conv."""
+    transpose = isinstance(module, nn.ConvTranspose2d)
+    conv = module if transpose else module[1]
+    up = x if transpose else _resize2x(x)
+    run = pass_ops.conv_transpose2d if transpose else pass_ops.conv2d
+    if x.dtype == torch.bfloat16:
+        return _add_bias(run(up, conv.weight.to(x.dtype)), conv.bias)
+    return run(up, conv.weight, conv.bias, precision_passes(precision))
+
+
+def _composed_top_at(top: ComposedTop, last: nn.Conv2d, skip, d1,
+                     mixed: bool = False, precision=None,
+                     hifi_endpoints: bool = False):
+    """``ComposedTop`` at ``precision`` (None: the operands' own, IEEE for
+    float32): the three branches of the JAX ``_composed_top``."""
+    w_last, w_ck = last.weight, top.ck
+    if mixed:
+        # f32 results from the bf16 trunk: the activations upcast, which
+        # splits them exactly (lo = 0). With hifi_endpoints the weights stay
+        # f32; without, they are bf16-rounded and every product is exact in
+        # one pass.
+        skip, d1 = skip.float(), d1.float()
+        if not hifi_endpoints:
+            w_last = w_last.to(torch.bfloat16).float()
+            w_ck = w_ck.to(torch.bfloat16).float()
+            if precision != Precision.HIGHEST:
+                precision = Precision.DEFAULT
+    ys = _conv3x3(skip, w_last, None, precision)
+    yd = _conv3x3(d1, w_ck, None, precision)
+    ones = torch.ones((1, 1) + skip.shape[2:], dtype=torch.float32,
+                      device=skip.device)
+    bias_map = F.conv2d(ones, top.s_map, None, padding=1)     # HIGHEST
+    y = ys + F.pixel_shuffle(yd, 2) + bias_map.to(ys.dtype)
+    if last.bias is not None:
+        y = y + last.bias.to(ys.dtype).view(1, -1, 1, 1)
+    return y
 
 
 def init_unet(config: UNetConfig, generator: torch.Generator,

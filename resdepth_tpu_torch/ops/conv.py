@@ -9,7 +9,10 @@ result is (N, H, W, Cout) in ``x.dtype``. The products are the TPU
 kernel's: bfloat16 is one bf16 pass with float32 accumulation; float32 is
 the 3-pass bf16 split of ``Precision.HIGH``, ``x = x_hi + x_lo`` and ``w =
 w_hi + w_lo`` in bf16, accumulating ``x_hi w_hi + x_hi w_lo + x_lo w_hi`` in
-float32.
+float32. For float32, ``passes`` (default 3) takes the TPU's other MXU
+precisions on f32 operands, with a float32 result: 1 pass ``x_hi w_hi``
+(``Precision.DEFAULT``), 2 passes ``+ x_lo w_hi`` (``(HIGH, DEFAULT)``),
+3 passes ``+ x_hi w_lo`` (``ops/passes.py``). bfloat16 takes no ``passes``.
 
 Two implementations of that one function:
 
@@ -17,18 +20,21 @@ Two implementations of that one function:
     (``csrc/conv.cu``), an implicit GEMM with ``wgmma`` fed by TMA. It
     hands the kernel bf16 operands (``kernel_operands``): Cin padded with
     zeros to a multiple of 16 and the weights re-laid as (9, Cout, Cin_p);
-    for float32 the split kernel of the same source writes the hi and lo
-    halves.
+    for float32 the split kernel of the same source writes the hi halves and
+    the lo halves the call's passes read.
   * ``conv3x3_bias_act_plain``: ``F.conv2d`` on permuted tensors (for
-    float32 over the channel-concatenated ``[x_hi, x_hi, x_lo]`` and ``[w_hi,
-    w_lo, w_hi]``, whose products are exact in float32), then bias and
-    activation. The wrapper runs it for a CPU tensor; on the card it is the
-    yardstick K3 is held against and nothing else.
+    float32 over the channel-concatenated split operands of its passes,
+    ``ops.passes.pass_operands``, whose products are exact in float32),
+    then bias and activation. The wrapper runs it for a CPU tensor; on the
+    card it is the yardstick K3 is held against and nothing else.
 
-Like the JAX function, K3 is not on the UNet's path (``models/unet.py``
-runs its convs through ``F.conv2d``, as the JAX UNet runs them through
-XLA). ``LAUNCHES`` counts kernel launches: ``k3`` the conv, ``k3_split``
-the float32 operand split (two a float32 call: x and the weights).
+The UNet's float32 and bfloat16 paths run their convs through ``F.conv2d``,
+as the JAX UNet runs them through XLA; its serving modes run every 3x3 conv
+that has a pass count through ``conv3x3_bias_act`` (``models/unet.py``).
+``LAUNCHES`` counts kernel launches: ``k3`` the conv (any dtype), ``k3_p1``,
+``k3_p2`` and ``k3_p3`` its float32 launches by pass count, ``k3_split`` the
+float32 operand split (two a float32 call: x and the weights, each writing
+only the halves the passes read).
 """
 
 from __future__ import annotations
@@ -39,9 +45,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from resdepth_tpu_torch.ops import build
+from resdepth_tpu_torch.ops import build, passes as pass_ops
 
-LAUNCHES = {"k3": 0, "k3_split": 0}
+LAUNCHES = {"k3": 0, "k3_p1": 0, "k3_p2": 0, "k3_p3": 0, "k3_split": 0}
 
 LRELU_SLOPE = 0.01
 _ACT_CODES = {"relu": 1, "lrelu": 2, "prelu": 3}   # any other name: identity
@@ -55,7 +61,7 @@ _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _library() -> ctypes.CDLL:
     """The built conv library with its entry points typed (once)."""
     lib = build.load("conv")
-    lib.conv3x3_k3.argtypes = [_PTR] * 7 + [_INT] * 7 + [_PTR]
+    lib.conv3x3_k3.argtypes = [_PTR] * 7 + [_INT] * 8 + [_PTR]
     lib.conv3x3_k3.restype = ctypes.c_int
     lib.conv_split_hi_lo.argtypes = [_PTR, _PTR, _PTR, _LONG, _INT, _INT, _PTR]
     lib.conv_split_hi_lo.restype = ctypes.c_int
@@ -76,12 +82,13 @@ def _epilogue_vectors(x, kernel, bias, act_param):
 
 
 def _activate(v, act_fn, act_param):
+    """The activation in ``v``'s dtype (the JAX ``_activation``)."""
     if act_fn == "relu":
         return torch.clamp_min(v, 0.0)
     if act_fn == "lrelu":
         return torch.where(v >= 0, v, LRELU_SLOPE * v)
     if act_fn == "prelu":
-        return torch.where(v >= 0, v, act_param * v)
+        return torch.where(v >= 0, v, act_param.to(v.dtype) * v)
     return v
 
 
@@ -89,24 +96,35 @@ def split_hi_lo_plain(t: torch.Tensor, cols_p: int | None = None):
     """``t`` (..., C) float32 -> (hi, lo) bf16 with ``hi = bf16(t)`` and
     ``lo = bf16(t - hi)``, the last dimension zero-padded to ``cols_p``: the
     plain version of the split kernel."""
-    hi = t.to(torch.bfloat16)
-    lo = (t - hi.float()).to(torch.bfloat16)
     pad = (cols_p or t.shape[-1]) - t.shape[-1]
-    return F.pad(hi, (0, pad)), F.pad(lo, (0, pad))
+    return tuple(F.pad(v.to(torch.bfloat16), (0, pad)) for v in pass_ops.split(t))
+
+
+def pass_count(x, passes) -> int:
+    """The bf16 passes a call runs: ``passes`` (default 3) for float32,
+    1 for bfloat16, which takes no ``passes``; other values raise."""
+    if x.dtype != torch.float32:
+        if passes is not None:
+            raise ValueError(f"passes is for float32 inputs; {x.dtype} takes one "
+                             f"native pass, got passes={passes!r}")
+        return 1
+    if passes is None:
+        return 3
+    if passes not in pass_ops.PASSES:
+        raise ValueError(f"passes must be one of {pass_ops.PASSES}, got {passes!r}")
+    return passes
 
 
 def conv3x3_bias_act_plain(x, kernel, bias=None, act_param=None, *,
-                           act_fn="relu"):
+                           act_fn="relu", passes=None):
     """The plain version: ``F.conv2d`` (cuDNN on the card) on the NCHW view
     of ``x``, then bias and activation in float32, cast to ``x.dtype``. For
-    float32 the conv runs over the 3-pass split, so it sums the same exact
-    products as K3 and the TPU kernel, in another order."""
+    float32 the conv runs over the split operands of its passes, so it sums
+    the same exact products as K3 and the TPU kernel, in another order."""
+    n_passes = pass_count(x, passes)
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
     if x.dtype == torch.float32:
-        x_hi, x_lo = (t.float() for t in split_hi_lo_plain(x))
-        w_hi, w_lo = (t.float() for t in split_hi_lo_plain(kernel.float()))
-        xs = torch.cat([x_hi, x_hi, x_lo], dim=3)
-        ws = torch.cat([w_hi, w_lo, w_hi], dim=2)
+        xs, ws = pass_ops.pass_operands(x, kernel, n_passes, 3, 2)
     else:
         xs, ws = x, kernel.to(x.dtype)
     weight = ws.permute(3, 2, 0, 1)                          # HWIO -> OIHW
@@ -114,16 +132,20 @@ def conv3x3_bias_act_plain(x, kernel, bias=None, act_param=None, *,
     return _activate(y.float() + b, act_fn, a).to(x.dtype)
 
 
-def _split(t: torch.Tensor, cols_p: int):
-    """The split on ``t``'s device: the split kernel on CUDA (counted in
-    ``LAUNCHES['k3_split']``), its plain version elsewhere."""
+def _split(t: torch.Tensor, cols_p: int, with_lo: bool = True):
+    """The split on ``t``'s device -> ``(hi, lo)``, ``lo`` None unless
+    ``with_lo``: the split kernel on CUDA (counted in
+    ``LAUNCHES['k3_split']``; it writes only the halves asked for), its
+    plain version elsewhere."""
     if t.device.type != "cuda":
-        return split_hi_lo_plain(t, cols_p)
+        hi, lo = split_hi_lo_plain(t, cols_p)
+        return hi, lo if with_lo else None
     src = t.contiguous()
     hi = torch.empty(src.shape[:-1] + (cols_p,), dtype=torch.bfloat16, device=t.device)
-    lo = torch.empty_like(hi)
+    lo = torch.empty_like(hi) if with_lo else None
     lib = _library()
-    code = lib.conv_split_hi_lo(src.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+    code = lib.conv_split_hi_lo(src.data_ptr(), hi.data_ptr(),
+                                lo.data_ptr() if with_lo else None,
                                 src.numel() // src.shape[-1], src.shape[-1], cols_p,
                                 torch.cuda.current_stream(t.device).cuda_stream)
     if code != 0:
@@ -133,19 +155,20 @@ def _split(t: torch.Tensor, cols_p: int):
     return hi, lo
 
 
-def kernel_operands(x, kernel):
-    """The bf16 operands K3 reads: ``(x_hi, x_lo, w_hi, w_lo)``, x as
-    (N, H, W, Cin_p) and the weights as (9, Cout, Cin_p), K-major, with Cin
-    zero-padded to a multiple of 16. For bfloat16 the lo halves are None;
-    for float32 the split runs on ``x``'s device (the split kernel on
-    CUDA)."""
+def kernel_operands(x, kernel, n_passes: int = 3):
+    """The bf16 operands K3 reads at ``n_passes``: ``(x_hi, x_lo, w_hi,
+    w_lo)``, x as (N, H, W, Cin_p) and the weights as (9, Cout, Cin_p),
+    K-major, with Cin zero-padded to a multiple of 16. A lo half is None
+    where no pass reads it: both for bfloat16 and at 1 pass, ``w_lo`` at 2
+    passes. For float32 the split runs on ``x``'s device (the split kernel
+    on CUDA, once for x and once for the weights)."""
     c_in = x.shape[3]
     c_in_p = -(-c_in // CIN_ALIGN) * CIN_ALIGN
     # (3, 3, Cin, Cout) -> (9, Cout, Cin): one small copy a call
     w9 = kernel.to(device=x.device, dtype=x.dtype).reshape(9, c_in, -1).transpose(1, 2)
     if x.dtype == torch.float32:
-        x_hi, x_lo = _split(x, c_in_p)
-        w_hi, w_lo = _split(w9, c_in_p)
+        x_hi, x_lo = _split(x, c_in_p, with_lo=n_passes >= 2)
+        w_hi, w_lo = _split(w9, c_in_p, with_lo=n_passes == 3)
         return x_hi, x_lo, w_hi, w_lo
     pad = c_in_p - c_in
     x_p = F.pad(x, (0, pad)) if pad else x.contiguous()
@@ -171,27 +194,32 @@ def _check_cuda_args(x, kernel) -> None:
         raise ValueError("K3 needs non-empty images and channels")
 
 
-def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu"):
+def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu",
+                     passes=None):
     """Same-padded 3x3 conv + bias + activation (contract in the module
     docstring). A CPU tensor runs the plain version; a CUDA tensor launches
     K3 or raises."""
     if x.device.type == "cpu":
-        return conv3x3_bias_act_plain(x, kernel, bias, act_param, act_fn=act_fn)
+        return conv3x3_bias_act_plain(x, kernel, bias, act_param, act_fn=act_fn,
+                                      passes=passes)
+    n_passes = pass_count(x, passes)
     _check_cuda_args(x, kernel)
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
-    x_hi, x_lo, w_hi, w_lo = kernel_operands(x, kernel)
+    x_hi, x_lo, w_hi, w_lo = kernel_operands(x, kernel, n_passes)
     n, h, w, c_in_p = x_hi.shape
     c_out = kernel.shape[3]
     out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
-    lo = (x_lo, w_lo) if x_lo is not None else (x_hi, w_hi)
     lib = _library()
     code = lib.conv3x3_k3(
-        x_hi.data_ptr(), lo[0].data_ptr(), w_hi.data_ptr(), lo[1].data_ptr(),
+        x_hi.data_ptr(), None if x_lo is None else x_lo.data_ptr(), w_hi.data_ptr(),
+        None if w_lo is None else w_lo.data_ptr(),
         b.data_ptr(), a.data_ptr(), out.data_ptr(), n, h, w, c_in_p, c_out,
-        _ACT_CODES.get(act_fn, 0), _DTYPE_CODES[x.dtype],
+        _ACT_CODES.get(act_fn, 0), _DTYPE_CODES[x.dtype], n_passes,
         torch.cuda.current_stream(x.device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"conv kernel K3 failed to launch: "
                            f"{lib.conv_error_string(code).decode()}")
     LAUNCHES["k3"] += 1
+    if x.dtype == torch.float32:
+        LAUNCHES[f"k3_p{n_passes}"] += 1
     return out

@@ -10,11 +10,12 @@ pairs. Weights come from a reference ``.pth`` file or a JAX ``.npz``
 checkpoint.
 
 The scene runs on one device (``--device``, default ``cuda``, which raises
-when CUDA is absent; there is no silent move to the CPU). Not in this slice,
-each raising an error that names its ROADMAP.md item: the string serving
-modes of ``general.compute_dtype`` (``mixed``, ``fast32``, ``act2pass``,
-``balanced``, ``balanced16``), scenes above ``MAX_DEVICE_PIXELS`` (streaming
-and scene-sharded inference) and more than one GPU.
+when CUDA is absent; there is no silent move to the CPU) at
+``general.compute_dtype``: ``float32``, ``bfloat16`` or a string serving
+mode (``mixed``, ``fast32``, ``act2pass``, ``balanced``, ``balanced16``;
+``models.unet.serving_precision``). Not in this slice, each raising an error
+that names its ROADMAP.md item: scenes above ``MAX_DEVICE_PIXELS``
+(streaming and scene-sharded inference) and more than one GPU.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from resdepth_tpu_torch.evaluation import (CLASS_TITLES, evaluate_performance,
 from resdepth_tpu_torch.geo import raster as raster_mod
 from resdepth_tpu_torch.infer.tiled import predict_linear_blend, serving_model
 from resdepth_tpu_torch.models import weights
-from resdepth_tpu_torch.models.unet import UNet, unet_config_from_settings
+from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
+                                            unet_config_from_settings)
 from resdepth_tpu_torch.utils import fs
 from resdepth_tpu_torch.utils.logging import (add_console_logger, add_file_logger,
                                               setup_logger)
@@ -50,9 +52,6 @@ RESIDUAL_THRESHOLD = None
 # Scenes whose rasters exceed this many device pixels (DSM + ortho views)
 # would stream through row bands in the JAX package; not ported yet.
 MAX_DEVICE_PIXELS = 1 << 30  # 4 GiB of f32
-
-SERVING_PRECISION_MODES = ("mixed", "fast32", "act2pass", "balanced",
-                           "balanced16")
 
 parser = ArgumentParser(description="ResDepth on PyTorch: refine full DSM scenes "
                                     "with a trained model and evaluate against "
@@ -66,23 +65,21 @@ parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
 _report_ids = itertools.count()
 
 
-def select_compute_dtype(name: str | None, device: torch.device) -> torch.dtype:
-    """The torch dtype for ``general.compute_dtype``.
+def select_compute_dtype(name: str | None,
+                         device: torch.device) -> torch.dtype | str:
+    """``general.compute_dtype`` as ``predict_linear_blend`` takes it: a
+    torch dtype, or the name of a string serving mode.
 
     ``float32`` (the default) is IEEE f32 end to end: on CUDA it turns
     TF32 off for cuDNN convs and matmuls, which PyTorch otherwise allows
-    for convs and which keeps only a 10-bit mantissa."""
-    if name in SERVING_PRECISION_MODES:
-        raise NotImplementedError(
-            f"compute_dtype {name!r} is a string serving mode, not ported yet: "
-            "ROADMAP.md section 1 item 6 (precision modes on Hopper). "
-            "Use 'float32' or 'bfloat16'.")
+    for convs and which keeps only a 10-bit mantissa. The serving modes
+    turn it off too: their exact-f32 convs (the bias map) are IEEE."""
     if name == "bfloat16":
         return torch.bfloat16
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.float32
+    return name if name in SERVING_PRECISION_MODES else torch.float32
 
 
 def resolve_device(name: str, data_parallel: bool = True) -> torch.device:
@@ -144,7 +141,9 @@ def _run(cfg, cfg_orig, args, logger) -> None:
     logger.info(f"Device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else "")
-                + f", compute dtype {compute_dtype}")
+                + (f", serving mode {compute_dtype!r}"
+                   if isinstance(compute_dtype, str)
+                   else f", compute dtype {compute_dtype}"))
 
     # ----------------------- data allocation & inputs ---------------------- #
     logger.info("Perform data allocation...")

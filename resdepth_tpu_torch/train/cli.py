@@ -22,7 +22,7 @@ groups the batch order as the JAX trainer does. Not ported yet, each
 raising an error that names its ROADMAP.md item: banded residency
 (``tpu.max_device_pixels`` below a region's size, item 7), precision modes
 other than ``train_precision`` 'high' with ``compute_dtype`` 'float32'
-(item 6), multi-process and multi-slice runs (item 10) and a profiler
+(item 6b), multi-process and multi-slice runs (item 10) and a profiler
 trace (``tpu.profile_dir``, item 11).
 """
 

@@ -28,7 +28,7 @@ from resdepth_tpu_torch.models.unet import UNet, apply_unet, commit_bn_state
 from resdepth_tpu_torch.train.loss import denormalized_masked_l1
 from resdepth_tpu_torch.train.optim import build_optimizer, get_lr, set_lr
 
-_PRECISION_ITEM = "ROADMAP.md section 1 item 6 (precision modes on Hopper)"
+_PRECISION_ITEM = "ROADMAP.md section 1 item 6b (training precisions)"
 
 
 def select_train_precision(train_precision: str | None, compute_dtype: str | None,

@@ -299,9 +299,6 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 7"):
         predict.main([cfg, "--device", "cpu"])
 
-    for mode in predict.SERVING_PRECISION_MODES:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            predict.select_compute_dtype(mode, torch.device("cpu"))
     assert predict.select_compute_dtype("bfloat16", torch.device("cpu")) is torch.bfloat16
     assert predict.select_compute_dtype(None, torch.device("cpu")) is torch.float32
 
