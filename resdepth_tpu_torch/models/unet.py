@@ -23,7 +23,9 @@ The string serving modes (``serving_precision``: ``mixed``, ``fast32``,
 package's per-layer precisions, each an explicit number of bf16 product
 passes with float32 sums (``Precision``, ``ops/passes.py``): the 3x3 convs
 on kernel K3 (``ops.conv.conv3x3_bias_act``), the upconvs through
-``ops.passes``. See ``apply_unet``.
+``ops.passes``. Training runs at the same precisions (the training
+precisions of ``train.py``), its gradients at each conv's passes
+(``ops.passes.same_conv``, ``ops.passes.upconv2x2``). See ``apply_unet``.
 
 Training mode keeps the JAX package's BatchNorm rather than torch's: the
 batch moments are ``E[x]`` and ``E[x^2] - E[x]^2`` (clamped at 0), taken
@@ -306,10 +308,11 @@ class UNet(nn.Module):
         its new value, and is empty otherwise. ``remat`` (training only)
         recomputes each conv(+BN+act) block in the backward pass
         (``torch.utils.checkpoint``) instead of storing its activations.
-        ``serving`` (eval only) runs the same graph at a serving mode's
-        precisions (``_AtPrecision``) instead of the module's own layers."""
+        ``serving`` runs the same graph at a serving mode's or a training
+        policy's precisions and casts (``_AtPrecision``) instead of the
+        module's own layers."""
         ops = (_Layers(train, sample_weights, remat) if serving is None
-               else _AtPrecision(serving))
+               else _AtPrecision(serving, train, sample_weights, remat))
         skips = []
         out = ops.input(x)
         for i, level in enumerate(self.encoder):
@@ -354,11 +357,17 @@ class _Layers:
     def block(self, prefix, seq, x):
         if not self.train:
             return _conv_block_eval(seq, x)
+        return self._train_block(prefix, _conv_block_train, seq, x)
+
+    def _train_block(self, prefix, fn, seq, x, *args):
+        """``fn(seq, x, sample_weights, *args) -> (out, mean, var)``, under
+        ``torch.utils.checkpoint`` with ``remat``; the BN statistics go into
+        ``bn_state``."""
         if self.remat:
             out, mean, var = torch.utils.checkpoint.checkpoint(
-                _conv_block_train, seq, x, self.sample_weights, use_reentrant=False)
+                fn, seq, x, self.sample_weights, *args, use_reentrant=False)
         else:
-            out, mean, var = _conv_block_train(seq, x, self.sample_weights)
+            out, mean, var = fn(seq, x, self.sample_weights, *args)
         if mean is not None:
             self.bn_state[f"{prefix}.1.running_mean"] = mean
             self.bn_state[f"{prefix}.1.running_var"] = var
@@ -470,14 +479,12 @@ def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
 
     ``mixed_precision``, ``precision``, ``layer_precisions`` and
     ``hifi_endpoints`` are the JAX function's (``ServingMode.apply_kwargs``),
-    for eval only (``_AtPrecision``); training at a precision is ROADMAP.md
-    section 1 item 6b."""
+    in eval and in training (``_AtPrecision``). An ``x`` in another dtype
+    than the parameters (bfloat16 compute on float32 weights) runs there
+    too: each conv casts its weights to ``x.dtype``, as the JAX graph does."""
     serving = None
-    if mixed_precision or precision is not None or layer_precisions:
-        if train:
-            raise NotImplementedError(
-                "training at a precision is not ported yet: ROADMAP.md section 1 "
-                "item 6b (training precisions)")
+    if (mixed_precision or precision is not None or layer_precisions
+            or x.dtype != model.last_layer.weight.dtype):
         serving = ServingMode(mixed_precision, precision, layer_precisions,
                               hifi_endpoints)
     y, bn_state = model.run(x.permute(0, 3, 1, 2), train=train,
@@ -487,14 +494,16 @@ def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
     return (y, bn_state) if train else y
 
 
-# ------------------------- eval at a precision ---------------------------- #
-# The module's parameters as they are (float32 for a serving mode: each conv
-# casts its weights, as the JAX graph casts its kernels per conv).
+# ------------------------------ at a precision ---------------------------- #
+# The module's parameters as they are (float32 for a serving mode and in
+# training: each conv casts its weights, as the JAX graph casts its kernels
+# per conv).
 
 class _AtPrecision(_Layers):
-    """``UNet.run``'s layers at a serving mode's precisions: the eval
-    forward of the JAX ``apply_unet`` with ``mixed_precision``,
-    ``precision``, ``layer_precisions`` and ``hifi_endpoints``.
+    """``UNet.run``'s layers at a serving mode's or a training policy's
+    precisions: the forward of the JAX ``apply_unet`` with
+    ``mixed_precision``, ``precision``, ``layer_precisions`` and
+    ``hifi_endpoints``, in eval or in training.
 
     Each conv takes the precision of its layer (``layer_precisions[name]``,
     else ``precision``), by the JAX names: ``encoder{i}``, ``bottleneck``,
@@ -506,10 +515,16 @@ class _AtPrecision(_Layers):
     the outer skip adds the raw f32 channel 0. ``hifi_endpoints`` (with
     ``mixed``) feeds ``encoder0`` the raw f32 input and runs the composed
     top on f32-upcast activations with f32 weights. The bias map of a
-    composed top is exact float32 (HIGHEST), as in JAX."""
+    composed top is exact float32 (HIGHEST), as in JAX.
 
-    def __init__(self, serving: ServingMode):
-        super().__init__(False, None, False)
+    In training (``_block_train_at``) BatchNorm takes the batch's
+    statistics in float32, cast back to the conv's dtype, and the activation
+    is a separate op; an f32 conv with a pass count runs, and takes its
+    gradients, at those passes (``ops.passes.same_conv``, ``upconv2x2``)."""
+
+    def __init__(self, serving: ServingMode, train: bool = False,
+                 sample_weights=None, remat: bool = False):
+        super().__init__(train, sample_weights, remat)
         self.mode = serving
 
     def _precision(self, name: str):
@@ -530,7 +545,10 @@ class _AtPrecision(_Layers):
 
     def block(self, prefix, seq, x):
         # "encoder.0.0" -> encoder0, "decoder.1.1" -> decoder1, "bottleneck"
-        return _block_at(seq, x, self._precision("".join(prefix.split(".")[:2])))
+        precision = self._precision("".join(prefix.split(".")[:2]))
+        if not self.train:
+            return _block_at(seq, x, precision)
+        return self._train_block(prefix, _block_train_at, seq, x, precision)
 
     def up(self, i, module, x):
         return _upconv_at(module, x, self._precision(f"up{i}"))
@@ -540,14 +558,17 @@ class _AtPrecision(_Layers):
                                 self._precision("last"), self.mode.hifi_endpoints)
 
     def last(self, last, x):
-        return _conv3x3(x.float() if self.mode.mixed else x, last.weight,
-                        last.bias, self._precision("last"))
+        conv = _conv3x3_train if self.train else _conv3x3
+        return conv(x.float() if self.mode.mixed else x, last.weight, last.bias,
+                    self._precision("last"))
 
     def result(self, y, x):
         return y.to(torch.float32 if self.mode.mixed else x.dtype)
 
     def outer_skip(self, bn, x0):
-        return x0 if bn is None else _batch_norm_f32(bn, x0)
+        if self.train or bn is None:
+            return super().outer_skip(bn, x0)
+        return _batch_norm_f32(bn, x0)
 
 
 def _act_spec(module: nn.Module, channels: int):
@@ -602,6 +623,32 @@ def _block_at(seq: nn.Sequential, x, precision):
     return _activate_nchw(_batch_norm_f32(seq[1], y), act_fn, slope)
 
 
+def _conv3x3_train(x, weight, bias, precision):
+    """``_conv3x3`` without an activation, with gradients: an f32 conv
+    with a pass count through ``ops.passes.same_conv`` (forward and dx on
+    K3, dw and db at its passes), any other through autograd (the bf16
+    trunk's convs on cuDNN, IEEE float32)."""
+    passes = None if x.dtype == torch.bfloat16 else precision_passes(precision)
+    if passes is None:
+        return _conv3x3(x, weight, bias, precision)
+    return pass_ops.same_conv(x, weight, bias, passes)
+
+
+def _block_train_at(seq: nn.Sequential, x, sample_weights, precision):
+    """conv at ``precision`` (+BN with batch statistics) + activation ->
+    ``(out, mean, var)``, as ``_conv_block_train``. The activation is the
+    module's own (PReLU's slopes cast to the activation's dtype, as JAX
+    casts them)."""
+    conv, act = seq[0], seq[-1]
+    out = _conv3x3_train(x, conv.weight, conv.bias, precision)
+    mean = var = None
+    if isinstance(seq[1], nn.BatchNorm2d):
+        out, mean, var = batch_norm_train(seq[1], out, sample_weights)
+    if isinstance(act, nn.PReLU):
+        return _activate_nchw(out, *_act_spec(act, conv.out_channels)), mean, var
+    return act(out), mean, var
+
+
 def _resize2x(x):
     """The half-pixel bilinear 2x resize as ``jax.image.resize`` computes
     it: one axis at a time, rows then columns, each in float32 and rounded
@@ -614,17 +661,21 @@ def _resize2x(x):
 
 
 def _upconv_at(module: nn.Module, x, precision):
-    """The 2x upsampling of ``x`` at ``precision`` (``ops.passes``; bf16
-    ``x`` runs in bf16, its bias added after the conv's rounding): the 2x2
-    stride-2 transposed conv, or the half-pixel bilinear resize
-    (``_resize2x``) and the 1x1 conv."""
+    """The 2x upsampling of ``x`` at ``precision`` (``ops.passes``, with
+    gradients at its passes; bf16 ``x`` runs in bf16, its bias added after
+    the conv's rounding): the 2x2 stride-2 transposed conv, or the
+    half-pixel bilinear resize (``_resize2x``) and the 1x1 conv."""
     transpose = isinstance(module, nn.ConvTranspose2d)
     conv = module if transpose else module[1]
     up = x if transpose else _resize2x(x)
     run = pass_ops.conv_transpose2d if transpose else pass_ops.conv2d
     if x.dtype == torch.bfloat16:
         return _add_bias(run(up, conv.weight.to(x.dtype)), conv.bias)
-    return run(up, conv.weight, conv.bias, precision_passes(precision))
+    passes = precision_passes(precision)
+    if passes is None:
+        return run(up, conv.weight, conv.bias)
+    with_grads = pass_ops.upconv2x2 if transpose else pass_ops.same_conv
+    return with_grads(up, conv.weight, conv.bias, passes)
 
 
 def _composed_top_at(top: ComposedTop, last: nn.Conv2d, skip, d1,

@@ -3,18 +3,24 @@
 
     python -m resdepth_tpu_torch.studies.precision_study [--device cuda]
         [--steps 400] [--batch 20] [--rows 512] [--cols 768] [--seeds 3 4 5]
-        [--out study.json]
+        [--train-precision high] [--out study.json]
 
 For each scene seed: train the flagship geom-stereo UNet from a seeded
 initialisation on a synthetic city (``utils/synth.py``) with the port's
-float32 trainer step (IEEE f32, TF32 off: the only training precision the
-port has; the JAX study trains at ``Precision.DEFAULT``, which is not ported
-yet), then refine the scene with ``predict_linear_blend`` at float32,
-bfloat16 and each string serving mode, and report each mode's deviation
-from the float32 scene over the valid pixels: mean, p99 and max in cm. Each
-mode's UNet forward at ``--bench-batch`` tiles is timed once (first seed),
-as tiles/s on the device the study runs on, beside the device's name.
-The table is printed and, with ``--out``, written as JSON.
+trainer step at ``--train-precision`` (``tpu.train_precision``: 'high',
+the default, is IEEE f32 with TF32 off; the JAX study trains at 'default',
+one bf16 pass), then refine the scene with ``predict_linear_blend`` at
+float32, bfloat16 and each string serving mode, and report each mode's
+deviation from the float32 scene over the valid pixels: mean, p99 and max
+in cm. On a CUDA device each mode's UNet outputs on the scene's tiles are
+also computed on the CPU: the mean |card - CPU| as a share of the mode's
+own mean deviation from float32 on the card (``card_vs_cpu_share``, the
+measure of ``chip_smoke.py``'s crop), and beside it the same share with
+K3's plain version (cuDNN) in its place on the card, against the CPU and
+against K3. Each mode's UNet forward at
+``--bench-batch`` tiles is timed once (first seed), as tiles/s on the
+device the study runs on, beside the device's name. The table is printed
+and, with ``--out``, written as JSON.
 """
 
 from __future__ import annotations
@@ -76,20 +82,22 @@ def _scene(work: str, rows: int, cols: int, seed: int, tile: int):
     return gt, train_ds, test_ds
 
 
-def _train(config, train_ds, device, steps: int, batch: int, seed: int):
-    """``steps`` float32 Adam steps (lr 2e-4, weight decay 1e-5) on random
-    tiles; returns the model and the first and last batch MAE (m)."""
+def _train(config, train_ds, device, steps: int, batch: int, seed: int,
+           train_precision: str = "high"):
+    """``steps`` Adam steps (lr 2e-4, weight decay 1e-5) at
+    ``train_precision`` (float32 compute) on random tiles; returns the model
+    and the first and last batch MAE (m)."""
     from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
     from resdepth_tpu_torch.models.unet import init_unet
     from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
                                                select_train_precision)
 
-    select_train_precision("high", "float32", device)
+    policy, _ = select_train_precision(train_precision, "float32", device)
     model = init_unet(config, torch.Generator().manual_seed(0), device)
     state = init_train_state(model, "Adam", 2e-4, 1e-5)
     spec = batch_spec_for(train_ds, transform_dsm=True, transform_orthos=True,
                           augment=True)
-    step = make_train_step(spec)
+    step = make_train_step(spec, **policy)
     rasters = device_put_dataset(train_ds, device, include_target=True)
     generator = torch.Generator(device=device).manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -134,6 +142,47 @@ def _tiles_per_s(served, mode, device, batch: int, tile: int, n_in: int) -> floa
     return 3 * batch / best
 
 
+def _card_vs_cpu_shares(model, test_ds, device) -> dict:
+    """Each mode's UNet outputs on the test tiles, on ``device`` and on the
+    CPU, as shares of the mode's own mean |deviation| from float32 on the
+    card, by mode (bfloat16 included): ``card_vs_cpu`` the mean |card -
+    CPU|; ``plain_vs_cpu`` with K3's plain version (cuDNN over the split
+    operands) in its place on the card; ``k3_vs_plain`` K3 against that on
+    the card. The last two tell K3's sums from another device's."""
+    from unittest import mock
+
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import build_batch, device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import _inference_spec, _storage, serving_model
+    from resdepth_tpu_torch.models import unet
+    from resdepth_tpu_torch.ops import conv
+
+    x = build_batch(device_put_dataset(test_ds, device),
+                    torch.from_numpy(test_ds.positions.astype(np.int32)).to(device),
+                    torch.from_numpy(test_ds.pair_indices.astype(np.int64)).to(device),
+                    _inference_spec(test_ds))["input"].cpu()
+
+    def forward(mode, on, k3=conv.conv3x3_bias_act):
+        dtype = predict.select_compute_dtype(mode, on)
+        storage, kwargs = _storage(dtype)
+        served = serving_model(model, on, dtype)
+        with torch.inference_mode(), mock.patch.object(unet, "conv3x3_bias_act", k3):
+            return unet.apply_unet(served, x.to(on, storage), **kwargs).float().cpu().numpy()
+
+    def share(a, b, mode):
+        return float(np.abs(a - b).mean() / np.abs(card[mode] - card["float32"]).mean())
+
+    card = {mode: forward(mode, device) for mode in MODES}
+    shares = {}
+    for mode in MODES[1:]:
+        cpu = forward(mode, torch.device("cpu"))
+        plain = forward(mode, device, conv.conv3x3_bias_act_plain)
+        shares[mode] = {"card_vs_cpu": share(card[mode], cpu, mode),
+                        "plain_vs_cpu": share(plain, cpu, mode),
+                        "k3_vs_plain": share(card[mode], plain, mode)}
+    return shares
+
+
 def main(argv=None) -> list:
     from resdepth_tpu_torch import predict
     from resdepth_tpu_torch.infer.tiled import predict_linear_blend, serving_model
@@ -150,6 +199,9 @@ def main(argv=None) -> list:
     ap.add_argument("--depth", type=int, default=5)
     ap.add_argument("--start-kernel", type=int, default=64)
     ap.add_argument("--bench-batch", type=int, default=128)
+    ap.add_argument("--train-precision", default="high",
+                    choices=("high", "default", "highest", "balanced", "balanced16"),
+                    help="tpu.train_precision of the training steps")
     ap.add_argument("--out", default=None, help="write the table as JSON here")
     args = ap.parse_args(argv)
     if args.rows <= args.tile or args.cols <= args.tile:
@@ -161,17 +213,20 @@ def main(argv=None) -> list:
                             depth=args.depth, start_kernel=args.start_kernel,
                             max_filter_depth=max(args.start_kernel, 8 * args.start_kernel))
     name = _device_name(device)
-    print(f"[study] device {name}; {args.steps} float32 training steps, batch "
-          f"{args.batch}, {args.rows}x{args.cols} scenes, seeds {args.seeds}", flush=True)
+    print(f"[study] device {name}; {args.steps} training steps at train_precision "
+          f"{args.train_precision}, batch {args.batch}, {args.rows}x{args.cols} "
+          f"scenes, seeds {args.seeds}", flush=True)
 
-    dev = {mode: {"mean_cm": [], "p99_cm": [], "max_cm": []} for mode in MODES[1:]}
+    dev = {mode: {"mean_cm": [], "p99_cm": [], "max_cm": [], "card_vs_cpu_share": [],
+                  "card_plain_vs_cpu_share": [], "k3_vs_card_plain_share": []}
+           for mode in MODES[1:]}
     rates, seeds = {}, []
     for seed in args.seeds:
         with tempfile.TemporaryDirectory(prefix="precision_study_") as work:
             gt, train_ds, test_ds = _scene(work, args.rows, args.cols, seed, args.tile)
             start = time.perf_counter()
             model, first, last = _train(config, train_ds, device, args.steps,
-                                        args.batch, seed)
+                                        args.batch, seed, args.train_precision)
             train_s = time.perf_counter() - start
             outputs = {}
             for mode in MODES:
@@ -183,12 +238,19 @@ def main(argv=None) -> list:
                 if not rates.get(mode):
                     rates[mode] = _tiles_per_s(served, mode, device, args.bench_batch,
                                                args.tile, config.n_input_channels)
+            shares = (_card_vs_cpu_shares(model, test_ds, device)
+                      if device.type == "cuda" else {})
         valid = gt != -9999.0
         for mode in MODES[1:]:
             d = np.abs(outputs[mode] - outputs["float32"])[valid] * 100.0
             dev[mode]["mean_cm"].append(float(d.mean()))
             dev[mode]["p99_cm"].append(float(np.percentile(d, 99)))
             dev[mode]["max_cm"].append(float(d.max()))
+            mode_shares = shares.get(mode, {})
+            for key, pair in (("card_vs_cpu_share", "card_vs_cpu"),
+                              ("card_plain_vs_cpu_share", "plain_vs_cpu"),
+                              ("k3_vs_card_plain_share", "k3_vs_plain")):
+                dev[mode][key].append(mode_shares.get(pair))
         seeds.append({"seed": seed, "train_mae_first_m": first, "train_mae_last_m": last,
                       "train_s": train_s,
                       "input_mae_m": float(np.abs(test_ds.dsm_input - gt)[valid].mean()),
@@ -199,10 +261,14 @@ def main(argv=None) -> list:
 
     rows = [{"mode": mode, **dev[mode], "tiles_per_s": rates[mode]} for mode in MODES[1:]]
     print(f"\n{'mode':11s} {'mean dev cm (per seed)':>32s} {'p99 cm':>24s} "
-          f"{'tiles/s':>9s}  ({name}, batch {args.bench_batch})")
+          f"{'tiles/s':>9s}  {'card vs CPU share':>24s}  {'K3 vs plain on the card':>24s}"
+          f"  ({name}, batch {args.bench_batch})")
     for r in rows:
+        shares = "  ".join(" ".join("-" if v is None else f"{v:.4f}" for v in r[key])
+                           for key in ("card_vs_cpu_share", "k3_vs_card_plain_share"))
         print(f"{r['mode']:11s} {' '.join(f'{v:10.4f}' for v in r['mean_cm']):>32s} "
-              f"{' '.join(f'{v:7.3f}' for v in r['p99_cm']):>24s} {r['tiles_per_s']:9.1f}")
+              f"{' '.join(f'{v:7.3f}' for v in r['p99_cm']):>24s} {r['tiles_per_s']:9.1f}"
+              f"  {shares}")
     print(f"{'float32':11s} {'(reference)':>32s} {'':>24s} {rates['float32']:9.1f}")
     if args.out:
         with open(args.out, "w") as f:

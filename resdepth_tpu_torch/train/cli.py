@@ -18,12 +18,13 @@ Training runs on one device (``--device``, default ``cuda``, which raises
 when CUDA is absent or, with ``tpu.data_parallel``, when more than one GPU
 is visible). On one GPU ``tpu.use_pallas``, ``tpu.donate_state`` and
 ``tpu.data_parallel`` change nothing, and ``tpu.steps_per_call`` only
-groups the batch order as the JAX trainer does. Not ported yet, each
-raising an error that names its ROADMAP.md item: banded residency
-(``tpu.max_device_pixels`` below a region's size, item 7), precision modes
-other than ``train_precision`` 'high' with ``compute_dtype`` 'float32'
-(item 6b), multi-process and multi-slice runs (item 10) and a profiler
-trace (``tpu.profile_dir``, item 11).
+groups the batch order as the JAX trainer does. ``tpu.train_precision``
+and ``tpu.compute_dtype`` take every value ``train.py`` takes
+(``train.step.select_train_precision``); validation runs the float32
+policy at the compute dtype. Not ported yet, each raising an error that
+names its ROADMAP.md item: banded residency (``tpu.max_device_pixels``
+below a region's size, item 7), multi-process and multi-slice runs (item
+10) and a profiler trace (``tpu.profile_dir``, item 11).
 """
 
 from __future__ import annotations
@@ -225,12 +226,14 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
 
     check_ported(cfg)
     device = resolve_device(args.device, cfg.tpu.data_parallel)
-    select_train_precision(cfg.tpu.get("train_precision"),
-                           cfg.tpu.get("compute_dtype"), device)
+    train_precision = cfg.tpu.get("train_precision") or "high"
+    policy, compute_dtype = select_train_precision(
+        train_precision, cfg.tpu.get("compute_dtype"), device)
     logger.info(f"Device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else "")
-                + ", float32 (TF32 off)")
+                + f", train_precision {train_precision}, compute_dtype "
+                f"{str(compute_dtype).removeprefix('torch.')} (TF32 off)")
 
     # --------------------- data allocation & pair lists --------------------- #
     logger.info("\n\n\nData initialization\n-------------------\n")
@@ -369,8 +372,11 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     train_step = make_train_step(batch_spec_for(train_datasets[0]),
                                  weighted_bn=weighted_bn,
                                  remat=cfg.tpu.get("remat", False),
-                                 ema_decay=ema_decay)
-    eval_step = make_eval_step(batch_spec_for(val_datasets[0]))
+                                 ema_decay=ema_decay, compute_dtype=compute_dtype,
+                                 **policy)
+    # Validation runs the float32 policy at the compute dtype, whatever the
+    # training precision, as train.py validates.
+    eval_step = make_eval_step(batch_spec_for(val_datasets[0]), compute_dtype)
 
     def loaders(datasets, shuffle, seed_base):
         return [(device_put_dataset(ds, device, include_target=True),

@@ -10,9 +10,16 @@ moves the EMA. The host sends only the (B, 2) positions and a few (B,)
 vectors per step; the step returns the batch's masked MAE as a device
 scalar, so the loop never waits for the card.
 
-Only the float32 parity policy is ported (``tpu.train_precision`` 'high'
-with ``tpu.compute_dtype`` 'float32'): IEEE fp32, TF32 off for cuDNN convs
-and matmuls.
+The precision policy is ``train.py``'s (``select_train_precision``):
+``tpu.train_precision`` 'high' (the default) and 'highest' train in IEEE
+fp32 (TF32 off for cuDNN convs and matmuls; the JAX package runs 'high' as
+3 bf16 passes on its chip); 'default' runs every conv at 1 bf16 pass,
+'balanced' at 1 pass but the first and last convs at 3, and 'balanced16'
+on a bf16 activation trunk with those two convs at 3 passes on float32
+operands; the gradients of each conv at its passes (``models/unet.py``,
+``ops/passes.py``). ``tpu.compute_dtype`` 'bfloat16' casts the batch input
+to bfloat16: a bf16 trunk end to end on float32 weights. The master
+weights, Adam state and EMA stay float32.
 """
 
 from __future__ import annotations
@@ -24,26 +31,44 @@ import numpy as np
 import torch
 
 from resdepth_tpu_torch.data.pipeline import BatchSpec, DeviceRasters, build_batch
-from resdepth_tpu_torch.models.unet import UNet, apply_unet, commit_bn_state
+from resdepth_tpu_torch.models.unet import (Precision, UNet, apply_unet,
+                                            commit_bn_state, serving_precision)
 from resdepth_tpu_torch.train.loss import denormalized_masked_l1
 from resdepth_tpu_torch.train.optim import build_optimizer, get_lr, set_lr
 
-_PRECISION_ITEM = "ROADMAP.md section 1 item 6b (training precisions)"
-
 
 def select_train_precision(train_precision: str | None, compute_dtype: str | None,
-                           device: torch.device) -> None:
-    """Check ``tpu.train_precision`` and ``tpu.compute_dtype`` and set the
-    precision policy. Only 'high' with 'float32' is ported: IEEE fp32, with
-    TF32 turned off on CUDA. Any other value raises."""
-    if (train_precision or "high") != "high" or (compute_dtype or "float32") != "float32":
-        raise NotImplementedError(
-            f"tpu.train_precision {train_precision!r} with tpu.compute_dtype "
-            f"{compute_dtype!r} is not ported yet: {_PRECISION_ITEM}. The port "
-            "trains with train_precision 'high' and compute_dtype 'float32'.")
+                           device: torch.device) -> tuple[dict, torch.dtype]:
+    """The precision policy of ``tpu.train_precision`` and
+    ``tpu.compute_dtype``, built as ``train.py`` builds it: the
+    ``apply_unet`` keyword arguments ('balanced' and 'balanced16' are the
+    serving modes of those names, ``serving_precision(mode).apply_kwargs()``)
+    and the compute dtype of the batch input. Turns TF32 off on CUDA, for
+    the IEEE float32 convs and matmuls."""
+    name = train_precision or "high"
+    dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    if name in ("balanced", "balanced16"):
+        kwargs = serving_precision(name).apply_kwargs()
+    else:
+        kwargs = {"high": dict(precision=None),
+                  "default": dict(precision=Precision.DEFAULT),
+                  "highest": dict(precision=Precision.HIGHEST)}[name]
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    return kwargs, dtype
+
+
+def _check_mixed_precision_input(mixed_precision: bool, compute_dtype) -> None:
+    """The bf16-trunk policies need the raw f32 batch input: with
+    ``compute_dtype`` bfloat16 the first conv would read an already rounded
+    input (``resdepth_tpu/train/step.py::_check_mixed_precision_input``;
+    the train CLI rejects it at validation)."""
+    if mixed_precision and compute_dtype != torch.float32:
+        raise ValueError(
+            "mixed_precision (bf16 activation trunk) requires compute_dtype "
+            f"float32, got {str(compute_dtype).removeprefix('torch.')}; the trunk "
+            "handles its own bf16 rounding.")
 
 
 @dataclasses.dataclass
@@ -99,7 +124,10 @@ def _on(device, array, dtype=None) -> torch.Tensor:
 
 
 def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
-                    remat: bool = False, ema_decay: float = 0.0):
+                    remat: bool = False, ema_decay: float = 0.0,
+                    compute_dtype: torch.dtype = torch.float32, precision=None,
+                    layer_precisions: dict | None = None,
+                    mixed_precision: bool = False, hifi_endpoints: bool = False):
     """Build the train step.
 
     ``step(state, rasters, positions, pair_idx, bounds, weights, generator)
@@ -111,10 +139,16 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
     statistics, which is the same only when no sample is padding.
     ``remat`` recomputes each conv block in the backward pass. ``ema_decay``
     > 0 moves ``state.ema_model`` toward the new weights after each step.
+    ``compute_dtype`` is the batch input's dtype, and ``precision``,
+    ``layer_precisions``, ``mixed_precision`` and ``hifi_endpoints`` are
+    ``apply_unet``'s: the policy of ``select_train_precision``.
 
     JAX's ``steps_per_call`` K > 1 scans K steps in one program to save
     dispatches; here K calls of this step in sequence are the same thing.
     """
+    _check_mixed_precision_input(mixed_precision, compute_dtype)
+    policy = dict(precision=precision, layer_precisions=layer_precisions,
+                  mixed_precision=mixed_precision, hifi_endpoints=hifi_endpoints)
     decay = np.float32(ema_decay)
     keep = float(decay)
     move = float(np.float32(1) - decay)
@@ -127,9 +161,10 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
         w = _on(device, weights, torch.float32)
         batch = build_batch(rasters, _on(device, positions), _on(device, pair_idx),
                             spec, bounds=_on(device, bounds), generator=generator)
-        pred, bn_state = apply_unet(model, batch["input"], train=True,
+        pred, bn_state = apply_unet(model, batch["input"].to(compute_dtype),
+                                    train=True,
                                     sample_weights=w if weighted_bn else None,
-                                    remat=remat)
+                                    remat=remat, **policy)
         loss, (num, den) = denormalized_masked_l1(
             pred, batch["target"], batch["loss_mask"], batch["dsm_mean"],
             spec.dsm_std, w)
@@ -148,11 +183,12 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
     return step
 
 
-def make_eval_step(spec: BatchSpec):
+def make_eval_step(spec: BatchSpec, compute_dtype: torch.dtype = torch.float32):
     """Build the eval step: ``eval_step(model, rasters, positions, pair_idx,
     bounds, weights) -> (num, den)`` device scalars, the masked absolute
     error sum in meters and the valid-pixel count, with BatchNorm running
-    statistics."""
+    statistics. It runs the float32 policy at ``compute_dtype`` whatever the
+    training precision, as ``train.py`` validates."""
 
     @torch.no_grad()
     def eval_step(model: UNet, rasters: DeviceRasters, positions, pair_idx,
@@ -161,7 +197,7 @@ def make_eval_step(spec: BatchSpec):
         w = _on(device, weights, torch.float32)
         batch = build_batch(rasters, _on(device, positions), _on(device, pair_idx),
                             spec, bounds=_on(device, bounds))
-        pred = apply_unet(model, batch["input"])
+        pred = apply_unet(model, batch["input"].to(compute_dtype))
         _, (num, den) = denormalized_masked_l1(
             pred, batch["target"], batch["loss_mask"], batch["dsm_mean"],
             spec.dsm_std, w)

@@ -346,16 +346,6 @@ def test_operands_hold_only_the_halves_read(n_passes):
             assert torch.equal(got, want)
 
 
-def test_training_at_a_precision_raises():
-    _, _, _, model = _folded_pair("transpose", folded=False)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tunet.apply_unet(model, torch.from_numpy(_input(3)), train=True,
-                         precision=tunet.Precision.DEFAULT)
-    with pytest.raises(ValueError, match="float32"):
-        tunet.apply_unet(model, torch.from_numpy(_input(3)).to(torch.bfloat16),
-                         mixed_precision=True)
-
-
 def test_cuda_launches_count_by_passes(monkeypatch):
     """On a device tensor the wrapper hands the pass count to the kernel
     library and counts the launch under it (meta tensors stand in)."""
