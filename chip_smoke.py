@@ -32,7 +32,12 @@ found:
      K3's launches by pass count (12/12/12/3/2 a forward for
      fast32/act2pass/balanced/balanced16/mixed, times the 8 batches),
      scene time, tiles/s, forward ms, peak memory, and the deviation from
-     the float32 scene in cm;
+     the float32 scene in cm; "streaming": the scene streamed in row bands
+     (``predict_linear_blend_streaming``) under a budget of 1024 rows of
+     its 3 raster planes: 5 bands of 217, 217, 217, 217 and 93 tiles,
+     float32 with K2 and K1 and balanced16 (K3 in every band), each held
+     against the resident scene (K2 bitwise, K1 within its bar), times,
+     peak memory and the bytes a band puts on the card;
   5. card against CPU: a 512x512 crop refined on the card (K2, whose sum
      order is the plain stitch's) and on the CPU, float32 within 4 f32 ulps
      of the largest height (``CROP_ULPS``),
@@ -62,6 +67,14 @@ found:
      pass count) and its time a step; K3 against its plain version at every
      call shape the steps hand it; "train-balanced16": the train CLI for an
      epoch at 'balanced16', its ``Model_best.npz`` served;
+     "streaming-cli": the inference CLI's over-budget branch on that scene
+     (``predict.MAX_DEVICE_PIXELS`` lowered: 3 row bands, K2), held against
+     the resident scene; "train-banded": the ``Trainer`` for an epoch under
+     banded residency (``data/banded.py``) at a 1-D and a 2-D budget, float32
+     'high' and 'balanced16', each against its fully resident twin (weights
+     bitwise the twin's with deterministic cuDNN, one upload a window,
+     nothing resident after; samples/s beside the twin's), and the train
+     CLI for an epoch under ``tpu.max_device_pixels``;
   8. train card against CPU: one flagship train step on 2 tiles of 128 px
      on the card and on the CPU (which takes the card's max-pool and ReLU
      decisions, see ``phase_train_vs_cpu``) at each training policy: loss,
@@ -1304,6 +1317,254 @@ def phase_modes_cli(work: str, scene: dict, model: dict) -> dict:
     return {"wall_s": wall, "launches": launches}
 
 
+# Phase "streaming": the 4096^2 scene under a device budget of 1024 rows x
+# 4096 columns x 3 raster planes: 5 row bands of 217, 217, 217, 217 and 93
+# tiles whose windows overlap by 128 rows at 4 seams; 9 batches of 128 (the
+# last band's 93 tiles padded to the resident batch) against the resident
+# scene's 8.
+STREAM_BUDGET = 1024 * SCENE_SIZE * 3
+STREAM_BANDS = (217, 217, 217, 217, 93)
+STREAM_RUNS = (("float32", "fused"), ("float32", None), ("balanced16", "fused"))
+
+
+def stream_geometry(ds, budget: int) -> dict:
+    """The row bands ``predict_linear_blend_streaming`` cuts ``ds`` into
+    under ``budget``: tiles a band, windows, the seam rows (where two bands'
+    windows overlap), batches (of the resident scene's size, ``BATCH``
+    capped at the scene's tiles) and the bytes of rasters and canvas each
+    band puts on the device."""
+    from resdepth_tpu_torch.data.banded import resident_pixels
+    from resdepth_tpu_torch.infer.tiled import _iter_bands
+
+    rows, cols = ds.dsm_input.shape
+    planes = resident_pixels(ds, include_target=False) // (rows * cols)
+    bands = list(_iter_bands(ds, budget // (cols * planes)))
+    windows = [(w.start, w.stop) for w, _, _ in bands]
+    seams = np.zeros(rows, bool)
+    for (_, stop), (start, _) in zip(windows, windows[1:]):
+        seams[start:stop] = True
+    tiles = tuple(len(idx) for _, idx, _ in bands)
+    batch = min(BATCH, len(ds.positions))
+    return {"tiles": tiles, "windows": windows, "seams": seams,
+            "overlaps": [stop - start for (_, stop), (start, _)
+                         in zip(windows, windows[1:])],
+            "batches": sum(-(-n // batch) for n in tiles),
+            "raster_bytes": [(b - a) * cols * planes * 4 for a, b in windows],
+            "resident_raster_bytes": rows * cols * planes * 4,
+            "canvas_bytes": [(b - a) * cols * 4 for a, b in windows]}
+
+
+def hold_streamed(name: str, got: np.ndarray, want: np.ndarray, geometry: dict,
+                  bar_ulps: int = 0) -> dict:
+    """A streamed scene against another scene: within ``bar_ulps`` f32 ulps
+    of the largest height (0: bitwise). Raises with where the largest
+    difference sits; returns the largest difference in ulps in each band's
+    window and on the seam rows (where a band's canvas starts from the sums
+    of the band above)."""
+    diff = np.abs(got.astype(np.float64) - want) / ulps(want, 1)
+    bands = [float(diff[a:b].max()) for a, b in geometry["windows"]]
+    if not (np.isfinite(got).all() and diff.max() <= bar_ulps):
+        y, x = np.unravel_index(int(np.argmax(diff)), diff.shape)
+        raise AssertionError(
+            f"{name}: the streamed scene differs by {diff[y, x]:.3g} ulps (bar "
+            f"{bar_ulps}), largest at row {y}, column {x}: {got[y, x]!r} against "
+            f"{want[y, x]!r}; largest a band {bands}")
+    return {"bands": bands, "seams": float(diff[geometry["seams"]].max())}
+
+
+def phase_streaming(scene: dict, model_path: str) -> dict:
+    """The 4096^2 scene through ``predict_linear_blend_streaming`` under
+    ``STREAM_BUDGET``: the band geometry asserted (``STREAM_BANDS``, 128-row
+    overlaps, 9 batches), then float32 with K2 and with K1 and balanced16
+    with K2 (K3 in every band). Each streamed scene is held against the
+    resident scene of the same dtype (``hold_streamed``: K2 bitwise; K1
+    within K1's bar of the K2 streamed scene). The counters are zeroed just
+    before each run's first streamed scene and read just after: 9 stitches
+    of its kernel, and for balanced16 K3's 3 launches at 3 passes a batch.
+    Then the scene time (median of 3 after the counted run; the fetch
+    included), tiles/s and peak memory, streamed beside resident."""
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import (predict_linear_blend,
+                                                predict_linear_blend_streaming,
+                                                serving_model)
+    from resdepth_tpu_torch.models import weights
+    from resdepth_tpu_torch.models.unet import UNet, flagship_config
+    from resdepth_tpu_torch.ops import conv, stitch
+
+    device = torch.device("cuda", 0)
+    ds = _tile_dataset(scene["paths"], SCENE_SIZE, scene["image_mean"],
+                       scene["image_std"])
+    geometry = stream_geometry(ds, STREAM_BUDGET)
+    if (geometry["tiles"] != STREAM_BANDS or geometry["overlaps"] != [TILE // 2] * 4
+            or geometry["batches"] != 9):
+        raise AssertionError(f"streamed bands {geometry['tiles']}, window overlaps "
+                             f"{geometry['overlaps']}, {geometry['batches']} batches; "
+                             f"expected {STREAM_BANDS}, 128 rows at 4 seams, 9")
+    seams = geometry["seams"]
+    log("streaming", f"budget {STREAM_BUDGET:,} px: {len(geometry['tiles'])} bands of "
+        f"{', '.join(map(str, geometry['tiles']))} tiles, windows "
+        f"{', '.join(f'{a}-{b}' for a, b in geometry['windows'])} (overlaps "
+        f"{geometry['overlaps']} rows, {int(seams.sum())} seam rows), "
+        f"{geometry['batches']} batches against "
+        f"{-(-len(ds.positions) // BATCH)} resident; on the device a band: rasters "
+        f"{', '.join(f'{b / 2**20:.1f}' for b in geometry['raster_bytes'])} MiB, canvas "
+        f"{', '.join(f'{b / 2**20:.1f}' for b in geometry['canvas_bytes'])} MiB "
+        f"(resident: rasters {geometry['resident_raster_bytes'] / 2**20:.1f} MiB, canvas "
+        f"{ds.dsm_input.size * 4 / 2**20:.1f} MiB)")
+    config = flagship_config("geom-stereo")
+    base = UNet(config)
+    base.load_state_dict(weights.load_state_dict(model_path, config))
+    n_batches = geometry["batches"]
+    result, scenes = {}, {}
+    launches = {"k1": 0, "k2": 0, 3: 0}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        walls = []
+        for _ in range(3):
+            start = time.perf_counter()
+            out = fn()
+            if isinstance(out, torch.Tensor):
+                out.cpu()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        return (float(np.median(walls)), walls,
+                torch.cuda.max_memory_allocated(device) / 2**30)
+
+    for dtype_name, use_pallas in STREAM_RUNS:
+        name = f"{dtype_name}-{'k2' if use_pallas else 'k1'}"
+        dtype = predict.select_compute_dtype(dtype_name, device)
+        served = serving_model(base, device, dtype)
+        rasters = device_put_dataset(ds, device)
+        kwargs = dict(device=device, batch_size=BATCH, compute_dtype=dtype,
+                      use_pallas=use_pallas, fold_bn=False)
+        resident = predict_linear_blend(served, ds, rasters=rasters, **kwargs)
+        resident_s, resident_walls, resident_peak = timed(
+            lambda: predict_linear_blend(served, ds, rasters=rasters, as_numpy=False,
+                                         **kwargs))
+        del rasters
+        torch.cuda.empty_cache()
+
+        def streamed():
+            return predict_linear_blend_streaming(
+                served, ds, max_device_pixels=STREAM_BUDGET, **kwargs)
+
+        for counters in (stitch.LAUNCHES, conv.LAUNCHES):
+            for key in counters:
+                counters[key] = 0
+        got = streamed()
+        counts = dict(stitch.LAUNCHES)
+        k3 = conv.LAUNCHES["k3_p3"]
+        kernel = "k2" if use_pallas else "k1"
+        want_k3 = (0 if dtype_name == "float32"
+                   else k3_calls_a_forward(dtype_name)[3] * n_batches)
+        if (counts != {"k1": 0, "k2": 0, kernel: n_batches} or k3 != want_k3
+                or conv.LAUNCHES["k3"] != want_k3):
+            raise AssertionError(f"{name}: streamed scene launched {counts}, K3 "
+                                 f"{conv.LAUNCHES}; expected {n_batches} {kernel} "
+                                 f"and {want_k3} K3 at 3 passes")
+        launches[kernel] += n_batches
+        launches[3] += k3
+        stream_s, stream_walls, stream_peak = timed(streamed)
+        if use_pallas:
+            held = hold_streamed(name, got, resident, geometry)
+        else:
+            held = hold_streamed(name, got, scenes["float32-k2"], geometry, k1_ulps(4))
+            held["resident K1"] = float(np.abs(got - resident).max()) / ulps(resident, 1)
+        scenes[name] = got
+        n_tiles = len(ds.positions)
+        result[name] = {"stream_s": stream_s, "resident_s": resident_s,
+                        "stream_walls": stream_walls, "resident_walls": resident_walls,
+                        "stream_tiles_per_s": n_tiles / stream_s,
+                        "resident_tiles_per_s": n_tiles / resident_s,
+                        "stream_peak_gib": stream_peak, "resident_peak_gib": resident_peak,
+                        "launches": {kernel: n_batches, **({"k3_p3": k3} if k3 else {})},
+                        "ulps": held}
+        del served
+        torch.cuda.empty_cache()
+    log("streaming", "predict_linear_blend_streaming against predict_linear_blend "
+        "(rasters resident), median of 3 after a counted run: " + "; ".join(
+            f"{n} streamed {r['stream_s']:.3f} s ({r['stream_tiles_per_s']:.1f} tiles/s; "
+            f"runs {', '.join(f'{w:.3f}' for w in r['stream_walls'])}), resident "
+            f"{r['resident_s']:.3f} s ({r['resident_tiles_per_s']:.1f} tiles/s; runs "
+            f"{', '.join(f'{w:.3f}' for w in r['resident_walls'])}), "
+            f"{r['stream_s'] / r['resident_s']:.3f}x; peak {r['stream_peak_gib']:.2f} GiB "
+            f"streamed, {r['resident_peak_gib']:.2f} resident; launches {r['launches']}; "
+            f"max |diff| in f32 ulps of the largest height a band "
+            f"{', '.join(f'{u:.2f}' for u in r['ulps']['bands'])}, on the seams "
+            f"{r['ulps']['seams']:.2f}"
+            + (f", against the resident K1 scene {r['ulps']['resident K1']:.2f}"
+               if "resident K1" in r["ulps"] else "")
+            for n, r in result.items())
+        + f"; bars: K2 bitwise equal to the resident scene; K1 within {k1_ulps(4)} "
+        "ulps of the K2 streamed scene")
+    return {"runs": result, "launches": launches}
+
+
+def phase_streaming_cli(work: str, scene: dict) -> dict:
+    """The inference CLI's over-budget branch: ``python -m
+    resdepth_tpu_torch.predict`` in this process on the 2048^2 training
+    scene (its evaluation takes a quarter of the 4096^2 scene's host time)
+    with ``predict.MAX_DEVICE_PIXELS`` lowered to half its rows x 3 planes, so
+    that it streams 3 row bands, with K2 in float32. It must log the
+    streaming branch and write its rasters; the K2 counter (zeroed just
+    before, read just after) counts the bands' batches; the refined scene
+    is held bitwise to ``predict_linear_blend`` with the rasters resident
+    (``hold_streamed``)."""
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.infer.tiled import predict_linear_blend
+    from resdepth_tpu_torch.models import weights
+    from resdepth_tpu_torch.models.unet import UNet, flagship_config
+    from resdepth_tpu_torch.ops import stitch
+
+    device = torch.device("cuda", 0)
+    config = flagship_config("geom-stereo")
+    model = write_model_artifacts(os.path.join(work, "model_streaming"), config,
+                                  "geom-stereo", scene["image_mean"], scene["image_std"])
+    ds = _tile_dataset(scene["paths"], TRAIN_SCENE, scene["image_mean"],
+                       scene["image_std"])
+    budget = TRAIN_SCENE // 2 * TRAIN_SCENE * 3
+    geometry = stream_geometry(ds, budget)
+    out_dir = os.path.join(work, "eval_streaming")
+    cfg = write_config(os.path.join(work, "config_streaming.json"), scene["paths"],
+                       model, out_dir, tile_size=TILE, batch_size=BATCH,
+                       use_pallas="fused")
+    for key in stitch.LAUNCHES:
+        stitch.LAUNCHES[key] = 0
+    original = predict.MAX_DEVICE_PIXELS
+    predict.MAX_DEVICE_PIXELS = budget
+    try:
+        wall = run_cli(cfg, "cuda")
+    finally:
+        predict.MAX_DEVICE_PIXELS = original
+    launches = dict(stitch.LAUNCHES)
+    if launches != {"k1": 0, "k2": geometry["batches"]}:
+        raise AssertionError(f"the streaming CLI run launched {launches}, expected "
+                             f"{geometry['batches']} K2")
+    with open(os.path.join(out_dir, "run.log")) as f:
+        if "streaming row bands" not in f.read():
+            raise AssertionError("the CLI did not take its streaming branch")
+    prediction = _check_outputs(out_dir, (TRAIN_SCENE, TRAIN_SCENE))
+    net = UNet(config)
+    net.load_state_dict(weights.load_state_dict(model["weights"], config))
+    want = predict_linear_blend(net, ds, device=device, batch_size=BATCH,
+                                compute_dtype=predict.select_compute_dtype("float32", device),
+                                use_pallas="fused")
+    held = hold_streamed("streaming CLI", prediction, want, geometry)
+    log("streaming-cli", f"python -m resdepth_tpu_torch.predict, float32 K2, "
+        f"{TRAIN_SCENE}^2 scene, MAX_DEVICE_PIXELS lowered to {budget:,}: logged "
+        f"'streaming row bands', {len(geometry['tiles'])} bands of "
+        f"{', '.join(map(str, geometry['tiles']))} tiles, CLI wall {wall:.2f} s, wrote "
+        f"{', '.join(os.path.basename(p) for p in output_paths(out_dir).values())}; "
+        f"launches {launches}; against predict_linear_blend resident, max |diff| "
+        f"in f32 ulps a band {', '.join(f'{u:.2f}' for u in held['bands'])}, on the "
+        f"seams {held['seams']:.2f} (bar 0)")
+    return {"wall_s": wall, "launches": launches}
+
+
 def bf16_ulps(reference: np.ndarray, n: int = 2) -> float:
     """``n`` bfloat16 ulps at the largest magnitude of ``reference``."""
     top = float(np.abs(reference).max())
@@ -1848,6 +2109,204 @@ def phase_train_balanced16_cli(work: str, scene: dict) -> dict:
     return {"wall_s": wall, "val": val, "launches": launches}
 
 
+# Phase "train-banded": one epoch of the 2048^2 training scene (4 raster
+# planes, 16,777,216 px resident) under banded residency at a 1-D budget
+# (768-row windows) and a 2-D one (627^2 windows), at float32 'high' and
+# 'balanced16', each against its band_resident=False twin.
+BANDED_BUDGETS = {"1-D": 6_291_456, "2-D": 1_572_864}
+BANDED_POLICIES = ("high", "balanced16")
+
+
+def _max_rel_diff(a: dict, b: dict) -> float:
+    """The largest relative L2 difference between two state dicts' tensors."""
+    return max(float((a[k].double() - b[k].double()).norm()
+                     / max(float(b[k].double().norm()), 1e-30)) for k in b)
+
+
+def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
+    """The ``Trainer`` for one epoch (augmentation on) on
+    ``make_banded_loaders`` at each of ``BANDED_BUDGETS`` and
+    ``BANDED_POLICIES``, and on its ``band_resident=False`` twin (the same
+    windows, seeds and batch order, the full scene resident), from the same
+    seeded weights. The steps are not deterministic as they run (cuDNN's
+    weight gradients), so the two are first run with
+    ``torch.backends.cudnn.deterministic``: the banded weights after the
+    epoch must be bitwise the twin's. Then both run as the train CLI runs
+    them, timed; the gap between their weights is reported (largest
+    relative L2 over the tensors). Each banded run's source uploads each
+    window once and holds none after ``train()``; the K3 counters are
+    zeroed just before each banded run and read just after
+    (``k3_launches_a_step`` a step). Reported: windows, steps, samples/s
+    over the epoch (host clock, synchronised) beside the twin's and the
+    resident figure of "train-precisions" (``resident``), the steady step
+    time (CUDA events) and peak memory. Then the train CLI for one epoch
+    under ``tpu.max_device_pixels``: it logs its bands and writes
+    ``Model_best.npz``."""
+    import logging
+
+    from resdepth_tpu_torch import train
+    from resdepth_tpu_torch.data import banded
+    from resdepth_tpu_torch.data.pipeline import batch_spec_for
+    from resdepth_tpu_torch.models.unet import flagship_config, init_unet
+    from resdepth_tpu_torch.ops import conv
+    from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
+                                               select_train_precision)
+    from resdepth_tpu_torch.train.trainer import Trainer
+
+    device = torch.device("cuda", 0)
+    ds = _train_dataset(scene, TRAIN_SCENE, TILE, TRAIN_SAMPLES)
+    spec = batch_spec_for(ds, augment=True)
+    config = flagship_config("geom-stereo")
+    quiet = logging.getLogger("chip_smoke.train_banded")
+    quiet.setLevel(logging.WARNING)
+
+    def run(policy, budget, band_resident, tag):
+        kwargs, dtype = select_train_precision(*TRAIN_POLICIES[policy], device)
+        model = init_unet(config, torch.Generator().manual_seed(SEED), device)
+        step = make_train_step(spec, weighted_bn=True, compute_dtype=dtype, **kwargs)
+        events = []
+
+        def timed_step(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metric = step(*args)
+            end.record()
+            events.append((start, end, metric))
+            return metric
+
+        loaders = banded.make_banded_loaders(ds, TRAIN_BATCH, max_device_pixels=budget,
+                                             seed=SEED, device=device,
+                                             band_resident=band_resident)
+        trainer = Trainer(state=init_train_state(model, "Adam", 2e-4, 1e-5),
+                          train_step=timed_step, eval_step=None,
+                          train_loaders=loaders, val_loaders=[], n_epochs=1,
+                          checkpoint_dir=os.path.join(work, "banded", tag),
+                          rng_seed=SEED, logger=quiet, group_chunks_by_loader=True)
+        epoch = trainer.train_one_epoch
+        walls = []
+
+        def timed_epoch(index):
+            start = time.perf_counter()
+            meter = epoch(index)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            return meter
+
+        trainer.train_one_epoch = timed_epoch
+        for key in conv.LAUNCHES:
+            conv.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        trainer.train()
+        k3 = conv.LAUNCHES["k3"]
+        metrics = [float(m) for _, _, m in events]
+        if not np.isfinite(metrics).all():
+            raise AssertionError(f"{tag}: train metrics {metrics}")
+        step_ms = [s.elapsed_time(e) for s, e, _ in events]
+        out = {"windows": len(loaders), "steps": len(events), "k3": k3,
+               "samples_per_s": TRAIN_SAMPLES / walls[0], "epoch_s": walls[0],
+               "step_ms": float(np.mean(step_ms[TRAIN_WARMUP:] or step_ms)),
+               "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+               "weights": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+        if band_resident:
+            source = loaders[0][0].source
+            out["uploads"], out["resident_after"] = source.uploads, source._resident
+            out["window"] = (source.window_rows, source.window_cols)
+        del trainer, model, loaders
+        torch.cuda.empty_cache()
+        return out
+
+    def checked(tag, policy, b):
+        want_k3 = sum(k3_launches_a_step(policy).values()) * b["steps"]
+        if (b["uploads"] != b["windows"] or b["resident_after"] is not None
+                or b["k3"] != want_k3):
+            raise AssertionError(
+                f"train-banded {tag}: {b['uploads']} uploads for {b['windows']} "
+                f"windows, a window left resident: {b['resident_after'] is not None}, "
+                f"K3 launched {b['k3']} times in {b['steps']} steps (expected {want_k3})")
+        return b["k3"]
+
+    result, lines, launches = {}, [], 0
+    for policy in BANDED_POLICIES:
+        for budget_name, budget in BANDED_BUDGETS.items():
+            tag = f"{policy}-{budget_name}"
+            torch.backends.cudnn.deterministic = True
+            try:
+                exact = {"banded": run(policy, budget, True, f"{tag}-banded-exact"),
+                         "twin": run(policy, budget, False, f"{tag}-twin-exact")}
+            finally:
+                torch.backends.cudnn.deterministic = False
+            launches += checked(tag, policy, exact["banded"])
+            exact_gap = _max_rel_diff(exact["banded"]["weights"], exact["twin"]["weights"])
+            if not all(torch.equal(a, exact["twin"]["weights"][k])
+                       for k, a in exact["banded"]["weights"].items()):
+                raise AssertionError(f"train-banded {tag}: with deterministic cuDNN the "
+                                     f"banded weights differ from the twin's by "
+                                     f"{exact_gap:.3g} (largest relative L2)")
+            twin = run(policy, budget, False, f"{tag}-twin")
+            b = run(policy, budget, True, f"{tag}-banded")
+            launches += checked(tag, policy, b)
+            if b["steps"] != twin["steps"]:
+                raise AssertionError(f"train-banded {tag}: {b['steps']} steps, the "
+                                     f"twin {twin['steps']}")
+            gap = _max_rel_diff(b["weights"], twin["weights"])
+            result[tag] = {"gap": gap, **{k: v for k, v in b.items() if k != "weights"},
+                           "twin_samples_per_s": twin["samples_per_s"],
+                           "twin_step_ms": twin["step_ms"],
+                           "twin_peak_gib": twin["peak_gib"]}
+            lines.append(
+                f"{tag}: {b['windows']} windows of {b['window'][0]}x{b['window'][1]} px, "
+                f"{b['steps']} steps, uploads {b['uploads']}; weights bitwise the "
+                f"twin's with deterministic cuDNN; as the CLI runs: epoch "
+                f"{b['epoch_s']:.2f} s = {b['samples_per_s']:.1f} samples/s (twin "
+                f"{twin['samples_per_s']:.1f}; resident \"train-precisions\" "
+                f"{resident[policy]['samples_per_s']:.1f} at 10 full steps), step "
+                f"{b['step_ms']:.2f} ms (twin {twin['step_ms']:.2f}), peak "
+                f"{b['peak_gib']:.2f} GiB (twin {twin['peak_gib']:.2f}), K3 "
+                f"{b['k3'] // b['steps']} a step; weights vs twin {gap:.3g} rel L2 "
+                f"(cuDNN's nondeterminism over the epoch)")
+    log("train-banded", f"Trainer, one epoch of {TRAIN_SAMPLES} samples (batch "
+        f"{TRAIN_BATCH}, augmentation on), banded residency against its resident "
+        "twin: " + "; ".join(lines))
+
+    out_root = os.path.join(work, "runs_banded")
+    budget = BANDED_BUDGETS["1-D"]
+    cfg = write_train_config(
+        os.path.join(work, "train_banded.json"), scene["paths"], out_root,
+        suffix="banded", n_samples=TRAIN_SAMPLES,
+        training={"tile_size": TILE, "batch_size": TRAIN_BATCH, "augment": True,
+                  "n_epochs": 1},
+        optimizer={"name": "Adam", "learning_rate": 2e-4, "weight_decay": 1e-5},
+        scheduler={"enabled": True, "name": "StepLR",
+                   "settings": {"step_size": 2, "gamma": 0.5}},
+        general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
+        tpu={"train_precision": "balanced16", "max_device_pixels": budget})
+    for key in conv.LAUNCHES:
+        conv.LAUNCHES[key] = 0
+    start = time.perf_counter()
+    trainer = train.main([cfg, "--device", "cuda"])
+    wall = time.perf_counter() - start
+    cli_k3 = conv.LAUNCHES["k3"]
+    if not (cli_k3 > 0 and cli_k3 == conv.LAUNCHES["k3_p3"]
+            and cli_k3 % k3_launches_a_step("balanced16")[3] == 0):
+        raise AssertionError(f"the banded balanced16 train CLI launched K3 {conv.LAUNCHES}")
+    run_dir = run_dir_of(out_root, "banded")
+    with open(os.path.join(run_dir, "run.log")) as f:
+        banded_lines = [line.strip() for line in f if "banded residency," in line]
+    if (not any(line.startswith("train region") for line in banded_lines)
+            or not os.path.exists(os.path.join(run_dir, "checkpoints", "Model_best.npz"))
+            or not np.isfinite(trainer.val_history[0][1])):
+        raise AssertionError(f"the banded train CLI run logged {banded_lines}, val "
+                             f"{trainer.val_history}, wrote "
+                             f"{os.listdir(os.path.join(run_dir, 'checkpoints'))}")
+    launches += cli_k3
+    log("train-banded", f"train CLI, balanced16, tpu.max_device_pixels {budget:,}, 1 "
+        f"epoch: CLI wall {wall:.1f} s; {' | '.join(banded_lines)}; val MAE "
+        f"{trainer.val_history[0][1]:.4f} m; K3 launches {cli_k3}; wrote Model_best.npz")
+    return {"runs": result, "launches": {3: launches}}
+
+
 def _share_decisions(model, card: dict | None = None):
     """Forward hooks on ``model``'s max-pools and ReLUs.
 
@@ -2042,6 +2501,7 @@ def main(argv: list | None = None) -> int:
     flagship = phase_flagship(WORK_DIR, scene, model)
     phase_steady(scene, model["weights"])
     modes = phase_modes(scene, model["weights"])
+    streaming = phase_streaming(scene, model["weights"])
     phase_crop(WORK_DIR, scene, model["weights"])
     phase_modes_cli(WORK_DIR, scene, model)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -2055,27 +2515,34 @@ def main(argv: list | None = None) -> int:
     phase_train(WORK_DIR, train_scene)
     train_precisions = phase_train_precisions(train_scene)
     phase_train_balanced16_cli(WORK_DIR, train_scene)
+    streaming_cli = phase_streaming_cli(WORK_DIR, train_scene)
+    banded = phase_train_banded(WORK_DIR, train_scene, train_precisions["policies"])
     phase_train_vs_cpu(train_scene)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K1 and K2 with their launches on the CLI runs (phase 4) and the
+    # streamed scenes (phases streaming and streaming-cli).
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": replaces, "launches": flagship["launches"][key],
+         "replaces": replaces,
+         "launches": (flagship["launches"][key] + streaming["launches"][key]
+                      + streaming_cli["launches"][key]),
          **{f: kernels[key][f] for f in fields}}
         for key, (name, replaces) in KERNELS.items()]}
     # K3 once per float32 pass count, with its launches on the mode paths
-    # (phase modes) and the train steps (phase train-precisions), and its
-    # times and bound over one forward of each mode at that pass count
-    # (phase 6); bfloat16 K3 is on no path (the bf16 trunks run cuDNN): its
-    # launches are phase 6's, its times each shape's once.
+    # (phases modes and streaming) and the train steps (phases
+    # train-precisions and train-banded), and its times and bound over one
+    # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
+    # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
+    # times each shape's once.
     name, source, replaces = K3
     record["kernels"] += [
         {"name": (f"{name} (float32, {r['passes']} pass{'es' if r['passes'] > 1 else ''})"
                   if r["passes"] else f"{name} ({key})"),
          "route": "cuda", "source": source, "replaces": replaces,
-         "launches": (modes["launches"][r["passes"]]
-                      + train_precisions["launches"][r["passes"]]
+         "launches": (sum(phase["launches"].get(r["passes"], 0)
+                          for phase in (modes, train_precisions, streaming, banded))
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
         for key, r in convs.items()]

@@ -74,6 +74,16 @@ def device_put_dataset(ds: TileDataset, device,
     )
 
 
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """``array`` on ``device``. To CUDA through pinned memory, without
+    waiting: the copy queues behind the work already on the stream, and the
+    host goes on."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
+
+
 def batch_spec_for(ds: TileDataset, transform_dsm=True, transform_orthos=True,
                    augment=None) -> BatchSpec:
     return BatchSpec(

@@ -17,9 +17,11 @@ and linear ramps over the overlap bands.
 string serving modes (``models.unet.SERVING_PRECISION_MODES``), which keep
 f32 weights and run the UNet on the f32 batch at the mode's precisions.
 
-Not in this slice: the row-band streaming and scene-sharded paths
-(``predict_linear_blend_streaming``, ``predict_linear_blend_scene_sharded``,
-ROADMAP.md section 1 item 7).
+``predict_linear_blend_streaming`` refines a scene whose rasters exceed a
+device budget by full-width row bands, one band window on the device at a
+time (``data/banded.py::iter_bands``). Not in this slice: the scene-sharded
+path (``predict_linear_blend_scene_sharded``, bands over several devices;
+ROADMAP.md section 1 item 10).
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from resdepth_tpu_torch.data.banded import iter_bands, resident_pixels
 from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.data.pipeline import (BatchSpec, DeviceRasters,
                                               batch_spec_for, build_batch,
-                                              device_put_dataset)
+                                              device_put_dataset, to_device)
 from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
                                             apply_unet, fold_serving,
                                             serving_precision)
@@ -129,8 +132,12 @@ def _inference_spec(ds: TileDataset) -> BatchSpec:
 
 def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
                    wy, wx, shape, spec: BatchSpec, dsm_std, batch_size,
-                   compute_dtype, use_pallas, tta=1, tta_merge="mean"):
-    """Run the batch loop over one set of tiles into a (rows, cols) canvas.
+                   compute_dtype, use_pallas, tta=1, tta_merge="mean",
+                   canvas: torch.Tensor | None = None):
+    """Run the batch loop over one set of tiles into a (rows, cols) canvas,
+    a new zero one or ``canvas`` (on the rasters' device, added into in
+    place), in batches of ``batch_size`` tiles, the last padded
+    (``_pad_positions``).
 
     Returns the device canvas; on CUDA the work is still queued when this
     returns, so the caller can overlap the fetch with other work."""
@@ -145,26 +152,24 @@ def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
     tile = spec.tile_size
     stitch.check_positions(positions, tile, shape)
     n = len(positions)
-    # One device: cap the batch at the tile count (zero-weight padding is
-    # correct but wasted forward compute).
-    batch_size = max(1, min(batch_size, n))
     n_padded = -(-n // batch_size) * batch_size
     positions = _pad_positions(positions, n_padded, batch_size)
     pair_idx = _pad_round_up(pair_idx, n_padded)
     wy = _pad_round_up(wy, n_padded, 0.0)   # zero weights: padding adds nothing
     wx = _pad_round_up(wx, n_padded, 0.0)
 
-    pos_d = torch.from_numpy(positions.astype(np.int32)).to(device)
-    pair_d = torch.from_numpy(pair_idx.astype(np.int64)).to(device)
-    wy_d = torch.from_numpy(wy).to(device)
-    wx_d = torch.from_numpy(wx).to(device)
+    pos_d = to_device(positions.astype(np.int32), device)
+    pair_d = to_device(pair_idx.astype(np.int64), device)
+    wy_d = to_device(wy, device)
+    wx_d = to_device(wx, device)
 
     dtype, kwargs = _storage(compute_dtype)
 
     def run_model(x):
         return apply_unet(model, x.to(dtype), **kwargs)[..., 0].to(torch.float32)
 
-    canvas = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
+    if canvas is None:
+        canvas = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
     with torch.inference_mode():
         for start in range(0, n_padded, batch_size):
             sl = slice(start, start + batch_size)
@@ -204,6 +209,29 @@ def serving_model(model: UNet, device,
     return served.to(device=device, dtype=_storage(compute_dtype)[0])
 
 
+def _scene_batch(batch_size: int, ds: TileDataset) -> int:
+    """The scene's batch size: ``batch_size`` capped at its tile count (on
+    one device zero-weight padding past that is wasted forward compute)."""
+    return max(1, min(batch_size, len(ds.positions)))
+
+
+def _scene_model(model: UNet, device, compute_dtype, fold_bn: bool) -> tuple:
+    """``device`` with its index, and the module the scene loop runs:
+    ``serving_model``'s with ``fold_bn``, else ``model``, which must
+    already be on ``device`` in ``compute_dtype``'s storage dtype."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if fold_bn:
+        return device, serving_model(model, device, compute_dtype)
+    if (model.device != device
+            or model.last_layer.weight.dtype != _storage(compute_dtype)[0]):
+        raise ValueError(f"with fold_bn=False the model must already be on "
+                         f"{device} in {_storage(compute_dtype)[0]} for "
+                         f"{compute_dtype} (see serving_model)")
+    return device, model
+
+
 def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
                          batch_size: int = 64,
                          compute_dtype: torch.dtype | str = torch.float32,
@@ -239,16 +267,7 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     and merge the inverse-transformed predictions by ``tta_merge``
     ("mean" or "median").
     """
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if fold_bn:
-        model = serving_model(model, device, compute_dtype)
-    elif (model.device != device
-          or model.last_layer.weight.dtype != _storage(compute_dtype)[0]):
-        raise ValueError(f"with fold_bn=False the model must already be on "
-                         f"{device} in {_storage(compute_dtype)[0]} for "
-                         f"{compute_dtype} (see serving_model)")
+    device, model = _scene_model(model, device, compute_dtype, fold_bn)
     if rasters is None:
         rasters = device_put_dataset(ds, device)
     rasters = dataclasses.replace(rasters, dsm_target=None)
@@ -256,5 +275,115 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     wy, wx = blend.weight_table(ds.tile_size, ds.stride, ds.valid_bounds)
     out = _predict_tiles(model, rasters, ds.positions, ds.pair_indices, wy, wx,
                          ds.dsm_input.shape, _inference_spec(ds), ds.dsm_std,
-                         batch_size, compute_dtype, use_pallas, tta, tta_merge)
+                         _scene_batch(batch_size, ds), compute_dtype, use_pallas,
+                         tta, tta_merge)
     return out.cpu().numpy() if as_numpy else out
+
+
+def predict_linear_blend_streaming(model: UNet, ds: TileDataset, *, device,
+                                   max_device_pixels: int = 1 << 28,
+                                   batch_size: int = 64,
+                                   compute_dtype: torch.dtype | str = torch.float32,
+                                   use_pallas: bool | str | None = None,
+                                   fold_bn: bool = True, tta: int = 1,
+                                   tta_merge: str = "mean") -> np.ndarray:
+    """Refine a scene too large for the device budget by streaming row
+    bands; returns the blended refined DSM (rows, cols) on the host.
+
+    The stitch is additive, so the tile grid can be partitioned: the tiles
+    group into full-width row bands whose raster windows fit
+    ``max_device_pixels`` (raster pixels: the DSM and the ortho views), and
+    for each band the window is uploaded, its tiles are refined and
+    stitched into a band canvas on the device, and the canvas is fetched
+    into the host scene. On CUDA the next band's window goes up while this
+    band computes and its canvas comes down while the next computes, so at
+    most two bands' windows and canvases are on the device at a time. Every
+    band runs the resident scene's batch size (a band with
+    fewer tiles pads up to it): cuDNN may take another algorithm at another
+    batch size, which moves a tile's prediction (by 2 f32 ulps of the
+    heights in float32, 42 in ``balanced16``, at a batch of 93 against 128
+    on an H100). Each band pads its own last batch (``_pad_positions``), so
+    K2's launch box stays on that band's real tiles.
+
+    A band's canvas starts from the band above's canvas on the rows their
+    windows share (the band above holds every earlier band's sums there),
+    and replaces those rows of the host scene: each pixel adds its tiles in
+    the resident scene's order (the grid's, row-major), so with K2 or the
+    plain stitch the scene is bitwise the resident one. (The JAX package
+    adds zero-started band canvases into the scene, which regroups the sums
+    on the shared rows.)
+
+    The other arguments are ``predict_linear_blend``'s. Raises
+    ``ValueError`` when the budget cannot hold one tile-high band of the
+    full width (the JAX package takes that band anyway, over its budget).
+    """
+    device, model = _scene_model(model, device, compute_dtype, fold_bn)
+    tile = ds.tile_size
+    rows, cols = ds.dsm_input.shape
+    planes = resident_pixels(ds, include_target=False) // (rows * cols)
+    rows_budget = max_device_pixels // (cols * planes)
+    if rows_budget < tile:
+        raise ValueError(
+            f"max_device_pixels {max_device_pixels:,} cannot hold one "
+            f"{tile}-row band of the scene's full width: {tile} rows x "
+            f"{cols} columns x {planes} raster planes need "
+            f"{tile * cols * planes:,} pixels. Raise the budget or lower "
+            f"the tile size.")
+
+    spec = _inference_spec(ds)
+    batch_size = _scene_batch(batch_size, ds)
+    wy_all, wx_all = blend.weight_table(tile, ds.stride, ds.valid_bounds)
+    pairs = torch.as_tensor(ds.pairs_array, dtype=torch.int64, device=device)
+    out = np.zeros((rows, cols), np.float32)
+    above = fetching = None
+    for window, band_idx, band_positions in _iter_bands(ds, rows_budget):
+        band_rasters = DeviceRasters(
+            dsm_input=to_device(ds.dsm_input[window], device),
+            dsm_target=None,
+            orthos=(to_device(ds.orthos[window].transpose(2, 0, 1), device)
+                    if ds.orthos is not None else None),
+            pairs=pairs, nodata=float(ds.nodata))
+        canvas = torch.zeros((window.stop - window.start, cols),
+                             dtype=torch.float32, device=device)
+        if above is not None and above[0].stop > window.start:
+            canvas[:above[0].stop - window.start] = \
+                above[1][window.start - above[0].start:]
+        _predict_tiles(model, band_rasters, band_positions,
+                       ds.pair_indices[band_idx], wy_all[band_idx],
+                       wx_all[band_idx], canvas.shape, spec, ds.dsm_std,
+                       batch_size, compute_dtype, use_pallas, tta, tta_merge,
+                       canvas=canvas)
+        if fetching is not None:
+            _land(out, *fetching)
+        fetching = (window, *_fetch(canvas))
+        above = (window, canvas)
+        del band_rasters
+    if fetching is not None:
+        _land(out, *fetching)
+    return out
+
+
+def _fetch(canvas: torch.Tensor) -> tuple:
+    """Start copying ``canvas`` to the host: ``(host tensor, CUDA event or
+    None)``, the copy done once the event is."""
+    if canvas.device.type != "cuda":
+        return canvas, None
+    host = torch.empty(canvas.shape, dtype=canvas.dtype, pin_memory=True)
+    host.copy_(canvas, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _land(out: np.ndarray, window: slice, host: torch.Tensor, done) -> None:
+    """Write a fetched band canvas over its window's rows of ``out``."""
+    if done is not None:
+        done.synchronize()
+    out[window] = host.numpy()
+
+
+def _iter_bands(ds: TileDataset, rows_budget: int):
+    """The tile grid in full-width row bands of <= rows_budget rows
+    (``data/banded.py::iter_bands``): ``(window, band_idx,
+    band_positions)``, a tile in the band that holds its top row."""
+    yield from iter_bands(ds.positions, ds.tile_size, rows_budget)

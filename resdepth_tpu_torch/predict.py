@@ -13,9 +13,11 @@ The scene runs on one device (``--device``, default ``cuda``, which raises
 when CUDA is absent; there is no silent move to the CPU) at
 ``general.compute_dtype``: ``float32``, ``bfloat16`` or a string serving
 mode (``mixed``, ``fast32``, ``act2pass``, ``balanced``, ``balanced16``;
-``models.unet.serving_precision``). Not in this slice, each raising an error
-that names its ROADMAP.md item: scenes above ``MAX_DEVICE_PIXELS``
-(streaming and scene-sharded inference) and more than one GPU.
+``models.unet.serving_precision``). A scene whose rasters (the DSM and the
+ortho views) exceed ``MAX_DEVICE_PIXELS`` streams through full-width row
+bands, one band window on the device at a time
+(``infer.tiled.predict_linear_blend_streaming``). More than one GPU raises
+an error that names its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from resdepth_tpu_torch.data.pipeline import device_put_dataset
 from resdepth_tpu_torch.evaluation import (CLASS_TITLES, evaluate_performance,
                                            get_statistics, print_statistics)
 from resdepth_tpu_torch.geo import raster as raster_mod
-from resdepth_tpu_torch.infer.tiled import predict_linear_blend, serving_model
+from resdepth_tpu_torch.infer.tiled import (predict_linear_blend,
+                                            predict_linear_blend_streaming,
+                                            serving_model)
 from resdepth_tpu_torch.models import weights
 from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
                                             unet_config_from_settings)
@@ -50,7 +54,7 @@ from resdepth_tpu_torch.utils.logging import (add_console_logger, add_file_logge
 RESIDUAL_THRESHOLD = None
 
 # Scenes whose rasters exceed this many device pixels (DSM + ortho views)
-# would stream through row bands in the JAX package; not ported yet.
+# stream through row bands whose windows fit it, as in test.py.
 MAX_DEVICE_PIXELS = 1 << 30  # 4 GiB of f32
 
 parser = ArgumentParser(description="ResDepth on PyTorch: refine full DSM scenes "
@@ -252,26 +256,33 @@ def _run(cfg, cfg_orig, args, logger) -> None:
                 n_views = 0 if tile_ds.orthos is None else tile_ds.orthos.shape[2]
                 scene_pixels = tile_ds.dsm_input.size * (1 + n_views)
                 if scene_pixels > MAX_DEVICE_PIXELS:
-                    raise NotImplementedError(
-                        f"Scene of {scene_pixels / 2**20:.0f} Mpx exceeds the "
-                        f"device budget of {MAX_DEVICE_PIXELS / 2**20:.0f} Mpx: "
-                        "streaming and scene-sharded inference are ROADMAP.md "
-                        "section 1 item 7.")
-                if device_rasters is None:
-                    device_rasters = device_put_dataset(tile_ds, device)
-                pair_rasters = dataclasses.replace(
-                    device_rasters,
-                    pairs=torch.as_tensor(tile_ds.pairs_array, dtype=torch.int64,
-                                          device=device))
-                # Pipelining keeps the PREVIOUS pair's canvas on the device
-                # while THIS pair's accumulates: budget two canvases.
-                overlap = (scene_pixels + 2 * tile_ds.dsm_input.size
-                           <= MAX_DEVICE_PIXELS)
-                prediction = predict_linear_blend(
-                    model, tile_ds, device=device, batch_size=batch_size,
-                    compute_dtype=compute_dtype, rasters=pair_rasters,
-                    use_pallas=use_pallas, fold_bn=False,
-                    as_numpy=not overlap, tta=tta, tta_merge=tta_merge)
+                    # The resident rasters are never made for this scene:
+                    # they would undo the bound.
+                    logger.info(f"Scene of {scene_pixels / 2**20:.0f} Mpx exceeds "
+                                "device budget; streaming row bands.")
+                    prediction = predict_linear_blend_streaming(
+                        model, tile_ds, device=device,
+                        max_device_pixels=MAX_DEVICE_PIXELS,
+                        batch_size=batch_size, compute_dtype=compute_dtype,
+                        use_pallas=use_pallas, fold_bn=False, tta=tta,
+                        tta_merge=tta_merge)
+                else:
+                    if device_rasters is None:
+                        device_rasters = device_put_dataset(tile_ds, device)
+                    pair_rasters = dataclasses.replace(
+                        device_rasters,
+                        pairs=torch.as_tensor(tile_ds.pairs_array,
+                                              dtype=torch.int64, device=device))
+                    # Pipelining keeps the PREVIOUS pair's canvas on the
+                    # device while THIS pair's accumulates: budget two
+                    # canvases.
+                    overlap = (scene_pixels + 2 * tile_ds.dsm_input.size
+                               <= MAX_DEVICE_PIXELS)
+                    prediction = predict_linear_blend(
+                        model, tile_ds, device=device, batch_size=batch_size,
+                        compute_dtype=compute_dtype, rasters=pair_rasters,
+                        use_pallas=use_pallas, fold_bn=False,
+                        as_numpy=not overlap, tta=tta, tta_merge=tta_merge)
                 pair_tag = (f" ({folder})" if image_pair is not None else "")
                 job = (prediction, tile_ds, output_directory, pair_tag)
 

@@ -21,10 +21,12 @@ is visible). On one GPU ``tpu.use_pallas``, ``tpu.donate_state`` and
 groups the batch order as the JAX trainer does. ``tpu.train_precision``
 and ``tpu.compute_dtype`` take every value ``train.py`` takes
 (``train.step.select_train_precision``); validation runs the float32
-policy at the compute dtype. Not ported yet, each raising an error that
-names its ROADMAP.md item: banded residency (``tpu.max_device_pixels``
-below a region's size, item 7), multi-process and multi-slice runs (item
-10) and a profiler trace (``tpu.profile_dir``, item 11).
+policy at the compute dtype. A region whose rasters exceed
+``tpu.max_device_pixels`` trains with banded residency (``data/banded.py``:
+the rasters in host RAM, one window on the device at a time). Not ported
+yet, each raising an error that names its ROADMAP.md item: multi-process
+and multi-slice runs (item 10) and a profiler trace (``tpu.profile_dir``,
+item 11).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from resdepth_tpu_torch import orchestration
 from resdepth_tpu_torch.config import io as cfg_io
 from resdepth_tpu_torch.config import validate_train
 from resdepth_tpu_torch.config.defaults import default_cfg
-from resdepth_tpu_torch.data import control_files, normalization
+from resdepth_tpu_torch.data import banded, control_files, normalization
 from resdepth_tpu_torch.data.dataset import TileDataset
 from resdepth_tpu_torch.data.pipeline import (BatchIndexIterator, batch_spec_for,
                                               device_put_dataset)
@@ -68,16 +70,6 @@ parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device that trains (default: cuda)")
 
 _DIST_ENV = ("RESDEPTH_DIST_COORDINATOR", "RESDEPTH_DISTRIBUTED")
-
-
-def resident_pixels(ds: TileDataset) -> int:
-    """Raster pixels ``device_put_dataset(include_target=True)`` puts on the
-    device (``resdepth_tpu/data/banded.py::resident_pixels``)."""
-    rows, cols = ds.dsm_input.shape
-    planes = 1 + (ds.dsm_target is not None)
-    if ds.orthos is not None:
-        planes += ds.orthos.shape[2]
-    return planes * rows * cols
 
 
 def check_ported(cfg) -> None:
@@ -288,16 +280,32 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
         cfg_valdata, cfg, "val", dsm_std, images_mean, images_std, seed,
         True, False, False)
 
+    # ---------------------- device raster residency ------------------------ #
+    # Regions over tpu.max_device_pixels train with banded residency: host-RAM
+    # rasters, one window on the device at a time (docs/SCALING.md sizes the
+    # budget).
     max_device_pixels = int(cfg.tpu.get("max_device_pixels", 0) or 0)
-    resident_px = sum(resident_pixels(ds) for ds in train_datasets + val_datasets)
+    resident_px = sum(banded.resident_pixels(ds)
+                      for ds in train_datasets + val_datasets)
     logger.info(f"Device-resident raster estimate: {resident_px:,} px "
                 f"({resident_px * 4 / 2**30:.2f} GiB f32)")
-    if max_device_pixels and any(resident_pixels(ds) > max_device_pixels
-                                 for ds in train_datasets + val_datasets):
-        raise NotImplementedError(
-            f"A region exceeds tpu.max_device_pixels ({max_device_pixels:,}): "
-            "banded residency is ROADMAP.md section 1 item 7 (large scenes), "
-            "not ported yet. Unset the budget to keep every region resident.")
+    if max_device_pixels:
+        logger.info(f"tpu.max_device_pixels: {max_device_pixels:,} "
+                    f"({max_device_pixels * 4 / 2**30:.2f} GiB f32): regions "
+                    "over the budget use banded residency")
+    elif device.type == "cuda":
+        memory = torch.cuda.mem_get_info(device)[1]
+        if resident_px * 4 > memory // 2:
+            logger.warning(
+                f"Resident rasters ({resident_px * 4 / 2**30:.2f} GiB) exceed "
+                f"half of device memory ({memory / 2**30:.2f} GiB); set "
+                "tpu.max_device_pixels to train with banded residency "
+                "(docs/SCALING.md) if the run runs out of memory.")
+
+    def over_budget(ds) -> bool:
+        return bool(max_device_pixels) and banded.resident_pixels(ds) > max_device_pixels
+
+    banded_train = any(map(over_budget, train_datasets))
 
     # ----------------------- run artifacts / control files ----------------- #
     logger.info("\nPrepare output folders and files\n--------------------------------\n")
@@ -366,8 +374,9 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     batch_size = cfg.training_settings.batch_size
     # Sample weights enter the BatchNorm statistics only when a batch can
     # carry zero-weight padding (a region whose size the batch does not
-    # divide); with full batches the two are the same.
-    weighted_bn = any(len(ds) % batch_size != 0 for ds in train_datasets)
+    # divide, or a band's tail); with full batches the two are the same.
+    weighted_bn = (any(len(ds) % batch_size != 0 for ds in train_datasets)
+                   or banded_train)
     steps_per_call = cfg.tpu.get("steps_per_call", 1)
     train_step = make_train_step(batch_spec_for(train_datasets[0]),
                                  weighted_bn=weighted_bn,
@@ -378,11 +387,25 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     # training precision, as train.py validates.
     eval_step = make_eval_step(batch_spec_for(val_datasets[0]), compute_dtype)
 
-    def loaders(datasets, shuffle, seed_base):
-        return [(device_put_dataset(ds, device, include_target=True),
-                 BatchIndexIterator(ds, batch_size, shuffle=shuffle,
-                                    seed=seed_base + i))
-                for i, ds in enumerate(datasets)]
+    def loaders(datasets, shuffle, seed_base, label):
+        out = []
+        for i, ds in enumerate(datasets):
+            if over_budget(ds):
+                try:
+                    sub = banded.make_banded_loaders(
+                        ds, batch_size, max_device_pixels=max_device_pixels,
+                        seed=seed_base + i, device=device, shuffle=shuffle)
+                except ValueError as exc:
+                    logger.error(f"{label} region {i}: {exc}\n")
+                    sys.exit(1)
+                logger.info(f"{label} region {i}: {banded.resident_pixels(ds):,} "
+                            f"px > budget: banded residency, {len(sub)} bands")
+                out.extend(sub)
+            else:
+                out.append((device_put_dataset(ds, device, include_target=True),
+                            BatchIndexIterator(ds, batch_size, shuffle=shuffle,
+                                               seed=seed_base + i)))
+        return out
 
     hparams = {
         "batch_size": batch_size,
@@ -395,8 +418,8 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     trainer = Trainer(
         state=state, train_step=train_step, eval_step=eval_step,
         steps_per_call=steps_per_call,
-        train_loaders=loaders(train_datasets, True, seed + 1000),
-        val_loaders=loaders(val_datasets, False, 0),
+        train_loaders=loaders(train_datasets, True, seed + 1000, "train"),
+        val_loaders=loaders(val_datasets, False, 0, "val"),
         scheduler=scheduler, n_epochs=cfg.training_settings.n_epochs,
         evaluate_rate=cfg.general.evaluate_rate,
         save_model_rate=cfg.general.save_model_rate,
@@ -405,7 +428,9 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
         log_file=os.path.join(output_directory, "training.log"),
         tboard_log_dir=cfg.output.tboard_log_dir,
         metrics_jsonl=os.path.join(output_directory, "metrics.jsonl"),
-        hparams=hparams, rng_seed=seed)
+        hparams=hparams, rng_seed=seed,
+        # Each band's batches together: one window upload a band an epoch.
+        group_chunks_by_loader=banded_train)
 
     if resume_meta is not None:
         trainer.resume_from(resume_meta)

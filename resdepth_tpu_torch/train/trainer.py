@@ -16,7 +16,9 @@ As in the JAX package and the reference:
 Batch order is the JAX trainer's: each region's batches are grouped into
 ``steps_per_call`` chunks and the chunks shuffled by
 ``np.random.default_rng(rng_seed)``, so the same seed visits the same
-batches in the same order. Augmentation draws from a ``torch.Generator``
+batches in the same order. Under banded residency (``data/banded.py``) a
+loader is one raster window: ``group_chunks_by_loader`` keeps each
+loader's chunks together, so an epoch uploads each window once. Augmentation draws from a ``torch.Generator``
 on the device, seeded from ``(rng_seed, epoch)``, so a resumed run draws
 as an uninterrupted one would. Per-step metrics stay on the device until a
 logging point. One process, so this process writes every artifact.
@@ -72,9 +74,14 @@ class Trainer:
                  checkpoint_dir: str, log_file: str | None = None,
                  tboard_log_dir: str | None = None,
                  metrics_jsonl: str | None = None, hparams: dict | None = None,
-                 rng_seed: int = 0, logger: logging.Logger | None = None):
-        """``train_loaders`` / ``val_loaders``: lists of ``(DeviceRasters,
-        BatchIndexIterator)`` pairs, one per dataset region."""
+                 rng_seed: int = 0, logger: logging.Logger | None = None,
+                 group_chunks_by_loader: bool = False):
+        """``train_loaders`` / ``val_loaders``: lists of ``(rasters,
+        iterator)`` pairs, one per dataset region or raster window. Element
+        0 is ``DeviceRasters`` or a provider with ``resolve()`` and
+        ``release()`` (``data/banded.py``: ``BandWindow``, ``FullResident``),
+        resolved per chunk; element 1 yields index batches
+        (``BatchIndexIterator``)."""
         self.state = state
         self.train_step = train_step
         self.eval_step = eval_step
@@ -86,6 +93,7 @@ class Trainer:
         self.evaluate_rate = evaluate_rate
         self.save_model_rate = save_model_rate
         self.freq_average_train_loss = freq_average_train_loss
+        self.group_chunks_by_loader = group_chunks_by_loader
 
         fs.make_dir(checkpoint_dir)
         self.checkpoint_dir = checkpoint_dir
@@ -144,15 +152,35 @@ class Trainer:
 
     def _epoch_chunks(self, loaders):
         """Each loader's batches grouped into ``steps_per_call`` chunks,
-        then the chunks shuffled across loaders (the JAX trainer's order)."""
+        then the chunks shuffled across loaders (the JAX trainer's order).
+        With ``group_chunks_by_loader`` each loader's chunks stay
+        contiguous: the chunks within each loader, then the loaders, are
+        reshuffled each epoch."""
         k = self.steps_per_call
-        chunks = []
+        per_loader = []
         for loader_id, (_, iterator) in enumerate(loaders):
             batches = list(iterator)
-            chunks.extend((loader_id, batches[i:i + k])
-                          for i in range(0, len(batches), k))
+            per_loader.append([(loader_id, batches[i:i + k])
+                               for i in range(0, len(batches), k)])
+        if self.group_chunks_by_loader:
+            for chunks in per_loader:
+                self.epoch_rng.shuffle(chunks)
+            self.epoch_rng.shuffle(per_loader)
+            return [c for chunks in per_loader for c in chunks]
+        chunks = [c for loader_chunks in per_loader for c in loader_chunks]
         self.epoch_rng.shuffle(chunks)
         return chunks
+
+    @staticmethod
+    def _resolve(rasters):
+        """Loader element 0 as ``DeviceRasters``."""
+        return rasters.resolve() if hasattr(rasters, "resolve") else rasters
+
+    @staticmethod
+    def _release(loaders) -> None:
+        for rasters, _ in loaders:
+            if hasattr(rasters, "release"):
+                rasters.release()
 
     @staticmethod
     def _drain(pending, meter: AverageMeter) -> None:
@@ -168,7 +196,7 @@ class Trainer:
         generators = {}
         c_iter = -1
         for loader_id, chunk in chunks:
-            rasters = self.train_loaders[loader_id][0]
+            rasters = self._resolve(self.train_loaders[loader_id][0])
             device = rasters.dsm_input.device
             if device not in generators:
                 generators[device] = torch.Generator(device=device).manual_seed(
@@ -197,7 +225,11 @@ class Trainer:
         meter = AverageMeter()
         model = self.state.serve_model()
         sums, counts = [], []
-        for rasters, iterator in self.val_loaders:
+        # Banded residency: the train window goes before the val windows
+        # come, so the budget is never held twice.
+        self._release(self.train_loaders)
+        for provider, iterator in self.val_loaders:
+            rasters = self._resolve(provider)
             for positions, pair_idx, bounds, weights in iterator:
                 num, den = self.eval_step(model, rasters, positions, pair_idx,
                                           bounds, weights)
@@ -209,6 +241,7 @@ class Trainer:
                 if den > 0:
                     meter.update(float(num) / float(den))
         loss = meter.avg if meter.count else math.inf
+        self._release(self.val_loaders)
         self.val_history.append((epoch, loss))
         self.writer.add_scalar("val/MAE_metric", loss, epoch)
         self.writer.add_scalar("val/learning_rate", self.state.lr, epoch)
@@ -260,3 +293,5 @@ class Trainer:
         self.writer.close()
         self._save(self.path_model_last, epoch)
         self._checkpointer.wait()  # Model_last exists when train() returns
+        self._release(self.train_loaders)
+        self._release(self.val_loaders)

@@ -300,12 +300,22 @@ def test_cli_preset_matches_library_call(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Above ``MAX_DEVICE_PIXELS`` (lowered to 64 x 64 px: 7 row bands of the
+    64^2 scene's 3 raster planes) the CLI streams row bands and writes the
+    resident run's raster, bitwise."""
     scene, _, model = _small_artifacts(str(tmp_path))
-    cfg = chip_smoke.write_config(str(tmp_path / "cfg.json"), scene["paths"], model,
-                                  str(tmp_path / "eval"), tile_size=TILE)
-    monkeypatch.setattr(predict, "MAX_DEVICE_PIXELS", 64 * 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 7"):
+    rasters = {}
+    for name, budget in (("resident", predict.MAX_DEVICE_PIXELS), ("streamed", 64 * 64)):
+        out_dir = str(tmp_path / name)
+        cfg = chip_smoke.write_config(str(tmp_path / f"{name}.json"), scene["paths"],
+                                      model, out_dir, tile_size=TILE)
+        monkeypatch.setattr(predict, "MAX_DEVICE_PIXELS", budget)
         predict.main([cfg, "--device", "cpu"])
+        with open(os.path.join(out_dir, "run.log")) as f:
+            assert ("streaming row bands" in f.read()) == (name == "streamed")
+        rasters[name] = open_raster(chip_smoke.output_paths(out_dir)["prediction"]).band(1)
+    assert np.isfinite(rasters["streamed"]).all()
+    np.testing.assert_array_equal(rasters["streamed"], rasters["resident"])
 
     assert predict.select_compute_dtype("bfloat16", torch.device("cpu")) is torch.bfloat16
     assert predict.select_compute_dtype(None, torch.device("cpu")) is torch.float32

@@ -15,7 +15,8 @@
   port's ``Model_best.npz`` serves through ``python -m
   resdepth_tpu_torch.predict`` and ``test.py``.
 * Knobs the port does not run yet raise, naming their ROADMAP.md item
-  (the training precisions are ``test_torch_train_precision.py``'s).
+  (the training precisions are ``test_torch_train_precision.py``'s);
+  ``tpu.max_device_pixels`` trains with banded residency.
 
 Tolerances (f32 on the CPU; the two frameworks sum in different orders):
 the metric and BN statistics rtol 1e-5; weights after a step rtol 1e-5 and
@@ -28,6 +29,7 @@ weights within 1e-4 relative L2 per tensor after 12 Adam steps.
 
 import json
 import os
+import re
 import sys
 
 import jax
@@ -416,13 +418,31 @@ def test_port_checkpoint_serves_in_both_clis(e2e_runs, monkeypatch):
     (dict(tpu={"distributed": True}), "item 10"),
     (dict(tpu={"dcn_slices": 2}), "item 10"),
     (dict(tpu={"profile_dir": "trace"}), "item 11"),
-    (dict(tpu={"max_device_pixels": 2048}), "item 7")],
+    (dict(tpu={"max_device_pixels": 2048}), None)],
     ids=["distributed", "dcn_slices", "profile_dir", "max_device_pixels"])
 def test_not_ported_knobs_raise(e2e_runs, tmp_path, overrides, item):
-    config = _e2e_config(str(tmp_path), e2e_runs["scene"], str(tmp_path / "runs"),
-                         None, **overrides)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1 {item}"):
-        cli.main([config, "--device", "cpu"])
+    """Knobs not ported yet raise, naming their ROADMAP.md item; under
+    ``tpu.max_device_pixels`` (item 7, ported) every region over the budget
+    trains with banded residency and the run writes its checkpoints."""
+    root = str(tmp_path / "runs")
+    config = _e2e_config(str(tmp_path), e2e_runs["scene"], root, None, **overrides)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1 {item}"):
+            cli.main([config, "--device", "cpu"])
+        return
+    trainer = cli.main([config, "--device", "cpu"])
+    run = chip_smoke.run_dir_of(root, "e2e")
+    with open(os.path.join(run, "run.log")) as f:
+        log = f.read()
+    bands = [int(n) for n in re.findall(r"banded residency, (\d+) bands", log)]
+    assert re.search(r"train region 0: [\d,]+ px > budget", log) and min(bands) > 1
+    assert trainer.group_chunks_by_loader
+    assert len(trainer.train_loaders) == bands[0]
+    assert all(p.source._resident is None for p, _ in trainer.train_loaders)
+    for name in ("Model_best.npz", "Model_last.npz"):
+        assert os.path.exists(os.path.join(run, "checkpoints", name))
+    assert [e for e, _ in trainer.val_history] == [0, 1]
+    assert np.isfinite([v for _, v in trainer.val_history]).all()
 
 
 def test_device_is_checked_before_training(e2e_runs, tmp_path, monkeypatch):
