@@ -81,7 +81,16 @@ found:
      gradients, BatchNorm statistics and Adam moments within 1e-4 relative
      per tensor for float32 'high'; for the policies that round operands to
      bf16, their BatchNorm statistics within a share of their own gap to
-     the float32 step (``TRAIN_ROUNDED_SHARE``).
+     the float32 step (``TRAIN_ROUNDED_SHARE``);
+  9. data parallelism (``parallel/``: one process per GPU): "dp-nccl-1"
+     runs the train CLI (an epoch, 'balanced16') and the inference CLI in a
+     world of one process over NCCL that ``RESDEPTH_DIST_*`` forms, each
+     bitwise its run without a process group; "dp-2-on-1" starts two
+     processes of ``chip_smoke.py --dp-rank PLAN`` that share the card over
+     gloo: 5 flagship train steps at batch 20 (10 a rank) at 'high' and
+     'balanced16' against one process (``_hold_dp_training``), the 4096^2
+     scene tile-sharded with K1, K2 and K3 in both ranks, and scene-sharded
+     against the streamed scene.
 
 ``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
 kernels' times over the scene's batches alone, and prints no result line:
@@ -2006,7 +2015,7 @@ def phase_train_precisions(scene: dict) -> dict:
     return {"policies": result, "launches": launches, "checks": checks}
 
 
-def _train_k3_checks(shapes: dict) -> list:
+def _train_k3_checks(shapes: dict, phase: str = "train-precisions") -> list:
     """K3 against its plain version (``conv3x3_bias_act_plain``) at each
     call shape the train steps recorded (``(x shape, kernel shape,
     passes)``, with their calls a step by policy), activation none and no
@@ -2047,8 +2056,10 @@ def _train_k3_checks(shapes: dict) -> list:
                      "bound_ms": bound, "bound_by": bound_by})
         del x, kernel, got, want
     torch.cuda.empty_cache()
-    log("train-precisions", "K3 at the train steps' call shapes (forward and dx, "
-        "batch 20) against its plain version, CUDA events (5 launches, 2 turns): "
+    batches = sorted({x_shape[0] for x_shape, _, _ in shapes})
+    log(phase, f"K3 at the train steps' call shapes (forward and dx, batch "
+        f"{', '.join(map(str, batches))}) against its plain version, CUDA events (5 "
+        "launches, 2 turns): "
         + "; ".join(f"{r['shape']} (calls a step {r['calls']}): max |diff| {r['err']:.3g} "
                     f"(bar {r['bar']:.3g}), K3 {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, "
                     f"library {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} "
@@ -2462,6 +2473,578 @@ def phase_train_vs_cpu(scene: dict) -> dict:
     return result
 
 
+# Phases "dp-nccl-1" and "dp-2-on-1": data parallelism (``parallel/``: one
+# process per GPU over torch.distributed). One card cannot hold a world of
+# several cards over NCCL: "dp-nccl-1" runs the CLIs in a world of one
+# process over NCCL (every collective a copy), "dp-2-on-1" two ranks that
+# share the card over gloo (passed by argument), with K1, K2 and K3 in both.
+DP_RANKS = 2
+DP_STEPS = 5
+DP_WARMUP = 2
+DP_POLICIES = ("high", "balanced16")
+DP_LR = 2e-4
+DP_TIMEOUT = 900                 # seconds the ranks' processes may take
+DP_COLLECTIVE_TIMEOUT = 300      # seconds a rank's collective waits for its peer
+# Ranks against one process. The metric at the bars of
+# tests/test_torch_parallel.py (float32 rtol 2e-4, balanced16 5e-3). The
+# weights and running statistics at those bars (float32 rtol 1e-3, atol
+# 2e-5; balanced16 rtol 5e-3, atol 1e-4), or, where they miss them, no
+# further than DP_CONTROL times the control's miss: one process on the same
+# batches with each batch's samples reversed, the same sums grouped
+# otherwise. On the card the control misses the CPU tests' bars itself
+# (float32 weights by 4.9e-4, statistics by 4.8e-3 after 5 steps, on an
+# NVIDIA H100 80GB HBM3, 700.00 W): batch 20 and batch 10 round
+# differently, and Adam turns a near-zero gradient's rounding into a step of
+# lr. The first step's gradients (before Adam): relative L2 within
+# DP_CONTROL times the control's; the weight updates too, or (balanced16)
+# within the CPU tests' 0.1.
+DP_BARS = {"high": dict(metric=2e-4, rtol=1e-3, atol=2e-5, update=0.0),
+           "balanced16": dict(metric=5e-3, rtol=5e-3, atol=1e-4, update=0.1)}
+DP_CONTROL = 2
+# The scene-sharded scene on the rows two bands share, against the streamed
+# one (whose band canvases start from the band above's sums): f32 ulps of
+# the largest height.
+DP_SEAM_ULPS = 2
+
+
+@contextlib.contextmanager
+def _world_of_one():
+    """``RESDEPTH_DIST_*`` for a world of one process at a free localhost
+    port while the block runs; the process group the CLIs' bootstrap forms
+    is destroyed after it."""
+    import torch.distributed as dist
+
+    from resdepth_tpu_torch.parallel import bootstrap
+
+    names = ("RESDEPTH_DIST_COORDINATOR", "RESDEPTH_DIST_NUM_PROCESSES",
+             "RESDEPTH_DIST_PROCESS_ID")
+    saved = {name: os.environ.get(name) for name in names}
+    os.environ.update(zip(names, (f"localhost:{bootstrap.free_port()}", "1", "0")))
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def _same_trees(a: dict, b: dict) -> bool:
+    from resdepth_tpu_torch.models.weights import flatten_keystr
+
+    a, b = flatten_keystr(a), flatten_keystr(b)
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def phase_dp_nccl_1(work: str, scene: dict) -> dict:
+    """The train CLI for one epoch at 'balanced16' (deterministic cuDNN),
+    then the inference CLI (float32, K2) serving its ``Model_best.npz`` on
+    the 2048^2 scene, each without a process group and in a world of one
+    process over NCCL that the CLIs' bootstrap forms from
+    ``RESDEPTH_DIST_*`` (``_world_of_one``). Every collective runs, as a
+    copy, so each world run must be bitwise its twin: the weights, running
+    statistics and Adam moments of ``Model_last.npz``, the val MAE, the
+    refined raster. The counters are zeroed just before each world run and
+    read just after: K3 3 launches a step at 3 passes, K2 one a batch."""
+    import torch.distributed as dist
+
+    from resdepth_tpu_torch import train
+    from resdepth_tpu_torch.ops import conv, stitch
+    from resdepth_tpu_torch.train import checkpoint as ckpt_io
+
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("alone", "world"):
+            out_root = os.path.join(work, f"runs_dp_{name}")
+            config = write_train_config(
+                os.path.join(work, f"train_dp_{name}.json"), scene["paths"], out_root,
+                suffix="dp", n_samples=TRAIN_SAMPLES,
+                training={"tile_size": TILE, "batch_size": TRAIN_BATCH, "augment": True,
+                          "n_epochs": 1},
+                optimizer={"name": "Adam", "learning_rate": DP_LR, "weight_decay": 1e-5},
+                scheduler={"enabled": True, "name": "StepLR",
+                           "settings": {"step_size": 2, "gamma": 0.5}},
+                general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
+                tpu={"train_precision": "balanced16"})
+            for key in conv.LAUNCHES:
+                conv.LAUNCHES[key] = 0
+            start = time.perf_counter()
+            with _world_of_one() if name == "world" else contextlib.nullcontext():
+                trainer = train.main([config, "--device", "cuda"])
+                group = ((dist.get_world_size(), dist.get_backend())
+                         if dist.is_initialized() else None)
+            runs[name] = {"wall": time.perf_counter() - start, "group": group,
+                          "k3": dict(conv.LAUNCHES), "val": list(trainer.val_history),
+                          "run": run_dir_of(out_root, "dp")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    alone, world = runs["alone"], runs["world"]
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    want_k3 = k3_launches_a_step("balanced16")[3] * steps
+    last = {name: ckpt_io.load_checkpoint(os.path.join(r["run"], "checkpoints",
+                                                       "Model_last.npz"))
+            for name, r in runs.items()}
+    same = {tree: _same_trees(last["alone"][tree], last["world"][tree])
+            for tree in ("params", "bn_state")}
+    same["adam"] = all(_same_trees(a, b) for a, b in zip(last["alone"]["adam"][:2],
+                                                        last["world"]["adam"][:2]))
+    if (alone["group"] is not None or world["group"] != (1, "nccl")
+            or world["k3"]["k3_p3"] != want_k3 or world["k3"]["k3"] != want_k3
+            or world["val"] != alone["val"] or not all(same.values())):
+        raise AssertionError(
+            f"dp-nccl-1 train CLI: groups {alone['group']} / {world['group']}, K3 in the "
+            f"world run {world['k3']} (expected {want_k3} at 3 passes), val "
+            f"{alone['val']} / {world['val']}, bitwise {same}")
+
+    served = {}
+    for name in ("alone", "world"):
+        out_dir = os.path.join(work, f"eval_dp_{name}")
+        cfg = write_config(os.path.join(work, f"serve_dp_{name}.json"), scene["paths"],
+                           serving_model_artifacts(alone["run"]), out_dir, tile_size=TILE,
+                           batch_size=BATCH, use_pallas="fused")
+        for key in stitch.LAUNCHES:
+            stitch.LAUNCHES[key] = 0
+        with _world_of_one() if name == "world" else contextlib.nullcontext():
+            wall = run_cli(cfg, "cuda")
+        with open(os.path.join(out_dir, "run.log")) as f:
+            mesh_line = "Inference mesh: {'data': 1}" in f.read()
+        served[name] = {"wall": wall, "k2": stitch.LAUNCHES["k2"], "mesh_line": mesh_line,
+                        "raster": _check_outputs(out_dir, (TRAIN_SCENE, TRAIN_SCENE))}
+    n_batches = -(-((TRAIN_SCENE - TILE) // (TILE // 2) + 1) ** 2 // BATCH)
+    if (not np.array_equal(served["world"]["raster"], served["alone"]["raster"])
+            or served["world"]["k2"] != n_batches or not served["world"]["mesh_line"]
+            or served["alone"]["mesh_line"]):
+        diff = float(np.abs(served["world"]["raster"] - served["alone"]["raster"]).max())
+        raise AssertionError(f"dp-nccl-1 predict CLI: the world run's raster differs by "
+                             f"{diff} m, K2 {served['world']['k2']} (expected "
+                             f"{n_batches}), mesh logged "
+                             f"{served['world']['mesh_line']} / {served['alone']['mesh_line']}")
+    log("dp-nccl-1", f"RESDEPTH_DIST_* world of 1 process over NCCL formed by the CLIs' "
+        f"bootstrap, against no process group: train CLI, balanced16, 1 epoch of {steps} "
+        f"steps, deterministic cuDNN: walls {alone['wall']:.1f} s alone, "
+        f"{world['wall']:.1f} s in the world; Model_last.npz weights, running statistics "
+        f"and Adam moments bitwise, val MAE {world['val'][0][1]:.6f} m both; K3 "
+        f"{world['k3']['k3_p3']} launches at 3 passes; predict CLI float32 K2 on the "
+        f"{TRAIN_SCENE}^2 scene: walls {served['alone']['wall']:.2f} s alone, "
+        f"{served['world']['wall']:.2f} s in the world, raster bitwise, K2 "
+        f"{served['world']['k2']} launches")
+    return {"launches": {"k2": served["world"]["k2"], 3: world["k3"]["k3_p3"]}}
+
+
+def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> dict:
+    """``DP_STEPS`` steps of ``make_train_step`` on the flagship at batch
+    ``TRAIN_BATCH`` (this rank's share under ``group``) of the 2048^2 scene,
+    augmentation off, BatchNorm unweighted as the train CLI runs full
+    batches, from the seeded weights. The K3 counters are zeroed just
+    before the steps and read just after; K3's call shapes are recorded,
+    and the first step's gradients (summed over the group). ``reverse``
+    hands each batch's samples in reverse order: the same sums, grouped
+    otherwise."""
+    from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
+    from resdepth_tpu_torch.models.unet import flagship_config, init_unet
+    from resdepth_tpu_torch.ops import conv
+    from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
+                                               select_train_precision)
+
+    ds = _train_dataset(scene, TRAIN_SCENE, TILE, TRAIN_BATCH * DP_STEPS)
+    rasters = device_put_dataset(ds, device, include_target=True)
+    kwargs, dtype = select_train_precision(*TRAIN_POLICIES[policy], device)
+    model = init_unet(flagship_config("geom-stereo"), torch.Generator().manual_seed(SEED),
+                      device)
+    state = init_train_state(model, "Adam", DP_LR, 1e-5)
+    step = make_train_step(batch_spec_for(ds, augment=False), weighted_bn=False,
+                           compute_dtype=dtype, group=group, **kwargs)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    events, metrics = [], []
+    torch.cuda.synchronize()
+    for key in conv.LAUNCHES:
+        conv.LAUNCHES[key] = 0
+    order = slice(None, None, -1 if reverse else 1)
+    grads = None
+    with _recorded_k3_calls() as calls:
+        for i in range(0, TRAIN_BATCH * DP_STEPS, TRAIN_BATCH):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics.append(step(state, rasters,
+                                np.ascontiguousarray(ds.positions[i:i + TRAIN_BATCH][order]),
+                                np.ascontiguousarray(ds.pair_indices[i:i + TRAIN_BATCH][order]),
+                                np.zeros((TRAIN_BATCH, 4), np.int32),
+                                np.ones(TRAIN_BATCH, np.float32), generator))
+            end.record()
+            events.append((start, end))
+            if grads is None:
+                grads = {name: p.grad.detach().cpu().clone()
+                         for name, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    return {"metrics": [float(m) for m in metrics], "k3": dict(conv.LAUNCHES),
+            "step_ms": [s.elapsed_time(e) for s, e in events],
+            "calls": calls[:len(calls) // DP_STEPS], "grads": grads,
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+
+def dp_serve(plan: dict, device, group) -> dict:
+    """The 4096^2 scene tile-sharded over ``group`` (``predict_linear_blend``)
+    in each of ``STREAM_RUNS`` (float32 with K2 and K1, balanced16 with K2),
+    and scene-sharded (``predict_linear_blend_scene_sharded``, float32, K2)
+    under ``STREAM_BUDGET``: each scene, this rank's launches by kernel
+    (counters zeroed just before the counted run and read just after) and
+    the host-clock seconds of the counted run and one more."""
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import (predict_linear_blend,
+                                                predict_linear_blend_scene_sharded,
+                                                serving_model)
+    from resdepth_tpu_torch.models import weights
+    from resdepth_tpu_torch.models.unet import UNet, flagship_config
+    from resdepth_tpu_torch.ops import conv, stitch
+
+    scene = plan["scene"]
+    ds = _tile_dataset(scene["paths"], SCENE_SIZE, scene["image_mean"], scene["image_std"])
+    config = flagship_config("geom-stereo")
+    base = UNet(config)
+    base.load_state_dict(weights.load_state_dict(plan["model_weights"], config))
+    out = {}
+
+    def counted(name, fn):
+        for counters in (stitch.LAUNCHES, conv.LAUNCHES):
+            for key in counters:
+                counters[key] = 0
+        walls, launches = [], None
+        for _ in range(2):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            got = fn()
+            if isinstance(got, torch.Tensor):
+                got = got.cpu().numpy()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            if launches is None:
+                launches = {**stitch.LAUNCHES, "k3_p3": conv.LAUNCHES["k3_p3"],
+                            "k3": conv.LAUNCHES["k3"]}
+        out[name] = {"scene": None if got is None else torch.from_numpy(got),
+                     "launches": launches, "walls": walls}
+
+    for dtype_name, use_pallas in STREAM_RUNS:
+        dtype = predict.select_compute_dtype(dtype_name, device)
+        served = serving_model(base, device, dtype)
+        rasters = device_put_dataset(ds, device)
+        kwargs = dict(device=device, batch_size=BATCH, compute_dtype=dtype,
+                      use_pallas=use_pallas, fold_bn=False, group=group)
+        counted(f"tiled-{dtype_name}-{'k2' if use_pallas else 'k1'}",
+                lambda: predict_linear_blend(served, ds, rasters=rasters, as_numpy=False,
+                                             **kwargs))
+        del rasters
+        if (dtype_name, use_pallas) == ("float32", "fused"):
+            counted("sharded", lambda: predict_linear_blend_scene_sharded(
+                served, ds, max_device_pixels=STREAM_BUDGET, **kwargs))
+        del served
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(plan_path: str) -> int:
+    """One rank of phase dp-2-on-1 (``--dp-rank``): joins the gloo group on
+    the card through ``RESDEPTH_DIST_*`` with ``backend="gloo"``, runs
+    ``dp_train`` at each of ``DP_POLICIES`` (deterministic cuDNN) and
+    ``dp_serve``, and writes what it found to ``<out>.r<rank>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from resdepth_tpu_torch.parallel import bootstrap, mesh
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    if not bootstrap.maybe_initialize_distributed(
+            device="cuda", backend="gloo",
+            timeout=datetime.timedelta(seconds=DP_COLLECTIVE_TIMEOUT)):
+        raise RuntimeError("--dp-rank needs RESDEPTH_DIST_*")
+    group = mesh.data_mesh()
+    rank = mesh.rank(group)
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "world": mesh.size(group), "backend": dist.get_backend(group),
+           "device": str(device), "train": {}}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for policy in DP_POLICIES:
+            out["train"][policy] = dp_train(policy, plan["train_scene"], device, group)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["serve"] = dp_serve(plan, device, group)
+    torch.save(out, f"{plan['out']}.r{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(plan_path: str, work: str) -> list:
+    """``DP_RANKS`` processes of ``chip_smoke.py --dp-rank`` joined through
+    ``RESDEPTH_DIST_*`` at a free localhost port, on the one card; their
+    output goes to files beside the plan. A rank that fails, or ranks that
+    outlast ``DP_TIMEOUT``, stop the others and raise."""
+    from resdepth_tpu_torch.parallel import bootstrap
+
+    coordinator = f"localhost:{bootstrap.free_port()}"
+    procs, logs = [], []
+    try:
+        for rank in range(DP_RANKS):
+            env = {**os.environ, "RESDEPTH_DIST_COORDINATOR": coordinator,
+                   "RESDEPTH_DIST_NUM_PROCESSES": str(DP_RANKS),
+                   "RESDEPTH_DIST_PROCESS_ID": str(rank)}
+            env.pop("RESDEPTH_DISTRIBUTED", None)
+            logs.append(open(os.path.join(work, f"dp_rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", plan_path],
+                env=env, cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_TIMEOUT
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tails = []
+            for rank in failed:
+                logs[rank].seek(0)
+                tails.append(f"rank {rank} (exit {procs[rank].returncode}):\n"
+                             + logs[rank].read()[-4000:])
+            raise AssertionError("dp-2-on-1: " + "\n".join(tails))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    return [torch.load(f"{os.path.join(work, 'dp')}.r{r}.pt", weights_only=False)
+            for r in range(DP_RANKS)]
+
+
+def _dp_gaps(got: dict, alone: dict, start: dict, bar: dict) -> dict:
+    """How far a run (``dp_train``'s result) lies from one process: the
+    metric's largest relative gap, the worst excess over ``bar``'s atol +
+    rtol |want| among the running statistics and the weights (with the
+    tensor that sets it), the weights' largest |diff|, the relative L2 of
+    the weight updates and of the first step's gradients (all, and the
+    worst tensor's)."""
+    stats = [k for k in alone["state"] if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in alone["state"] if k not in stats
+              and not k.endswith("num_batches_tracked")]
+
+    def excess(keys):   # the worst |diff| over atol + rtol |want|, per element
+        worst = {k: float(((got["state"][k] - alone["state"][k]).abs() - bar["atol"]
+                           - bar["rtol"] * alone["state"][k].abs()).max()) for k in keys}
+        key = max(worst, key=worst.get)
+        return worst[key], key
+
+    def flat(tensors, keys, origin=None):
+        return torch.cat([(tensors[k] - (0 if origin is None else origin[k])).double().ravel()
+                          for k in keys])
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    gaps = {"metric": max(abs(a / b - 1) for a, b in zip(got["metrics"], alone["metrics"]))}
+    gaps["stats_excess"], gaps["stats_worst"] = excess(stats)
+    gaps["params_excess"], gaps["params_worst"] = excess(params)
+    gaps["max_abs"] = max(float((got["state"][k] - alone["state"][k]).abs().max())
+                          for k in params)
+    gaps["update_rel_l2"] = rel(flat(got["state"], params, start),
+                                flat(alone["state"], params, start))
+    names = list(alone["grads"])
+    gaps["grad_rel_l2"] = rel(flat(got["grads"], names), flat(alone["grads"], names))
+    worst = {k: rel(got["grads"][k].double(), alone["grads"][k].double()) for k in names}
+    gaps["grad_worst"] = max(worst, key=worst.get)
+    gaps["grad_worst_rel_l2"] = worst[gaps["grad_worst"]]
+    return gaps
+
+
+def _hold_dp_training(policy: str, ranks: list, alone: dict, control: dict,
+                      start: dict) -> tuple:
+    """The ranks' first-step gradients, and their weights and running
+    statistics after ``DP_STEPS`` steps, against one process at ``DP_BARS``
+    or within ``DP_CONTROL`` times ``control``'s gaps (one process with each
+    batch reversed) -> ``(gaps, control's gaps, failure or None)``."""
+    bar = DP_BARS[policy]
+    got = ranks[0]["train"][policy]
+    for other in ranks[1:]:
+        theirs = other["train"][policy]
+        if theirs["metrics"] != got["metrics"] or not all(
+                torch.equal(v, got["state"][k]) for k, v in theirs["state"].items()):
+            return {}, {}, f"dp-2-on-1 {policy}: the ranks' weights differ"
+    gaps, floor = _dp_gaps(got, alone, start, bar), _dp_gaps(control, alone, start, bar)
+    over = [k for k in ("stats_excess", "params_excess")
+            if gaps[k] > max(0.0, DP_CONTROL * floor[k])]
+    if gaps["grad_rel_l2"] > DP_CONTROL * floor["grad_rel_l2"]:
+        over.append("grad_rel_l2")
+    if gaps["update_rel_l2"] > max(bar["update"], DP_CONTROL * floor["update_rel_l2"]):
+        over.append("update_rel_l2")
+    if gaps["metric"] > bar["metric"]:
+        over.append("metric")
+    failure = (f"dp-2-on-1 {policy}: 2 ranks against one process {gaps} over the bars at "
+               f"{over} (bars {bar}, or {DP_CONTROL} x one process with each batch "
+               f"reversed: {floor})") if over else None
+    return gaps, floor, failure
+
+
+def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
+                    device=None) -> dict:
+    """Two ranks on the one card over gloo (``dp_rank``), against this
+    process alone on the same card:
+
+    * training: ``dp_train`` at float32 'high' and 'balanced16', batch 20
+      (10 a rank), deterministic cuDNN; the ranks' weights bitwise each
+      other's and held to one process at batch 20 (``_hold_dp_training``:
+      the CPU tests' bars, or twice as far as one process with each batch
+      reversed); K3 3 launches a step a rank at balanced16; K3 against its
+      plain version at the ranks' call shapes (batch 10);
+    * serving: the 4096^2 scene tile-sharded in each of ``STREAM_RUNS``,
+      every rank holding the scene, within K1's bar (``k1_ulps(4)``) of the
+      resident K2 scene of its dtype;
+    * scene sharding: under ``STREAM_BUDGET`` (5 bands, 3 waves of 2 ranks),
+      the chief's scene bitwise the streamed K2 scene off the seam rows and
+      within ``DP_SEAM_ULPS`` on them; the other rank returns None.
+
+    Every check runs and logs before the first failure raises. Times: each rank's step ms and scene seconds. Two ranks share one card,
+    so they are no speeds of training or serving on two cards. ``device``
+    is this process's (default: the card)."""
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.infer.tiled import (predict_linear_blend,
+                                                predict_linear_blend_streaming,
+                                                serving_model)
+    from resdepth_tpu_torch.models import weights
+    from resdepth_tpu_torch.models.unet import UNet, flagship_config, init_unet
+
+    device = device or torch.device("cuda", 0)
+    config = flagship_config("geom-stereo")
+    alone, control = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for policy in DP_POLICIES:
+            alone[policy] = dp_train(policy, train_scene, device, None)
+            control[policy] = dp_train(policy, train_scene, device, None, reverse=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    start = init_unet(config, torch.Generator().manual_seed(SEED)).state_dict()
+    ds = _tile_dataset(scene["paths"], SCENE_SIZE, scene["image_mean"], scene["image_std"])
+    base = UNet(config)
+    base.load_state_dict(weights.load_state_dict(model["weights"], config))
+    resident = {}
+    for dtype_name in ("float32", "balanced16"):
+        dtype = predict.select_compute_dtype(dtype_name, device)
+        served = serving_model(base, device, dtype)
+        kwargs = dict(device=device, batch_size=BATCH, compute_dtype=dtype,
+                      use_pallas="fused", fold_bn=False)
+        resident[dtype_name] = predict_linear_blend(served, ds, **kwargs)
+        if dtype_name == "float32":
+            streamed = predict_linear_blend_streaming(
+                served, ds, max_device_pixels=STREAM_BUDGET, **kwargs)
+        del served
+    for r in (*alone.values(), *control.values()):
+        r.pop("calls")
+    torch.cuda.empty_cache()
+
+    plan = os.path.join(work, "dp_plan.json")
+    with open(plan, "w") as f:
+        json.dump({"scene": scene, "train_scene": train_scene,
+                   "model_weights": model["weights"], "out": os.path.join(work, "dp")}, f)
+    begin = time.perf_counter()
+    ranks = _run_ranks(plan, work)
+    wall = time.perf_counter() - begin
+    if [(r["rank"], r["world"], r["backend"]) for r in ranks] != [
+            (i, DP_RANKS, "gloo") for i in range(DP_RANKS)]:
+        raise AssertionError(f"dp-2-on-1: the ranks reported "
+                             f"{[(r['rank'], r['world'], r['backend']) for r in ranks]}")
+
+    def fmt(gaps):
+        return ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                         for k, v in gaps.items())
+
+    lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0}
+    for policy in DP_POLICIES:
+        gaps, floor, failure = _hold_dp_training(policy, ranks, alone[policy],
+                                                 control[policy], start)
+        if failure:
+            failures.append(failure)
+        want_k3 = k3_launches_a_step(policy).get(3, 0) * DP_STEPS
+        k3 = [r["train"][policy]["k3"] for r in ranks]
+        if any(c["k3_p3"] != want_k3 or c["k3"] != want_k3 for c in k3):
+            raise AssertionError(f"dp-2-on-1 {policy}: K3 launches a rank {k3}, expected "
+                                 f"{want_k3} at 3 passes")
+        launches[3] += sum(c["k3_p3"] for c in k3)
+        step_ms = [float(np.mean(r["train"][policy]["step_ms"][DP_WARMUP:])) for r in ranks]
+        lines.append(
+            f"train {policy}: metric {ranks[0]['train'][policy]['metrics'][-1]:.6f} m after "
+            f"{DP_STEPS} steps (one process {alone[policy]['metrics'][-1]:.6f}); gaps to one "
+            f"process {fmt(gaps)}; one process with each batch reversed: {fmt(floor)}; "
+            "K3 a rank "
+            f"{k3[0]['k3_p3']} at 3 passes; step ms a rank "
+            f"{', '.join(f'{t:.2f}' for t in step_ms)} (one process at batch 20 "
+            f"{float(np.mean(alone[policy]['step_ms'][DP_WARMUP:])):.2f})")
+    shapes = {}
+    for x_shape, k_shape, passes in ranks[0]["train"]["balanced16"]["calls"]:
+        shapes.setdefault((x_shape, k_shape, passes), {"balanced16": 0})["balanced16"] += 1
+    _train_k3_checks(shapes, "dp-2-on-1")
+
+    bar = k1_ulps(4)
+    for dtype_name, use_pallas in STREAM_RUNS:
+        name = f"tiled-{dtype_name}-{'k2' if use_pallas else 'k1'}"
+        runs = [r["serve"][name] for r in ranks]
+        got = runs[0]["scene"].numpy()
+        want = resident[dtype_name]
+        diff = float(np.abs(got.astype(np.float64) - want).max()) / ulps(want, 1)
+        kernel = "k2" if use_pallas else "k1"
+        n_steps = -(-len(ds.positions) // (BATCH * DP_RANKS))
+        want_k3 = k3_calls_a_forward(dtype_name)[3] * n_steps if dtype_name != "float32" else 0
+        counts = [r["launches"] for r in runs]
+        if (not all(torch.equal(r["scene"], runs[0]["scene"]) for r in runs)
+                or not np.isfinite(got).all() or diff > bar
+                or any(c[kernel] != n_steps or c["k3_p3"] != want_k3 for c in counts)):
+            failures.append(f"dp-2-on-1 {name}: {diff:.3g} ulps from the resident K2 "
+                            f"scene (bar {bar}), launches a rank {counts} (expected "
+                            f"{n_steps} {kernel}, {want_k3} K3)")
+        launches[kernel] += sum(c[kernel] for c in counts)
+        launches[3] += sum(c["k3_p3"] for c in counts)
+        lines.append(f"{name}: {diff:.2f} ulps from the resident K2 scene (bar {bar}), "
+                     f"launches a rank {counts[0]}, scene s a rank (counted run, then one "
+                     "more) " + "; ".join(", ".join(f"{w:.3f}" for w in r["walls"])
+                                          for r in runs))
+    runs = [r["serve"]["sharded"] for r in ranks]
+    got = runs[0]["scene"]
+    geometry = stream_geometry(ds, STREAM_BUDGET)
+    seams = geometry["seams"]
+    if got is None or any(r["scene"] is not None for r in runs[1:]):
+        raise AssertionError("dp-2-on-1 scene-sharded: the chief alone should hold the scene")
+    got = got.numpy()
+    seam_ulps = float(np.abs(got[seams].astype(np.float64) - streamed[seams]).max()
+                      ) / ulps(streamed, 1)
+    bands = len(geometry["tiles"])
+    padded = -(-max(geometry["tiles"]) // BATCH)
+    want_k2 = [len(range(r, bands, DP_RANKS)) * padded for r in range(DP_RANKS)]
+    counts = [r["launches"] for r in runs]
+    if (not np.array_equal(got[~seams], streamed[~seams]) or not np.isfinite(got).all()
+            or seam_ulps > DP_SEAM_ULPS or [c["k2"] for c in counts] != want_k2):
+        failures.append(
+            f"dp-2-on-1 scene-sharded: off the seams bitwise "
+            f"{np.array_equal(got[~seams], streamed[~seams])}, on them {seam_ulps:.3g} ulps "
+            f"(bar {DP_SEAM_ULPS}), K2 a rank {[c['k2'] for c in counts]} (expected {want_k2})")
+    launches["k2"] += sum(want_k2)
+    lines.append(f"scene-sharded float32 K2, {bands} bands of "
+                 f"{', '.join(map(str, geometry['tiles']))} tiles in waves of {DP_RANKS}: "
+                 f"bitwise the streamed scene off the {int(seams.sum())} seam rows, "
+                 f"{seam_ulps:.2f} ulps on them (bar {DP_SEAM_ULPS}); K2 a rank "
+                 f"{[c['k2'] for c in counts]}; scene s a rank "
+                 + "; ".join(", ".join(f"{w:.3f}" for w in r["walls"]) for r in runs))
+    log("dp-2-on-1", f"{DP_RANKS} ranks on one card over gloo, processes of "
+        f"chip_smoke.py --dp-rank, {wall:.1f} s with their start; times are of ranks that "
+        "share the card, no speeds on two cards: " + "; ".join(lines))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches}
+
+
 def main(argv: list | None = None) -> int:
     import argparse
 
@@ -2471,12 +3054,17 @@ def main(argv: list | None = None) -> int:
                              "the 4096x4096 scene's batches (phase stitch-scene), "
                              "to compare two checkouts on one card; prints no "
                              "result line")
+    parser.add_argument("--dp-rank", metavar="PLAN",
+                        help="run one rank of phase dp-2-on-1 from its plan (the "
+                             "phase starts the ranks itself); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs one GPU",
               file=sys.stderr)
         return 1
     import resdepth_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if args.dp_rank:
+        return dp_rank(args.dp_rank)
     from resdepth_tpu_torch.models.unet import flagship_config
     from resdepth_tpu_torch.ops import stitch
 
@@ -2504,7 +3092,6 @@ def main(argv: list | None = None) -> int:
     streaming = phase_streaming(scene, model["weights"])
     phase_crop(WORK_DIR, scene, model["weights"])
     phase_modes_cli(WORK_DIR, scene, model)
-    shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     convs = phase_conv()
     start = time.perf_counter()
@@ -2518,21 +3105,26 @@ def main(argv: list | None = None) -> int:
     streaming_cli = phase_streaming_cli(WORK_DIR, train_scene)
     banded = phase_train_banded(WORK_DIR, train_scene, train_precisions["policies"])
     phase_train_vs_cpu(train_scene)
+    dp_nccl = phase_dp_nccl_1(WORK_DIR, train_scene)
+    dp_ranks = phase_dp_2_on_1(WORK_DIR, scene, model, train_scene)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K1 and K2 with their launches on the CLI runs (phase 4) and the
-    # streamed scenes (phases streaming and streaming-cli).
+    # K1 and K2 with their launches on the CLI runs (phase 4), the
+    # streamed scenes (phases streaming and streaming-cli) and the ranks'
+    # scenes (phases dp-nccl-1 and dp-2-on-1).
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": replaces,
          "launches": (flagship["launches"][key] + streaming["launches"][key]
-                      + streaming_cli["launches"][key]),
+                      + streaming_cli["launches"][key]
+                      + dp_nccl["launches"].get(key, 0) + dp_ranks["launches"][key]),
          **{f: kernels[key][f] for f in fields}}
         for key, (name, replaces) in KERNELS.items()]}
     # K3 once per float32 pass count, with its launches on the mode paths
-    # (phases modes and streaming) and the train steps (phases
-    # train-precisions and train-banded), and its times and bound over one
+    # (phases modes and streaming), the train steps (phases
+    # train-precisions and train-banded) and the ranks' training and serving
+    # (phases dp-nccl-1 and dp-2-on-1), and its times and bound over one
     # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
     # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
     # times each shape's once.
@@ -2542,7 +3134,8 @@ def main(argv: list | None = None) -> int:
                   if r["passes"] else f"{name} ({key})"),
          "route": "cuda", "source": source, "replaces": replaces,
          "launches": (sum(phase["launches"].get(r["passes"], 0)
-                          for phase in (modes, train_precisions, streaming, banded))
+                          for phase in (modes, train_precisions, streaming, banded,
+                                        dp_nccl, dp_ranks))
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
         for key, r in convs.items()]

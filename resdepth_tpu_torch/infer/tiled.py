@@ -19,9 +19,16 @@ f32 weights and run the UNet on the f32 batch at the mode's precisions.
 
 ``predict_linear_blend_streaming`` refines a scene whose rasters exceed a
 device budget by full-width row bands, one band window on the device at a
-time (``data/banded.py::iter_bands``). Not in this slice: the scene-sharded
-path (``predict_linear_blend_scene_sharded``, bands over several devices;
-ROADMAP.md section 1 item 10).
+time (``data/banded.py::iter_bands``); ``predict_linear_blend_scene_sharded``
+refines those bands on every rank of a process group at once.
+
+Across processes (one per GPU, ``parallel/``): ``group`` shards every batch
+step's tiles over the ranks, each rank stitches its share into its own
+canvas, and one all-reduce sums the canvases, as the JAX scene program
+``psum``s its devices' canvases (``predict_linear_blend``, and each band of
+``predict_linear_blend_streaming``); ``predict_linear_blend_scene_sharded``
+gives each rank whole row bands instead, all ranks at once, and the chief
+adds them into the scene.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
                                             apply_unet, fold_serving,
                                             serving_precision)
 from resdepth_tpu_torch.ops import blend, stitch
+from resdepth_tpu_torch.parallel import mesh
 
 # Dihedral-group subsets for test-time augmentation (general.tta). Element
 # g is rot90 by (g % 4) quarter turns, after a horizontal flip when g >= 4.
@@ -105,8 +113,12 @@ def _pad_positions(positions, n, batch_size):
     pad = n - len(positions)
     if pad == 0:
         return positions
-    last = positions[len(positions) // batch_size * batch_size:]
-    return np.concatenate([positions, np.resize(last, (pad, 2))])
+    start = len(positions) // batch_size * batch_size
+    if start == len(positions):
+        # whole batches of padding (a band padded to the bands' tile count,
+        # ``predict_linear_blend_scene_sharded``): the last full batch's
+        start -= batch_size
+    return np.concatenate([positions, np.resize(positions[start:], (pad, 2))])
 
 
 def _storage(compute_dtype) -> tuple:
@@ -133,11 +145,17 @@ def _inference_spec(ds: TileDataset) -> BatchSpec:
 def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
                    wy, wx, shape, spec: BatchSpec, dsm_std, batch_size,
                    compute_dtype, use_pallas, tta=1, tta_merge="mean",
-                   canvas: torch.Tensor | None = None):
+                   canvas: torch.Tensor | None = None, group=None):
     """Run the batch loop over one set of tiles into a (rows, cols) canvas,
     a new zero one or ``canvas`` (on the rasters' device, added into in
     place), in batches of ``batch_size`` tiles, the last padded
     (``_pad_positions``).
+
+    Under ``group`` a step holds ``batch_size`` tiles of each of the N
+    ranks (the last step padded on its real tiles); rank r runs the r-th
+    ``batch_size`` of every step into this process's canvas (K2's box from
+    its own share), then one all-reduce sums the canvases over the group:
+    every rank holds the scene.
 
     Returns the device canvas; on CUDA the work is still queued when this
     returns, so the caller can overlap the fetch with other work."""
@@ -152,11 +170,19 @@ def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
     tile = spec.tile_size
     stitch.check_positions(positions, tile, shape)
     n = len(positions)
-    n_padded = -(-n // batch_size) * batch_size
-    positions = _pad_positions(positions, n_padded, batch_size)
+    ranks = mesh.size(group)
+    per_step = batch_size * ranks
+    n_padded = -(-n // per_step) * per_step
+    positions = _pad_positions(positions, n_padded, per_step)
     pair_idx = _pad_round_up(pair_idx, n_padded)
     wy = _pad_round_up(wy, n_padded, 0.0)   # zero weights: padding adds nothing
     wx = _pad_round_up(wx, n_padded, 0.0)
+    if ranks > 1:   # this rank's share of each step, as P(None, axes) splits it
+        r = mesh.rank(group)
+        positions, pair_idx, wy, wx = (
+            a.reshape((-1, ranks, batch_size) + a.shape[1:])[:, r].reshape(
+                (-1,) + a.shape[1:]) for a in (positions, pair_idx, wy, wx))
+        n_padded //= ranks
 
     pos_d = to_device(positions.astype(np.int32), device)
     pair_d = to_device(pair_idx.astype(np.int64), device)
@@ -194,7 +220,7 @@ def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
                                 wx_d[sl], batch["dsm_mean"], dsm_std,
                                 use_pallas=use_pallas,
                                 bounds=stitch.batch_bounds(positions[sl], tile))
-    return canvas
+    return mesh.all_reduce_(canvas, group)
 
 
 def serving_model(model: UNet, device,
@@ -209,10 +235,11 @@ def serving_model(model: UNet, device,
     return served.to(device=device, dtype=_storage(compute_dtype)[0])
 
 
-def _scene_batch(batch_size: int, ds: TileDataset) -> int:
-    """The scene's batch size: ``batch_size`` capped at its tile count (on
-    one device zero-weight padding past that is wasted forward compute)."""
-    return max(1, min(batch_size, len(ds.positions)))
+def _scene_batch(batch_size: int, ds: TileDataset, ranks: int = 1) -> int:
+    """The scene's batch size a rank: ``batch_size`` capped at a rank's
+    share of its tile count (zero-weight padding past that is wasted
+    forward compute)."""
+    return max(1, min(batch_size, -(-len(ds.positions) // ranks)))
 
 
 def _scene_model(model: UNet, device, compute_dtype, fold_bn: bool) -> tuple:
@@ -238,7 +265,7 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
                          rasters: DeviceRasters | None = None,
                          use_pallas: bool | str | None = None,
                          fold_bn: bool = True, as_numpy: bool = True,
-                         tta: int = 1, tta_merge: str = "mean"):
+                         tta: int = 1, tta_merge: str = "mean", group=None):
     """Refine a whole scene; returns the blended refined DSM (rows, cols).
 
     ``ds`` is a 'test'-strategy TileDataset (overlapping grid); pixels
@@ -266,6 +293,12 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     ``tta`` in {1, 2, 4, 8}: predict each tile under that dihedral subgroup
     and merge the inverse-transformed predictions by ``tta_merge``
     ("mean" or "median").
+
+    ``group`` (``parallel.mesh.data_mesh``) shares the tiles over its ranks,
+    ``batch_size`` a rank a step (capped at a rank's share of the scene),
+    and sums their canvases (``_predict_tiles``): every rank returns the
+    scene. The sum regroups each pixel's tiles by rank, so the scene is
+    held to K1's bar, not bitwise, against one process.
     """
     device, model = _scene_model(model, device, compute_dtype, fold_bn)
     if rasters is None:
@@ -275,8 +308,8 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     wy, wx = blend.weight_table(ds.tile_size, ds.stride, ds.valid_bounds)
     out = _predict_tiles(model, rasters, ds.positions, ds.pair_indices, wy, wx,
                          ds.dsm_input.shape, _inference_spec(ds), ds.dsm_std,
-                         _scene_batch(batch_size, ds), compute_dtype, use_pallas,
-                         tta, tta_merge)
+                         _scene_batch(batch_size, ds, mesh.size(group)),
+                         compute_dtype, use_pallas, tta, tta_merge, group=group)
     return out.cpu().numpy() if as_numpy else out
 
 
@@ -286,7 +319,8 @@ def predict_linear_blend_streaming(model: UNet, ds: TileDataset, *, device,
                                    compute_dtype: torch.dtype | str = torch.float32,
                                    use_pallas: bool | str | None = None,
                                    fold_bn: bool = True, tta: int = 1,
-                                   tta_merge: str = "mean") -> np.ndarray:
+                                   tta_merge: str = "mean",
+                                   group=None) -> np.ndarray:
     """Refine a scene too large for the device budget by streaming row
     bands; returns the blended refined DSM (rows, cols) on the host.
 
@@ -313,25 +347,24 @@ def predict_linear_blend_streaming(model: UNet, ds: TileDataset, *, device,
     adds zero-started band canvases into the scene, which regroups the sums
     on the shared rows.)
 
+    Under ``group`` each band runs as ``predict_linear_blend`` runs the
+    scene (its tiles shared over the ranks, its canvas summed), at the
+    resident scene's batch a rank; only the chief starts its band canvas
+    from the band above's sums, which every rank holds after the sum, so
+    they are counted once. The sums regroup there too: the scene is held to
+    K1's bar against the resident one.
+
     The other arguments are ``predict_linear_blend``'s. Raises
     ``ValueError`` when the budget cannot hold one tile-high band of the
     full width (the JAX package takes that band anyway, over its budget).
     """
     device, model = _scene_model(model, device, compute_dtype, fold_bn)
-    tile = ds.tile_size
     rows, cols = ds.dsm_input.shape
-    planes = resident_pixels(ds, include_target=False) // (rows * cols)
-    rows_budget = max_device_pixels // (cols * planes)
-    if rows_budget < tile:
-        raise ValueError(
-            f"max_device_pixels {max_device_pixels:,} cannot hold one "
-            f"{tile}-row band of the scene's full width: {tile} rows x "
-            f"{cols} columns x {planes} raster planes need "
-            f"{tile * cols * planes:,} pixels. Raise the budget or lower "
-            f"the tile size.")
-
+    rows_budget = _rows_budget(ds, max_device_pixels)
+    tile = ds.tile_size
     spec = _inference_spec(ds)
-    batch_size = _scene_batch(batch_size, ds)
+    batch_size = _scene_batch(batch_size, ds, mesh.size(group))
+    carry = mesh.rank(group) == 0
     wy_all, wx_all = blend.weight_table(tile, ds.stride, ds.valid_bounds)
     pairs = torch.as_tensor(ds.pairs_array, dtype=torch.int64, device=device)
     out = np.zeros((rows, cols), np.float32)
@@ -345,14 +378,14 @@ def predict_linear_blend_streaming(model: UNet, ds: TileDataset, *, device,
             pairs=pairs, nodata=float(ds.nodata))
         canvas = torch.zeros((window.stop - window.start, cols),
                              dtype=torch.float32, device=device)
-        if above is not None and above[0].stop > window.start:
+        if carry and above is not None and above[0].stop > window.start:
             canvas[:above[0].stop - window.start] = \
                 above[1][window.start - above[0].start:]
         _predict_tiles(model, band_rasters, band_positions,
                        ds.pair_indices[band_idx], wy_all[band_idx],
                        wx_all[band_idx], canvas.shape, spec, ds.dsm_std,
                        batch_size, compute_dtype, use_pallas, tta, tta_merge,
-                       canvas=canvas)
+                       canvas=canvas, group=group)
         if fetching is not None:
             _land(out, *fetching)
         fetching = (window, *_fetch(canvas))
@@ -361,6 +394,96 @@ def predict_linear_blend_streaming(model: UNet, ds: TileDataset, *, device,
     if fetching is not None:
         _land(out, *fetching)
     return out
+
+
+def predict_linear_blend_scene_sharded(model: UNet, ds: TileDataset, *, device,
+                                       max_device_pixels: int = 1 << 28,
+                                       batch_size: int = 64,
+                                       compute_dtype: torch.dtype | str = torch.float32,
+                                       use_pallas: bool | str | None = None,
+                                       fold_bn: bool = True, tta: int = 1,
+                                       tta_merge: str = "mean", group=None):
+    """Refine a scene too large for one device's budget with every rank of
+    ``group`` at once, whole row bands a rank; returns the blended refined
+    DSM (rows, cols) on the host of rank 0, and None on the other ranks.
+
+    The bands are ``predict_linear_blend_streaming``'s (``max_device_pixels``
+    bounds each rank's raster window). Rank r of N refines bands r, r + N,
+    ... in waves, each band padded to the bands' common window height and
+    tile count (zero-weight tiles, on the band's real ones) as the JAX
+    package pads them, at the resident scene's batch size. Each band
+    starts from a zero canvas: the streaming path's carry from the band
+    above cannot cross ranks while the bands run at once. Rank 0 receives
+    the wave's canvases (``parallel.mesh.recv``: on the device under NCCL,
+    through host memory under gloo) and adds them into the host scene in
+    band order, as the JAX package does; on the rows two bands share the
+    sums so regroup. Without ``group`` this process runs every band in
+    turn. The other arguments are ``predict_linear_blend_streaming``'s.
+    """
+    device, model = _scene_model(model, device, compute_dtype, fold_bn)
+    rows, cols = ds.dsm_input.shape
+    tile = ds.tile_size
+    spec = _inference_spec(ds)
+    batch_size = _scene_batch(batch_size, ds)
+    ranks, rank = mesh.size(group), mesh.rank(group)
+    wy_all, wx_all = blend.weight_table(tile, ds.stride, ds.valid_bounds)
+    bands = list(_iter_bands(ds, _rows_budget(ds, max_device_pixels)))
+    window_rows = max(w.stop - w.start for w, _, _ in bands)
+    n_tiles = max(len(idx) for _, idx, _ in bands)
+    pairs = torch.as_tensor(ds.pairs_array, dtype=torch.int64, device=device)
+    out = np.zeros((rows, cols), np.float32) if rank == 0 else None
+    for wave in range(0, len(bands), ranks):
+        canvas = None
+        if wave + rank < len(bands):
+            window, band_idx, band_positions = bands[wave + rank]
+            n = window.stop - window.start
+            dsm = np.zeros((window_rows, cols), np.float32)
+            dsm[:n] = ds.dsm_input[window]
+            orthos = None
+            if ds.orthos is not None:
+                orthos = np.zeros((ds.orthos.shape[2], window_rows, cols), np.float32)
+                orthos[:, :n] = ds.orthos[window].transpose(2, 0, 1)
+            band_rasters = DeviceRasters(
+                dsm_input=to_device(dsm, device), dsm_target=None,
+                orthos=to_device(orthos, device) if orthos is not None else None,
+                pairs=pairs, nodata=float(ds.nodata))
+            canvas = _predict_tiles(
+                model, band_rasters,
+                _pad_positions(band_positions, n_tiles, batch_size),
+                _pad_round_up(ds.pair_indices[band_idx], n_tiles),
+                _pad_round_up(wy_all[band_idx], n_tiles, 0.0),
+                _pad_round_up(wx_all[band_idx], n_tiles, 0.0),
+                (window_rows, cols), spec, ds.dsm_std, batch_size, compute_dtype,
+                use_pallas, tta, tta_merge)
+            del band_rasters
+        if rank != 0:
+            if canvas is not None:
+                mesh.send(canvas, 0, group)
+            continue
+        for source, (window, _, _) in enumerate(bands[wave:wave + ranks]):
+            band = canvas if source == 0 else mesh.recv((window_rows, cols), source,
+                                                        group, device)
+            out[window] += band[:window.stop - window.start].cpu().numpy()
+    return out
+
+
+def _rows_budget(ds: TileDataset, max_device_pixels: int) -> int:
+    """The band height that ``max_device_pixels`` holds at the scene's full
+    width over its raster planes (the DSM and the ortho views). Raises
+    ``ValueError`` below one tile-high band (the JAX package takes that
+    band anyway, over its budget)."""
+    tile = ds.tile_size
+    rows, cols = ds.dsm_input.shape
+    planes = resident_pixels(ds, include_target=False) // (rows * cols)
+    rows_budget = max_device_pixels // (cols * planes)
+    if rows_budget < tile:
+        raise ValueError(
+            f"max_device_pixels {max_device_pixels:,} cannot hold one "
+            f"{tile}-row band of the scene's full width: {tile} rows x "
+            f"{cols} columns x {planes} raster planes need "
+            f"{tile * cols * planes:,} pixels. Raise the budget or lower "
+            f"the tile size.")
+    return rows_budget
 
 
 def _fetch(canvas: torch.Tensor) -> tuple:

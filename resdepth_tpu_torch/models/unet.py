@@ -50,6 +50,7 @@ from torch import nn
 
 from resdepth_tpu_torch.ops import passes as pass_ops
 from resdepth_tpu_torch.ops.conv import _activate, conv3x3_bias_act
+from resdepth_tpu_torch.parallel import mesh
 
 ACTIVATIONS = ("relu", "lrelu", "prelu")
 UP_MODES = ("transpose", "bilinear")
@@ -299,7 +300,7 @@ class UNet(nn.Module):
         return y
 
     def run(self, x, *, train: bool = False, sample_weights=None,
-            remat: bool = False, serving: ServingMode | None = None):
+            remat: bool = False, serving: ServingMode | None = None, group=None):
         """The forward pass -> ``(y, bn_state)``, whatever the module's mode.
 
         ``train`` selects batch statistics for BatchNorm (``batch_norm_train``,
@@ -310,9 +311,11 @@ class UNet(nn.Module):
         (``torch.utils.checkpoint``) instead of storing its activations.
         ``serving`` runs the same graph at a serving mode's or a training
         policy's precisions and casts (``_AtPrecision``) instead of the
-        module's own layers."""
-        ops = (_Layers(train, sample_weights, remat) if serving is None
-               else _AtPrecision(serving, train, sample_weights, remat))
+        module's own layers. ``group`` (training) takes BatchNorm's batch
+        statistics over every rank of a ``torch.distributed`` group
+        (``batch_norm_train``)."""
+        ops = (_Layers(train, sample_weights, remat, group) if serving is None
+               else _AtPrecision(serving, train, sample_weights, remat, group))
         skips = []
         out = ops.input(x)
         for i, level in enumerate(self.encoder):
@@ -342,8 +345,9 @@ class _Layers:
     BatchNorm on running statistics, or in training on the batch's (their
     new running values collected in ``bn_state``)."""
 
-    def __init__(self, train: bool, sample_weights, remat: bool):
+    def __init__(self, train: bool, sample_weights, remat: bool, group=None):
         self.train, self.sample_weights, self.remat = train, sample_weights, remat
+        self.group = group
         self.bn_state: dict = {}
 
     def input(self, x):
@@ -360,14 +364,15 @@ class _Layers:
         return self._train_block(prefix, _conv_block_train, seq, x)
 
     def _train_block(self, prefix, fn, seq, x, *args):
-        """``fn(seq, x, sample_weights, *args) -> (out, mean, var)``, under
-        ``torch.utils.checkpoint`` with ``remat``; the BN statistics go into
-        ``bn_state``."""
+        """``fn(seq, x, sample_weights, group, *args) -> (out, mean, var)``,
+        under ``torch.utils.checkpoint`` with ``remat``; the BN statistics go
+        into ``bn_state``."""
+        args = (seq, x, self.sample_weights, self.group, *args)
         if self.remat:
             out, mean, var = torch.utils.checkpoint.checkpoint(
-                fn, seq, x, self.sample_weights, *args, use_reentrant=False)
+                fn, *args, use_reentrant=False)
         else:
-            out, mean, var = fn(seq, x, self.sample_weights, *args)
+            out, mean, var = fn(*args)
         if mean is not None:
             self.bn_state[f"{prefix}.1.running_mean"] = mean
             self.bn_state[f"{prefix}.1.running_var"] = var
@@ -391,13 +396,13 @@ class _Layers:
             return x0
         if not self.train:
             return _batch_norm_eval(bn, x0)
-        x0, mean, var = batch_norm_train(bn, x0, self.sample_weights)
+        x0, mean, var = batch_norm_train(bn, x0, self.sample_weights, self.group)
         self.bn_state["layer_outer_skip.0.running_mean"] = mean
         self.bn_state["layer_outer_skip.0.running_var"] = var
         return x0
 
 
-def batch_norm_train(bn: nn.BatchNorm2d, x, sample_weights=None):
+def batch_norm_train(bn: nn.BatchNorm2d, x, sample_weights=None, group=None):
     """Training-mode BatchNorm with the JAX package's moments
     (``resdepth_tpu/models/unet.py::_batch_norm``) -> ``(y, mean, var)``.
 
@@ -407,20 +412,33 @@ def batch_norm_train(bn: nn.BatchNorm2d, x, sample_weights=None):
     so zero-weight samples add nothing. ``y`` uses the biased variance; the
     returned running statistics (``bn``'s buffers moved by momentum 0.1,
     not written) take the unbiased one. Gradients flow through the batch
-    statistics, not into the running ones."""
+    statistics, not into the running ones.
+
+    ``group`` (``parallel.mesh``) takes the statistics over every rank's
+    batch, as the JAX ``axis_name``: the weighted pixel count is summed over
+    the ranks, then the weighted moments; without weights the ranks' moments
+    are averaged (the JAX ``pmean``). The moments travel as one packed
+    all-reduce a layer, whose backward sums their gradients over the ranks
+    (``mesh.all_reduce_sum``)."""
     x32 = x.float()
     n, _, h, w = x32.shape
     dims = (0, 2, 3)
+    ranks = mesh.size(group)
     if sample_weights is None:
         mean = x32.mean(dim=dims)
         mean_sq = x32.square().mean(dim=dims)
-        count = torch.tensor(float(n * h * w), device=x.device)
+        count = torch.tensor(float(n * h * w * ranks), device=x.device)
     else:
         weights = sample_weights.to(device=x.device, dtype=torch.float32)
-        count = torch.clamp_min(weights.sum() * (h * w), 1.0)
+        count = mesh.all_reduce_(weights.sum() * (h * w), group)
+        count = torch.clamp_min(count, 1.0)
         wn = (weights / count).view(-1, 1, 1, 1)
         mean = (x32 * wn).sum(dim=dims)
         mean_sq = (x32.square() * wn).sum(dim=dims)
+    if group is not None:
+        mean, mean_sq = mesh.all_reduce_sum(torch.cat([mean, mean_sq]), group).chunk(2)
+        if sample_weights is None:
+            mean, mean_sq = mean / ranks, mean_sq / ranks
     var = torch.clamp_min(mean_sq - mean.square(), 0.0)
     with torch.no_grad():
         unbiased = var * (count / torch.clamp_min(count - 1, 1.0))
@@ -445,13 +463,13 @@ def _conv_block_eval(seq: nn.Sequential, x):
     return seq[-1](out)
 
 
-def _conv_block_train(seq: nn.Sequential, x, sample_weights):
+def _conv_block_train(seq: nn.Sequential, x, sample_weights, group):
     """conv (+BN with batch statistics) + activation -> ``(out, mean, var)``,
     the BN's new running statistics (None without BN)."""
     out = seq[0](x)
     mean = var = None
     if isinstance(seq[1], nn.BatchNorm2d):
-        out, mean, var = batch_norm_train(seq[1], out, sample_weights)
+        out, mean, var = batch_norm_train(seq[1], out, sample_weights, group)
     return seq[-1](out), mean, var
 
 
@@ -468,11 +486,12 @@ def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
                sample_weights=None, remat: bool = False,
                mixed_precision: bool = False, precision=None,
                layer_precisions: dict | None = None,
-               hifi_endpoints: bool = False):
+               hifi_endpoints: bool = False, group=None):
     """``apply_unet``'s contract: NHWC in, (N, H, W, 1) out.
 
     ``train=False`` returns the output. ``train=True`` uses batch statistics
-    (weighted by ``sample_weights``) and returns ``(y, bn_state)``, the new
+    (weighted by ``sample_weights``, over every rank of ``group`` when given,
+    as the JAX ``axis_name``) and returns ``(y, bn_state)``, the new
     running statistics by buffer name, leaving the module's buffers as they
     are (``commit_bn_state`` writes them), as the JAX function returns its
     new state.
@@ -489,7 +508,7 @@ def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
                               hifi_endpoints)
     y, bn_state = model.run(x.permute(0, 3, 1, 2), train=train,
                             sample_weights=sample_weights, remat=remat,
-                            serving=serving)
+                            serving=serving, group=group)
     y = y.permute(0, 2, 3, 1)
     return (y, bn_state) if train else y
 
@@ -523,8 +542,8 @@ class _AtPrecision(_Layers):
     gradients, at those passes (``ops.passes.same_conv``, ``upconv2x2``)."""
 
     def __init__(self, serving: ServingMode, train: bool = False,
-                 sample_weights=None, remat: bool = False):
-        super().__init__(train, sample_weights, remat)
+                 sample_weights=None, remat: bool = False, group=None):
+        super().__init__(train, sample_weights, remat, group)
         self.mode = serving
 
     def _precision(self, name: str):
@@ -634,7 +653,7 @@ def _conv3x3_train(x, weight, bias, precision):
     return pass_ops.same_conv(x, weight, bias, passes)
 
 
-def _block_train_at(seq: nn.Sequential, x, sample_weights, precision):
+def _block_train_at(seq: nn.Sequential, x, sample_weights, group, precision):
     """conv at ``precision`` (+BN with batch statistics) + activation ->
     ``(out, mean, var)``, as ``_conv_block_train``. The activation is the
     module's own (PReLU's slopes cast to the activation's dtype, as JAX
@@ -643,7 +662,7 @@ def _block_train_at(seq: nn.Sequential, x, sample_weights, precision):
     out = _conv3x3_train(x, conv.weight, conv.bias, precision)
     mean = var = None
     if isinstance(seq[1], nn.BatchNorm2d):
-        out, mean, var = batch_norm_train(seq[1], out, sample_weights)
+        out, mean, var = batch_norm_train(seq[1], out, sample_weights, group)
     if isinstance(act, nn.PReLU):
         return _activate_nchw(out, *_act_spec(act, conv.out_channels)), mean, var
     return act(out), mean, var

@@ -9,15 +9,24 @@ residual GeoTIFFs and a statistics report, plus statistics pooled over the
 pairs. Weights come from a reference ``.pth`` file or a JAX ``.npz``
 checkpoint.
 
-The scene runs on one device (``--device``, default ``cuda``, which raises
-when CUDA is absent; there is no silent move to the CPU) at
+The scene runs on ``--device`` (default ``cuda``, which raises when CUDA
+is absent; there is no silent move to the CPU) at
 ``general.compute_dtype``: ``float32``, ``bfloat16`` or a string serving
 mode (``mixed``, ``fast32``, ``act2pass``, ``balanced``, ``balanced16``;
 ``models.unet.serving_precision``). A scene whose rasters (the DSM and the
 ortho views) exceed ``MAX_DEVICE_PIXELS`` streams through full-width row
 bands, one band window on the device at a time
-(``infer.tiled.predict_linear_blend_streaming``). More than one GPU raises
-an error that names its ROADMAP.md item.
+(``infer.tiled.predict_linear_blend_streaming``).
+
+Several GPUs run one process each over ``torch.distributed``
+(``parallel/``): a plain launch with ``general.data_parallel`` (the
+default) on a machine with N > 1 visible GPUs starts N processes;
+``RESDEPTH_DIST_*`` or ``torchrun`` with ``RESDEPTH_DISTRIBUTED=1`` launch
+them from outside. With ``general.data_parallel`` each rank refines its
+share of every batch of tiles and the canvases are summed
+(``predict_linear_blend(group=...)``); an over-budget scene gives each rank
+whole row bands in turn (``predict_linear_blend_scene_sharded``). Only rank
+0 writes the log, evaluates and writes rasters.
 """
 
 from __future__ import annotations
@@ -42,11 +51,13 @@ from resdepth_tpu_torch.evaluation import (CLASS_TITLES, evaluate_performance,
                                            get_statistics, print_statistics)
 from resdepth_tpu_torch.geo import raster as raster_mod
 from resdepth_tpu_torch.infer.tiled import (predict_linear_blend,
+                                            predict_linear_blend_scene_sharded,
                                             predict_linear_blend_streaming,
                                             serving_model)
 from resdepth_tpu_torch.models import weights
 from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
                                             unet_config_from_settings)
+from resdepth_tpu_torch.parallel import bootstrap, mesh
 from resdepth_tpu_torch.utils import fs
 from resdepth_tpu_torch.utils.logging import (add_console_logger, add_file_logger,
                                               setup_logger)
@@ -86,17 +97,14 @@ def select_compute_dtype(name: str | None,
     return name if name in SERVING_PRECISION_MODES else torch.float32
 
 
-def resolve_device(name: str, data_parallel: bool = True) -> torch.device:
+def resolve_device(name: str) -> torch.device:
+    """``--device`` as a torch device: on CUDA this process's card (its
+    rank's, bound by ``parallel.bootstrap``)."""
     if name == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("--device cuda: CUDA is not available "
                            "(pass --device cpu to run on the CPU)")
-    if data_parallel and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} GPUs visible: multi-GPU inference is "
-            "ROADMAP.md section 1 item 10. Set general.data_parallel to false "
-            "or CUDA_VISIBLE_DEVICES to one GPU.")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -114,33 +122,46 @@ def _close_file_handlers(logger: logging.Logger) -> None:
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     cfg_file = args.config_file
 
     title = "Running ResDepth (PyTorch): Prediction"
     print("\n{}\n{}\n".format(title, "=" * len(title)))
 
+    # The process group forms before the first CUDA access. Every rank runs
+    # the inference loops (the all-reduces need all of them); only the chief
+    # logs to file, evaluates and writes.
+    bootstrap.maybe_initialize_distributed(device=args.device)
+    chief = bootstrap.is_chief()
     if not fs.file_exists(cfg_file):
         print(f"ERROR: Cannot find the configuration file: {cfg_file}")
         sys.exit(1)
 
-    logger = setup_logger("root_logger", level=logging.INFO,
+    logger = setup_logger("root_logger", level=logging.INFO if chief else logging.WARNING,
                           log_to_console=True, log_file=None)
     print(f"Validate the configuration file:\t{cfg_file}\n\n")
     eval_cfg = validate_infer.validate_and_update_cfg_file(cfg_file, logger)
     if eval_cfg.status is False:
         sys.exit(1)
     cfg = eval_cfg.cfg
+    n_gpus = bootstrap.plain_launch_size(args.device,
+                                         cfg.general.get("data_parallel", True))
+    if n_gpus > 1:
+        logger.info(f"{n_gpus} GPUs: one inference process each")
+        bootstrap.launch_per_gpu("resdepth_tpu_torch.predict", argv, n_gpus)
+        return
     cfg_orig = cfg_io.read_json(cfg_file)
-    add_file_logger(logger, log_file=os.path.join(cfg.output.directory, "run.log"))
+    if chief:
+        add_file_logger(logger, log_file=os.path.join(cfg.output.directory, "run.log"))
     try:
-        _run(cfg, cfg_orig, args, logger)
+        _run(cfg, cfg_orig, args, logger, chief)
     finally:
         _close_file_handlers(logger)
 
 
-def _run(cfg, cfg_orig, args, logger) -> None:
-    device = resolve_device(args.device, cfg.general.get("data_parallel", True))
+def _run(cfg, cfg_orig, args, logger, chief: bool = True) -> None:
+    device = resolve_device(args.device)
     compute_dtype = select_compute_dtype(cfg.general.get("compute_dtype"), device)
     logger.info(f"Device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
@@ -197,6 +218,16 @@ def _run(cfg, cfg_orig, args, logger) -> None:
         logger.info(f"serving_preset {preset!r}: tile_stride={tile_stride}, "
                     f"tta={tta}, tta_merge={tta_merge}")
 
+    # Tile batches shard over every process of the run; each rank stitches
+    # its share and one all-reduce sums the canvases (infer/tiled.py). A
+    # group of one process runs the same collectives, as copies.
+    world = mesh.device_count()
+    group = None
+    if cfg.general.get("data_parallel", True):
+        group = mesh.data_mesh()
+    if group is not None:
+        logger.info(f"Inference mesh: {{'{mesh.DATA_AXIS}': {world}}}")
+
     # ------------------------------ inference ------------------------------ #
     logger.info("\n\nInference\n---------\n")
 
@@ -207,9 +238,10 @@ def _run(cfg, cfg_orig, args, logger) -> None:
             if "area_type" in cfg.datasets[index] else ""
         name = dataset.get("name") or f"dataset_{index}"
         output_parent = os.path.join(cfg.output.directory, name)
-        fs.make_dir(output_parent)
-        cfg_io.write_json(cfg_orig, os.path.join(output_parent, "config.json.orig"))
-        cfg_io.write_json(cfg, os.path.join(output_parent, "config.json"))
+        if chief:
+            fs.make_dir(output_parent)
+            cfg_io.write_json(cfg_orig, os.path.join(output_parent, "config.json.orig"))
+            cfg_io.write_json(cfg, os.path.join(output_parent, "config.json"))
 
         image_pairs = dataset.get("image_pairs") or [None]
         basename = fs.filename_wo_ext(dataset.raster_in)
@@ -232,7 +264,8 @@ def _run(cfg, cfg_orig, args, logger) -> None:
                                                              "Imagepair")
                     folder = "_".join([kind] + [str(i) for i in image_pair])
                     output_directory = os.path.join(output_parent, folder)
-                    fs.make_dir(output_directory)
+                    if chief:
+                        fs.make_dir(output_directory)
                     logger.info(f"\nInference using image pair: {tuple(image_pair)}")
                     for image_index in image_pair:
                         logger.info(f"Image {image_index}:\t"
@@ -258,14 +291,23 @@ def _run(cfg, cfg_orig, args, logger) -> None:
                 if scene_pixels > MAX_DEVICE_PIXELS:
                     # The resident rasters are never made for this scene:
                     # they would undo the bound.
-                    logger.info(f"Scene of {scene_pixels / 2**20:.0f} Mpx exceeds "
-                                "device budget; streaming row bands.")
-                    prediction = predict_linear_blend_streaming(
-                        model, tile_ds, device=device,
-                        max_device_pixels=MAX_DEVICE_PIXELS,
-                        batch_size=batch_size, compute_dtype=compute_dtype,
-                        use_pallas=use_pallas, fold_bn=False, tta=tta,
-                        tta_merge=tta_merge)
+                    sharded = group is not None and world > 1
+                    logger.info(
+                        f"Scene of {scene_pixels / 2**20:.0f} Mpx exceeds device "
+                        "budget; " + (f"sharding row bands over {world} processes."
+                                      if sharded else "streaming row bands."))
+                    kwargs = dict(device=device, max_device_pixels=MAX_DEVICE_PIXELS,
+                                  batch_size=batch_size, compute_dtype=compute_dtype,
+                                  use_pallas=use_pallas, fold_bn=False, tta=tta,
+                                  tta_merge=tta_merge, group=group)
+                    if sharded:
+                        # Whole bands a rank, all ranks at once; the chief
+                        # adds them into the scene (the others get None).
+                        prediction = predict_linear_blend_scene_sharded(
+                            model, tile_ds, **kwargs)
+                    else:
+                        prediction = predict_linear_blend_streaming(
+                            model, tile_ds, **kwargs)
                 else:
                     if device_rasters is None:
                         device_rasters = device_put_dataset(tile_ds, device)
@@ -282,7 +324,8 @@ def _run(cfg, cfg_orig, args, logger) -> None:
                         model, tile_ds, device=device, batch_size=batch_size,
                         compute_dtype=compute_dtype, rasters=pair_rasters,
                         use_pallas=use_pallas, fold_bn=False,
-                        as_numpy=not overlap, tta=tta, tta_merge=tta_merge)
+                        as_numpy=not overlap, tta=tta, tta_merge=tta_merge,
+                        group=group)
                 pair_tag = (f" ({folder})" if image_pair is not None else "")
                 job = (prediction, tile_ds, output_directory, pair_tag)
 
@@ -292,6 +335,10 @@ def _run(cfg, cfg_orig, args, logger) -> None:
             prediction, tile_ds, output_directory, pair_tag = pending
             prediction = _to_numpy(prediction)  # fetch; overlaps job's compute
             pending = job
+            if not chief:
+                # The others fetch (pacing the pair pipeline as the chief
+                # does) but never evaluate or write.
+                continue
 
             area_defn = dataset.area_defn
             if dataset.get("raster_gt"):
@@ -363,7 +410,7 @@ def _run(cfg, cfg_orig, args, logger) -> None:
                                             nodata=-9999, dtype=np.float32)
 
         # --------------------- aggregate over image pairs ------------------- #
-        if len(image_pairs) > 1 and dataset.get("raster_gt"):
+        if chief and len(image_pairs) > 1 and dataset.get("raster_gt"):
             logger.info("\nCompute residual errors averaged over all predictions...")
             outfile = os.path.join(
                 output_parent,

@@ -14,19 +14,24 @@ Model_after_{N}_epochs, Model_last}.npz`` in the JAX checkpoint layout, so
 files (with their Adam moments) and ``.npz`` checkpoints of either package;
 ``general.auto_resume`` continues from the newest ``Model_last.npz``.
 
-Training runs on one device (``--device``, default ``cuda``, which raises
-when CUDA is absent or, with ``tpu.data_parallel``, when more than one GPU
-is visible). On one GPU ``tpu.use_pallas``, ``tpu.donate_state`` and
-``tpu.data_parallel`` change nothing, and ``tpu.steps_per_call`` only
-groups the batch order as the JAX trainer does. ``tpu.train_precision``
-and ``tpu.compute_dtype`` take every value ``train.py`` takes
-(``train.step.select_train_precision``); validation runs the float32
-policy at the compute dtype. A region whose rasters exceed
+Training runs on ``--device`` (default ``cuda``, which raises when CUDA is
+absent). Data parallelism is one process per GPU over ``torch.distributed``
+(``parallel/``): a plain launch with ``tpu.data_parallel`` (the default) on
+a machine with N > 1 visible GPUs starts N processes; ``RESDEPTH_DIST_*``
+(coordinator, world size, rank) or ``torchrun`` with ``tpu.distributed:
+true`` or ``RESDEPTH_DISTRIBUTED=1`` launch them from outside. Each rank
+trains its shard of every global batch, padded with zero-weight samples to
+a multiple of the world size; ``tpu.dcn_slices`` must divide the world and
+reduces over it flat. Only rank 0 writes the run directory.
+``tpu.use_pallas`` and ``tpu.donate_state`` change nothing, and
+``tpu.steps_per_call`` only groups the batch order as the JAX trainer does.
+``tpu.train_precision`` and ``tpu.compute_dtype`` take every value
+``train.py`` takes (``train.step.select_train_precision``); validation runs
+the float32 policy at the compute dtype. A region whose rasters exceed
 ``tpu.max_device_pixels`` trains with banded residency (``data/banded.py``:
 the rasters in host RAM, one window on the device at a time). Not ported
-yet, each raising an error that names its ROADMAP.md item: multi-process
-and multi-slice runs (item 10) and a profiler trace (``tpu.profile_dir``,
-item 11).
+yet, raising an error that names its ROADMAP.md item: a profiler trace
+(``tpu.profile_dir``, item 11).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from resdepth_tpu_torch.data.pipeline import (BatchIndexIterator, batch_spec_for
                                               device_put_dataset)
 from resdepth_tpu_torch.models import weights
 from resdepth_tpu_torch.models.unet import init_unet, unet_config_from_settings
+from resdepth_tpu_torch.parallel import bootstrap, mesh
 from resdepth_tpu_torch.predict import resolve_device
 from resdepth_tpu_torch.train import checkpoint as ckpt_io
 from resdepth_tpu_torch.train.schedulers import build_scheduler
@@ -69,20 +75,9 @@ parser.add_argument("config_file", type=str, help="JSON configuration file")
 parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device that trains (default: cuda)")
 
-_DIST_ENV = ("RESDEPTH_DIST_COORDINATOR", "RESDEPTH_DISTRIBUTED")
-
-
 def check_ported(cfg) -> None:
     """Raise for the ``tpu`` knobs this port does not run yet."""
-    tpu = cfg.tpu
-    if tpu.get("distributed") or tpu.get("dcn_slices", 1) > 1 or any(
-            os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no")
-            for name in _DIST_ENV):
-        raise NotImplementedError(
-            "multi-process and multi-slice training (tpu.distributed, "
-            "tpu.dcn_slices > 1, RESDEPTH_DIST_* / RESDEPTH_DISTRIBUTED) is "
-            "ROADMAP.md section 1 item 10 (multi-GPU), not ported yet.")
-    if tpu.get("profile_dir"):
+    if cfg.tpu.get("profile_dir"):
         raise NotImplementedError(
             "tpu.profile_dir (a profiler trace of the first epoch) is "
             "ROADMAP.md section 1 item 11 (observability), not ported yet.")
@@ -99,6 +94,31 @@ def _build_datasets(cfg_data, cfg, strategy, dsm_std, images_mean, images_std,
                         permute_images_within_pair=permute, augment=augment,
                         seed=seed + i)
             for i, entry in enumerate(cfg_data)]
+
+
+def _choose_mesh(batch_size: int, data_parallel: bool, dcn_slices: int = 1):
+    """The data-parallel group over every process of the run and the
+    emitted batch size: ``batch_size`` padded with zero-weight samples to a
+    multiple of the world size, so every rank takes an equal shard and the
+    trajectory is that of ``batch_size`` (``train.py::_choose_mesh``). One
+    process: no group. ``tpu.data_parallel`` false under several processes
+    raises (each would train alone)."""
+    world = mesh.device_count()
+    if not data_parallel and world > 1:
+        raise ValueError(f"tpu.data_parallel is false in a run of {world} processes")
+    emit_size = mesh.pad_to_multiple(batch_size, world)
+    if dcn_slices > 1:
+        return mesh.data_mesh_2d(dcn_slices, world), emit_size
+    return mesh.data_mesh(world), emit_size
+
+
+def _mesh_shape(group, dcn_slices: int = 1) -> dict:
+    """The JAX mesh's shape for the log line: ``{'data': N}``, or
+    ``{'dcn': S, 'data': N / S}``."""
+    n = mesh.size(group)
+    if dcn_slices > 1:
+        return {mesh.DCN_AXIS: dcn_slices, mesh.DATA_AXIS: n // dcn_slices}
+    return {mesh.DATA_AXIS: n}
 
 
 def _warm_start_artifacts(pretrained_path, output_dir, checkpoint_dir,
@@ -167,25 +187,40 @@ def _close_file_handlers(logger: logging.Logger) -> None:
             handler.close()
 
 
-def main(argv=None) -> Trainer:
+def main(argv=None) -> Trainer | None:
     """Run the CLI; returns the finished Trainer (its ``val_history`` holds
-    the val MAE of each validated epoch)."""
+    the val MAE of each validated epoch), or None where this process only
+    started one process per GPU (``parallel.bootstrap.launch_per_gpu``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     cfg_file = args.config_file
 
     title = "Running ResDepth (PyTorch): Training"
     print("\n{}\n{}\n".format(title, "=" * len(title)))
 
+    # The env-triggered process group forms before the first CUDA access.
+    bootstrap.maybe_initialize_distributed(device=args.device)
     if not fs.file_exists(cfg_file):
         print(f"ERROR: Cannot find the configuration file: {cfg_file}")
         sys.exit(1)
     cfg_user = cfg_io.read_json(cfg_file)
     if not cfg_user:
         sys.exit(1)
+    tpu = cfg_user.get("tpu") or {}
+    bootstrap.maybe_initialize_distributed(tpu, device=args.device)
+    n_gpus = bootstrap.plain_launch_size(args.device, tpu.get("data_parallel", True))
+    if n_gpus > 1:
+        print(f"{n_gpus} GPUs: one training process each")
+        bootstrap.launch_per_gpu("resdepth_tpu_torch.train.cli", argv, n_gpus)
+        return None
 
-    output_directory = orchestration.create_output_directory(cfg_user)
-    log_file = os.path.join(output_directory, "run.log") if output_directory else None
-    logger = setup_logger("root_logger", level=logging.INFO,
+    # Only the chief makes the run directory; every rank learns its name.
+    chief = bootstrap.is_chief()
+    output_directory = bootstrap.broadcast_object(
+        orchestration.create_output_directory(cfg_user) if chief else None)
+    log_file = (os.path.join(output_directory, "run.log")
+                if output_directory and chief else None)
+    logger = setup_logger("root_logger", level=logging.INFO if chief else logging.WARNING,
                           log_to_console=True, log_file=log_file)
     try:
         return _train(args, cfg_file, cfg_user, output_directory, logger)
@@ -217,7 +252,8 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     np.random.seed(seed)
 
     check_ported(cfg)
-    device = resolve_device(args.device, cfg.tpu.data_parallel)
+    chief = bootstrap.is_chief()
+    device = resolve_device(args.device)
     train_precision = cfg.tpu.get("train_precision") or "high"
     policy, compute_dtype = select_train_precision(
         train_precision, cfg.tpu.get("compute_dtype"), device)
@@ -308,38 +344,44 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     banded_train = any(map(over_budget, train_datasets))
 
     # ----------------------- run artifacts / control files ----------------- #
+    # Only the chief writes (every rank computes the same values).
     logger.info("\nPrepare output folders and files\n--------------------------------\n")
     cfg.output.checkpoint_dir = os.path.join(output_directory, "checkpoints")
-    fs.make_dir(cfg.output.checkpoint_dir)
-    fs.make_dir(cfg.output.tboard_log_dir)
+    if chief:
+        fs.make_dir(cfg.output.checkpoint_dir)
+        fs.make_dir(cfg.output.tboard_log_dir)
     logger.info(f"\nModel weights will be stored in:\n{cfg.output.checkpoint_dir}\n")
 
     cfg.output.dsm_normalization = os.path.join(
         output_directory, "DSM_normalization_parameters.p")
-    control_files.write_normalization_params_to_file(
-        cfg.output.dsm_normalization, None, dsm_std)
+    if chief:
+        control_files.write_normalization_params_to_file(
+            cfg.output.dsm_normalization, None, dsm_std)
     logger.info(f"Writing DSM normalization parameters to file:\n"
                 f"{cfg.output.dsm_normalization}\n")
     if cfg.model.input_channels != "geom":
         cfg.output.satellite_image_normalization = os.path.join(
             output_directory, "Image_normalization_parameters.p")
-        control_files.write_normalization_params_to_file(
-            cfg.output.satellite_image_normalization, images_mean, images_std)
+        if chief:
+            control_files.write_normalization_params_to_file(
+                cfg.output.satellite_image_normalization, images_mean, images_std)
         logger.info(f"Writing satellite image normalization parameters to file:\n"
                     f"{cfg.output.satellite_image_normalization}\n")
 
-    cfg_io.write_json(cfg, os.path.join(output_directory, "config.json"))
-    cfg_io.write_json(cfg_user, os.path.join(output_directory, "config.json.orig"))
+    if chief:
+        cfg_io.write_json(cfg, os.path.join(output_directory, "config.json"))
+        cfg_io.write_json(cfg_user, os.path.join(output_directory, "config.json.orig"))
 
     # -------------------------------- model -------------------------------- #
     logger.info("\nPrepare training\n----------------\n")
     args_model = orchestration.collect_model_args(cfg)
-    cfg_io.write_json(args_model, os.path.join(output_directory, "model_config.json"))
+    if chief:
+        cfg_io.write_json(args_model, os.path.join(output_directory, "model_config.json"))
     model_config = unet_config_from_settings(args_model.settings)
     model = init_unet(model_config, torch.Generator().manual_seed(seed), device)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"UNet parameters: {n_params:,}")
-    if cfg.output.get("plot_model_txt"):
+    if cfg.output.get("plot_model_txt") and chief:
         path = os.path.join(output_directory, "model_parameters.txt")
         with open(path, "w") as f:
             f.write(f"{model}\n\ntotal parameters: {n_params:,}\n\n"
@@ -367,25 +409,33 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     if pretrained_path:
         resume_meta = restore(state, pretrained_path, model_config,
                               cfg.optimizer.name, logger)
-        _warm_start_artifacts(pretrained_path, output_directory,
-                              cfg.output.checkpoint_dir, cfg.output.tboard_log_dir)
+        if chief:
+            _warm_start_artifacts(pretrained_path, output_directory,
+                                  cfg.output.checkpoint_dir, cfg.output.tboard_log_dir)
 
     # -------------------------------- steps -------------------------------- #
     batch_size = cfg.training_settings.batch_size
+    group, emit_size = _choose_mesh(batch_size, cfg.tpu.data_parallel,
+                                    cfg.tpu.get("dcn_slices", 1))
+    logger.info(f"Data-parallel mesh: {_mesh_shape(group, cfg.tpu.get('dcn_slices', 1))}"
+                + (f" (batch {batch_size} zero-weight-padded to {emit_size})"
+                   if emit_size != batch_size else ""))
     # Sample weights enter the BatchNorm statistics only when a batch can
-    # carry zero-weight padding (a region whose size the batch does not
-    # divide, or a band's tail); with full batches the two are the same.
-    weighted_bn = (any(len(ds) % batch_size != 0 for ds in train_datasets)
+    # carry zero-weight padding (padding to the world size, a region whose
+    # size the batch does not divide, or a band's tail); with full batches
+    # the two are the same.
+    weighted_bn = (emit_size != batch_size
+                   or any(len(ds) % batch_size != 0 for ds in train_datasets)
                    or banded_train)
     steps_per_call = cfg.tpu.get("steps_per_call", 1)
     train_step = make_train_step(batch_spec_for(train_datasets[0]),
                                  weighted_bn=weighted_bn,
                                  remat=cfg.tpu.get("remat", False),
                                  ema_decay=ema_decay, compute_dtype=compute_dtype,
-                                 **policy)
+                                 group=group, **policy)
     # Validation runs the float32 policy at the compute dtype, whatever the
     # training precision, as train.py validates.
-    eval_step = make_eval_step(batch_spec_for(val_datasets[0]), compute_dtype)
+    eval_step = make_eval_step(batch_spec_for(val_datasets[0]), compute_dtype, group)
 
     def loaders(datasets, shuffle, seed_base, label):
         out = []
@@ -394,7 +444,8 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
                 try:
                     sub = banded.make_banded_loaders(
                         ds, batch_size, max_device_pixels=max_device_pixels,
-                        seed=seed_base + i, device=device, shuffle=shuffle)
+                        seed=seed_base + i, device=device, shuffle=shuffle,
+                        emit_size=emit_size)
                 except ValueError as exc:
                     logger.error(f"{label} region {i}: {exc}\n")
                     sys.exit(1)
@@ -404,7 +455,8 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
             else:
                 out.append((device_put_dataset(ds, device, include_target=True),
                             BatchIndexIterator(ds, batch_size, shuffle=shuffle,
-                                               seed=seed_base + i)))
+                                               seed=seed_base + i,
+                                               emit_size=emit_size)))
         return out
 
     hparams = {

@@ -1,5 +1,5 @@
-"""Train and eval steps on one device (port of ``resdepth_tpu/train/step.py``
-without the mesh).
+"""Train and eval steps, on one device or one rank of a data-parallel group
+(port of ``resdepth_tpu/train/step.py``).
 
 A train step assembles the batch on the device (``data.pipeline.
 build_batch``: gather, mask, normalise, augment), runs the UNet in training
@@ -20,6 +20,15 @@ operands; the gradients of each conv at its passes (``models/unet.py``,
 ``ops/passes.py``). ``tpu.compute_dtype`` 'bfloat16' casts the batch input
 to bfloat16: a bf16 trunk end to end on float32 weights. The master
 weights, Adam state and EMA stay float32.
+
+Under a ``torch.distributed`` group (``parallel.mesh``; the JAX step's
+``mesh``) every rank is handed the same global batch and keeps its
+contiguous shard, as ``P(axes)`` splits it; BatchNorm takes its statistics
+and the loss its denominator over the group; after the backward pass one
+all-reduce sums the gradients, flattened into one buffer, as the JAX step
+``psum``s them (each rank's loss already divides by the global
+denominator, so the sum is the gradient of the global mean). The ranks
+then take the same optimizer step on the same weights.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 from resdepth_tpu_torch.data.pipeline import BatchSpec, DeviceRasters, build_batch
 from resdepth_tpu_torch.models.unet import (Precision, UNet, apply_unet,
                                             commit_bn_state, serving_precision)
+from resdepth_tpu_torch.parallel import mesh
 from resdepth_tpu_torch.train.loss import denormalized_masked_l1
 from resdepth_tpu_torch.train.optim import build_optimizer, get_lr, set_lr
 
@@ -123,11 +133,37 @@ def _on(device, array, dtype=None) -> torch.Tensor:
     return torch.as_tensor(array, dtype=dtype).to(device)
 
 
+def shard(group, *arrays) -> tuple:
+    """This rank's contiguous share of each global batch array (axis 0),
+    as the JAX ``P(axes)`` splits it; the arrays themselves for None."""
+    n, r = mesh.size(group), mesh.rank(group)
+    if n == 1:
+        return arrays
+    size = len(arrays[0])
+    if size % n:
+        raise ValueError(f"a batch of {size} does not split over {n} ranks "
+                         "(pad it with zero-weight samples: emit_size)")
+    share = size // n
+    return tuple(a[r * share:(r + 1) * share] for a in arrays)
+
+
+def _all_reduce_grads(parameters, group) -> None:
+    """Sum every parameter's gradient over ``group`` in one all-reduce of
+    one flat buffer (a parameter without a gradient adds zeros)."""
+    params = [p for p in parameters if p.requires_grad]
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    mesh.all_reduce_(flat, group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
 def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
                     remat: bool = False, ema_decay: float = 0.0,
                     compute_dtype: torch.dtype = torch.float32, precision=None,
                     layer_precisions: dict | None = None,
-                    mixed_precision: bool = False, hifi_endpoints: bool = False):
+                    mixed_precision: bool = False, hifi_endpoints: bool = False,
+                    group=None):
     """Build the train step.
 
     ``step(state, rasters, positions, pair_idx, bounds, weights, generator)
@@ -142,6 +178,12 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
     ``compute_dtype`` is the batch input's dtype, and ``precision``,
     ``layer_precisions``, ``mixed_precision`` and ``hifi_endpoints`` are
     ``apply_unet``'s: the policy of ``select_train_precision``.
+
+    ``group`` (``parallel.mesh.data_mesh``) trains data-parallel: the step
+    is handed the global batch, whose size the group's ranks divide, and
+    runs this rank's shard (``shard``); ``generator`` should be seeded per
+    rank, as the JAX step folds in the axis index. The metric is the
+    global batch's.
 
     JAX's ``steps_per_call`` K > 1 scans K steps in one program to save
     dispatches; here K calls of this step in sequence are the same thing.
@@ -158,18 +200,23 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
         device = rasters.dsm_input.device
         model = state.model
         model.train()
+        positions, pair_idx, bounds, weights = shard(group, positions, pair_idx,
+                                                     bounds, weights)
         w = _on(device, weights, torch.float32)
         batch = build_batch(rasters, _on(device, positions), _on(device, pair_idx),
                             spec, bounds=_on(device, bounds), generator=generator)
         pred, bn_state = apply_unet(model, batch["input"].to(compute_dtype),
                                     train=True,
                                     sample_weights=w if weighted_bn else None,
-                                    remat=remat, **policy)
+                                    remat=remat, group=group, **policy)
         loss, (num, den) = denormalized_masked_l1(
             pred, batch["target"], batch["loss_mask"], batch["dsm_mean"],
-            spec.dsm_std, w)
+            spec.dsm_std, w, group)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            _all_reduce_grads(model.parameters(), group)
+            num, den = mesh.all_reduce_(torch.stack([num.detach(), den]), group)
         state.optimizer.step()
         commit_bn_state(model, bn_state)
         if ema_decay:
@@ -183,17 +230,21 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
     return step
 
 
-def make_eval_step(spec: BatchSpec, compute_dtype: torch.dtype = torch.float32):
+def make_eval_step(spec: BatchSpec, compute_dtype: torch.dtype = torch.float32,
+                   group=None):
     """Build the eval step: ``eval_step(model, rasters, positions, pair_idx,
     bounds, weights) -> (num, den)`` device scalars, the masked absolute
     error sum in meters and the valid-pixel count, with BatchNorm running
     statistics. It runs the float32 policy at ``compute_dtype`` whatever the
-    training precision, as ``train.py`` validates."""
+    training precision, as ``train.py`` validates. Under ``group`` each rank
+    runs its shard of the global batch and the sums are the global batch's."""
 
     @torch.no_grad()
     def eval_step(model: UNet, rasters: DeviceRasters, positions, pair_idx,
                   bounds, weights):
         device = rasters.dsm_input.device
+        positions, pair_idx, bounds, weights = shard(group, positions, pair_idx,
+                                                     bounds, weights)
         w = _on(device, weights, torch.float32)
         batch = build_batch(rasters, _on(device, positions), _on(device, pair_idx),
                             spec, bounds=_on(device, bounds))
@@ -201,6 +252,8 @@ def make_eval_step(spec: BatchSpec, compute_dtype: torch.dtype = torch.float32):
         _, (num, den) = denormalized_masked_l1(
             pred, batch["target"], batch["loss_mask"], batch["dsm_mean"],
             spec.dsm_std, w)
+        if group is not None:
+            num, den = mesh.all_reduce_(torch.stack([num, den]), group)
         return num, den
 
     return eval_step

@@ -1,5 +1,5 @@
 """Training engine: epoch loop, validation, checkpoints, metrics (port of
-``resdepth_tpu/train/trainer.py`` on one device).
+``resdepth_tpu/train/trainer.py``).
 
 As in the JAX package and the reference:
   * per epoch a train pass over every training region, validation every
@@ -18,10 +18,16 @@ Batch order is the JAX trainer's: each region's batches are grouped into
 ``np.random.default_rng(rng_seed)``, so the same seed visits the same
 batches in the same order. Under banded residency (``data/banded.py``) a
 loader is one raster window: ``group_chunks_by_loader`` keeps each
-loader's chunks together, so an epoch uploads each window once. Augmentation draws from a ``torch.Generator``
-on the device, seeded from ``(rng_seed, epoch)``, so a resumed run draws
-as an uninterrupted one would. Per-step metrics stay on the device until a
-logging point. One process, so this process writes every artifact.
+loader's chunks together, so an epoch uploads each window once.
+Augmentation draws from a ``torch.Generator`` on the device, seeded from
+``(rng_seed, epoch)`` and, past rank 0, the process's rank, so a resumed
+run draws as an uninterrupted one would. Per-step metrics stay on the
+device until a logging point.
+
+Under a multi-process launch (``parallel.bootstrap``) every process runs
+every step and every validation (the steps' all-reduces need all of them),
+and only the chief writes: checkpoints, metrics, ``training.log`` and the
+console lines; the others log warnings and errors alone.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from resdepth_tpu_torch.models.weights import (adam_moments_to_jax,
                                                jax_params_from_state_dict)
+from resdepth_tpu_torch.parallel.bootstrap import is_chief, process_index
 from resdepth_tpu_torch.train import checkpoint as ckpt_io
 from resdepth_tpu_torch.train.metrics import AverageMeter, MetricsWriter
 from resdepth_tpu_torch.train.step import TrainState
@@ -43,9 +50,11 @@ from resdepth_tpu_torch.utils import fs
 from resdepth_tpu_torch.utils.logging import setup_logger
 
 
-def epoch_seed(rng_seed: int, epoch: int) -> int:
-    """Seed of an epoch's augmentation generator."""
-    return int(np.random.SeedSequence([rng_seed, epoch]).generate_state(1)[0])
+def epoch_seed(rng_seed: int, epoch: int, rank: int = 0) -> int:
+    """Seed of an epoch's augmentation generator on the process of ``rank``
+    (rank 0 draws as one process does)."""
+    entropy = [rng_seed, epoch] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
 def checkpoint_trees(state: TrainState) -> dict:
@@ -95,14 +104,18 @@ class Trainer:
         self.freq_average_train_loss = freq_average_train_loss
         self.group_chunks_by_loader = group_chunks_by_loader
 
-        fs.make_dir(checkpoint_dir)
+        self.is_chief = is_chief()
+        if self.is_chief:
+            fs.make_dir(checkpoint_dir)
         self.checkpoint_dir = checkpoint_dir
         self.path_model_best = os.path.join(checkpoint_dir, "Model_best.npz")
         self.path_model_last = os.path.join(checkpoint_dir, "Model_last.npz")
 
-        self.logger = logger or setup_logger("train_logger", log_to_console=True,
-                                             log_file=log_file)
-        self.writer = MetricsWriter(tboard_log_dir, metrics_jsonl)
+        self.logger = logger or setup_logger(
+            "train_logger", level=logging.INFO if self.is_chief else logging.WARNING,
+            log_to_console=True, log_file=log_file if self.is_chief else None)
+        self.writer = (MetricsWriter(tboard_log_dir, metrics_jsonl) if self.is_chief
+                       else MetricsWriter(None, None))
         self._checkpointer = ckpt_io.AsyncCheckpointer()
         self.hparams = hparams or {}
 
@@ -200,7 +213,7 @@ class Trainer:
             device = rasters.dsm_input.device
             if device not in generators:
                 generators[device] = torch.Generator(device=device).manual_seed(
-                    epoch_seed(self.rng_seed, epoch))
+                    epoch_seed(self.rng_seed, epoch, process_index()))
             for positions, pair_idx, bounds, weights in chunk:
                 pending.append(self.train_step(self.state, rasters, positions,
                                                pair_idx, bounds, weights,
@@ -249,6 +262,8 @@ class Trainer:
         return loss
 
     def _save(self, path: str, epoch: int) -> None:
+        if not self.is_chief:
+            return
         # Host snapshots now; the file is written in the background.
         self._checkpointer.save(
             path, epoch=epoch, **checkpoint_trees(self.state), lr=self.state.lr,

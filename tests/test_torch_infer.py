@@ -326,7 +326,8 @@ def test_cuda_device_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict.resolve_device("cuda")
     assert predict.resolve_device("cpu") == torch.device("cpu")
+    # more than one GPU: this process's card, the one its rank bound
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        predict.resolve_device("cuda")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert predict.resolve_device("cuda") == torch.device("cuda", 1)

@@ -16,7 +16,9 @@
   resdepth_tpu_torch.predict`` and ``test.py``.
 * Knobs the port does not run yet raise, naming their ROADMAP.md item
   (the training precisions are ``test_torch_train_precision.py``'s);
-  ``tpu.max_device_pixels`` trains with banded residency.
+  ``tpu.distributed`` trains in a world of one process and
+  ``tpu.max_device_pixels`` with banded residency (multi-process worlds are
+  ``test_torch_parallel*.py``'s).
 
 Tolerances (f32 on the CPU; the two frameworks sum in different orders):
 the metric and BN statistics rtol 1e-5; weights after a step rtol 1e-5 and
@@ -48,6 +50,7 @@ from resdepth_tpu.train.step import make_train_step as jmake_step
 from resdepth_tpu_torch.data import pipeline as tpipe
 from resdepth_tpu_torch.models import unet as tunet
 from resdepth_tpu_torch.models import weights
+from resdepth_tpu_torch.parallel import bootstrap
 from resdepth_tpu_torch.train import checkpoint as tckpt
 from resdepth_tpu_torch.train import cli
 from resdepth_tpu_torch.train.step import init_train_state, make_train_step
@@ -414,21 +417,45 @@ def test_port_checkpoint_serves_in_both_clis(e2e_runs, monkeypatch):
                                atol=chip_smoke.ulps(out["jax"], SCENE_ULPS))
 
 
-@pytest.mark.parametrize("overrides,item", [
-    (dict(tpu={"distributed": True}), "item 10"),
-    (dict(tpu={"dcn_slices": 2}), "item 10"),
-    (dict(tpu={"profile_dir": "trace"}), "item 11"),
+@pytest.mark.parametrize("overrides,raises", [
+    (dict(tpu={"distributed": True}), None),
+    (dict(tpu={"dcn_slices": 2}), (ValueError, "1 devices not divisible into 2 slices")),
+    (dict(tpu={"profile_dir": "trace"}),
+     (NotImplementedError, "ROADMAP.md section 1 item 11")),
     (dict(tpu={"max_device_pixels": 2048}), None)],
     ids=["distributed", "dcn_slices", "profile_dir", "max_device_pixels"])
-def test_not_ported_knobs_raise(e2e_runs, tmp_path, overrides, item):
-    """Knobs not ported yet raise, naming their ROADMAP.md item; under
-    ``tpu.max_device_pixels`` (item 7, ported) every region over the budget
-    trains with banded residency and the run writes its checkpoints."""
+def test_not_ported_knobs_raise(e2e_runs, tmp_path, monkeypatch, overrides, raises):
+    """The knob not ported yet (``tpu.profile_dir``) raises, naming its
+    ROADMAP.md item. The multi-process knobs are item 10, ported:
+    ``tpu.distributed`` joins the process group through torchrun's
+    ``env://`` variables (here a world of one process over gloo, every
+    collective a copy) and trains; ``tpu.dcn_slices`` 2 over one process
+    raises as ``train.py``'s mesh does. Under ``tpu.max_device_pixels``
+    (item 7, ported) every region over the budget trains with banded
+    residency and the run writes its checkpoints."""
     root = str(tmp_path / "runs")
     config = _e2e_config(str(tmp_path), e2e_runs["scene"], root, None, **overrides)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1 {item}"):
+    if raises is not None:
+        with pytest.raises(raises[0], match=raises[1]):
             cli.main([config, "--device", "cpu"])
+        return
+    if "distributed" in overrides["tpu"]:
+        for name, value in (("MASTER_ADDR", "localhost"), ("RANK", "0"),
+                            ("WORLD_SIZE", "1"),
+                            ("MASTER_PORT", str(bootstrap.free_port()))):
+            monkeypatch.setenv(name, value)
+        try:
+            trainer = cli.main([config, "--device", "cpu"])
+            assert torch.distributed.get_world_size() == 1
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+        run = chip_smoke.run_dir_of(root, "e2e")
+        with open(os.path.join(run, "run.log")) as f:
+            assert "Data-parallel mesh: {'data': 1}" in f.read()
+        assert os.path.exists(os.path.join(run, "checkpoints", "Model_last.npz"))
+        assert [e for e, _ in trainer.val_history] == [0, 1]
+        assert np.isfinite([v for _, v in trainer.val_history]).all()
         return
     trainer = cli.main([config, "--device", "cpu"])
     run = chip_smoke.run_dir_of(root, "e2e")
@@ -446,6 +473,10 @@ def test_not_ported_knobs_raise(e2e_runs, tmp_path, overrides, item):
 
 
 def test_device_is_checked_before_training(e2e_runs, tmp_path, monkeypatch):
+    """``--device cuda`` without CUDA raises; with 2 visible GPUs a plain
+    launch hands the CLI to one process per GPU (``launch_per_gpu``,
+    recorded here, not run); ``RESDEPTH_DISTRIBUTED=1`` on the CPU joins
+    over gloo through ``env://`` before it trains (refused here)."""
     config = _e2e_config(str(tmp_path), e2e_runs["scene"], str(tmp_path / "runs"),
                          None, tpu={"data_parallel": True})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -453,11 +484,21 @@ def test_device_is_checked_before_training(e2e_runs, tmp_path, monkeypatch):
         cli.main([config])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main([config, "--device", "cuda"])
+    launches = []
+    monkeypatch.setattr(bootstrap, "launch_per_gpu", lambda *args: launches.append(args))
+    assert cli.main([config, "--device", "cuda"]) is None
+    assert launches == [("resdepth_tpu_torch.train.cli", [config, "--device", "cuda"], 2)]
     monkeypatch.setenv("RESDEPTH_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    inits = []
+
+    def refuse(backend, **kwargs):
+        inits.append((backend, kwargs["init_method"]))
+        raise RuntimeError("no torchrun cluster here")
+
+    monkeypatch.setattr(torch.distributed, "init_process_group", refuse)
+    with pytest.raises(RuntimeError, match="no torchrun cluster here"):
         cli.main([config, "--device", "cpu"])
+    assert inits == [("gloo", "env://")]
 
 
 def test_cli_auto_resumes_from_model_last(e2e_runs, tmp_path):

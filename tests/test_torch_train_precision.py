@@ -453,7 +453,7 @@ def test_cli_trains_the_demo_config(demo_run, monkeypatch):
     before = dict(conv.LAUNCHES)
     trainer = cli.main([demo_run["config"], "--device", "cpu"])
     assert conv.LAUNCHES == before
-    assert evals == [((torch.float32,), {})]
+    assert evals == [((torch.float32, None), {})]   # float32, no process group
     assert steps[0]["mixed_precision"] and steps[0]["hifi_endpoints"]
     assert steps[0]["compute_dtype"] == torch.float32
     assert [e for e, _ in trainer.val_history] == [0]
