@@ -66,7 +66,12 @@ found:
      (``k3_launches_a_step``: its forward and dx of every f32 conv with a
      pass count) and its time a step; K3 against its plain version at every
      call shape the steps hand it; "train-balanced16": the train CLI for an
-     epoch at 'balanced16', its ``Model_best.npz`` served;
+     epoch at 'balanced16', its ``Model_best.npz`` served; "profile": that
+     epoch traced through ``tpu.profile_dir`` (``utils/profiler.py``)
+     against its untraced twin (deterministic cuDNN): one ``train#N``
+     annotation a step, as many K3 kernels in the trace as counted,
+     ``Model_last.npz`` bitwise the twin's; then phase 7's float32 epoch
+     traced; each step's device-busy ms and host gap from the traces;
      "streaming-cli": the inference CLI's over-budget branch on that scene
      (``predict.MAX_DEVICE_PIXELS`` lowered: 3 row bands, K2), held against
      the resident scene; "train-banded": the ``Trainer`` for an epoch under
@@ -1795,6 +1800,17 @@ def _timed_train_steps():
         cli.make_train_step = original
 
 
+# Phase 7's train config (float32 'high'; the epochs are set where it is used).
+TRAIN_CLI = dict(
+    n_samples=TRAIN_SAMPLES,
+    training={"tile_size": TILE, "batch_size": TRAIN_BATCH, "augment": True},
+    stereopair_settings={"permute_images_within_pair": True},
+    optimizer={"name": "Adam", "learning_rate": 2e-4, "weight_decay": 1e-5},
+    scheduler={"enabled": True, "name": "StepLR",
+               "settings": {"step_size": 2, "gamma": 0.5}},
+    tpu={"train_precision": "high", "compute_dtype": "float32"})
+
+
 def phase_train(work: str, scene: dict) -> dict:
     """Train, resume and serve the flagship through the CLIs."""
     from resdepth_tpu_torch import train
@@ -1802,18 +1818,10 @@ def phase_train(work: str, scene: dict) -> dict:
 
     device = torch.device("cuda", 0)
     out_root = os.path.join(work, "runs")
-    common = dict(
-        n_samples=TRAIN_SAMPLES,
-        training={"tile_size": TILE, "batch_size": TRAIN_BATCH, "augment": True},
-        stereopair_settings={"permute_images_within_pair": True},
-        optimizer={"name": "Adam", "learning_rate": 2e-4, "weight_decay": 1e-5},
-        scheduler={"enabled": True, "name": "StepLR",
-                   "settings": {"step_size": 2, "gamma": 0.5}},
-        tpu={"train_precision": "high", "compute_dtype": "float32"})
     config = write_train_config(
         os.path.join(work, "train.json"), scene["paths"], out_root, suffix="first",
         general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
-        **{**common, "training": {**common["training"], "n_epochs": 2}})
+        **{**TRAIN_CLI, "training": {**TRAIN_CLI["training"], "n_epochs": 2}})
     torch.cuda.reset_peak_memory_stats(device)
     start = time.perf_counter()
     with _timed_train_steps() as records:
@@ -1843,7 +1851,7 @@ def phase_train(work: str, scene: dict) -> dict:
         model={"pretrained_path": os.path.join(first_run, "checkpoints",
                                                "Model_last.npz")},
         general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
-        **{**common, "training": {**common["training"], "n_epochs": 1}})
+        **{**TRAIN_CLI, "training": {**TRAIN_CLI["training"], "n_epochs": 1}})
     resumed = train.main([resume, "--device", "cuda"])
     second_run = run_dir_of(out_root, "resumed")
     if [e for e, _ in resumed.val_history] != [2] or resumed.start_epoch != 2:
@@ -2068,6 +2076,23 @@ def _train_k3_checks(shapes: dict, phase: str = "train-precisions") -> list:
     return rows
 
 
+def balanced16_cli_config(work: str, scene: dict, out_root: str, suffix: str,
+                          **tpu) -> str:
+    """Phase "train-balanced16-cli"'s train config: one epoch of
+    ``TRAIN_SAMPLES`` at ``tpu.train_precision`` 'balanced16', with ``tpu``
+    merged into its ``tpu`` section; runs go to ``out_root``."""
+    return write_train_config(
+        os.path.join(work, f"train_{suffix}.json"), scene["paths"], out_root,
+        suffix=suffix, n_samples=TRAIN_SAMPLES,
+        training={"tile_size": TILE, "batch_size": TRAIN_BATCH, "augment": True,
+                  "n_epochs": 1},
+        optimizer={"name": "Adam", "learning_rate": 2e-4, "weight_decay": 1e-5},
+        scheduler={"enabled": True, "name": "StepLR",
+                   "settings": {"step_size": 2, "gamma": 0.5}},
+        general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
+        tpu={"train_precision": "balanced16", **tpu})
+
+
 def phase_train_balanced16_cli(work: str, scene: dict) -> dict:
     """The train CLI for one epoch at ``tpu.train_precision: "balanced16"``
     (the K3 counters zeroed just before and read just after: 3 launches at
@@ -2077,16 +2102,7 @@ def phase_train_balanced16_cli(work: str, scene: dict) -> dict:
     from resdepth_tpu_torch.ops import conv, stitch
 
     out_root = os.path.join(work, "runs_balanced16")
-    config = write_train_config(
-        os.path.join(work, "train_balanced16.json"), scene["paths"], out_root,
-        suffix="balanced16", n_samples=TRAIN_SAMPLES,
-        training={"tile_size": TILE, "batch_size": TRAIN_BATCH, "augment": True,
-                  "n_epochs": 1},
-        optimizer={"name": "Adam", "learning_rate": 2e-4, "weight_decay": 1e-5},
-        scheduler={"enabled": True, "name": "StepLR",
-                   "settings": {"step_size": 2, "gamma": 0.5}},
-        general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
-        tpu={"train_precision": "balanced16"})
+    config = balanced16_cli_config(work, scene, out_root, "balanced16")
     for key in conv.LAUNCHES:
         conv.LAUNCHES[key] = 0
     start = time.perf_counter()
@@ -2118,6 +2134,283 @@ def phase_train_balanced16_cli(work: str, scene: dict) -> dict:
         f"({stitch.LAUNCHES['k1']} launches), scene finite, mean "
         f"{float(prediction.mean()):.2f} m")
     return {"wall_s": wall, "val": val, "launches": launches}
+
+
+def trace_steps(path: str) -> dict:
+    """Read a train trace (``utils/profiler.py``): its ``train#N`` step
+    annotations and device activity. Each kernel, copy and memset is given
+    to the last step whose device work began at or before it: a step's
+    device work begins with the first device op launched from inside its
+    annotation (runtime and driver calls link to their ops by
+    ``correlation``). Returns the annotation names, the K3 kernel count (by
+    name: launched through ctypes, K3 has no operator above it), and per
+    step its device-busy ms (the union of its ops' intervals), its device
+    span and the host gap before it: the device's idle time from the
+    previous step's last op (for the first step, from its annotation's
+    start) to this step's first."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("train#")),
+                   key=lambda e: e["ts"])
+    ops = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                         "gpu_memset")),
+                 key=lambda e: e["ts"])
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    begins = []
+    for step in steps:
+        inside = [op["ts"] for op in ops
+                  if step["ts"] <= launched.get(op.get("args", {}).get("correlation"), -1)
+                  <= step["ts"] + step["dur"]]
+        begins.append(min(inside) if inside else None)
+    if None in begins:
+        raise AssertionError(f"{path}: a step launched no device op: {begins}")
+    per_step = [[] for _ in steps]
+    for op in ops:
+        index = sum(1 for b in begins if b <= op["ts"]) - 1
+        if index >= 0:
+            per_step[index].append((op["ts"], op["ts"] + op["dur"]))
+    rows, previous_end = [], None
+    for step, begin, intervals in zip(steps, begins, per_step):
+        busy, reach = 0.0, begin
+        for start, end in intervals:
+            busy += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+        end = max(e for _, e in intervals)
+        gap_from = step["ts"] if previous_end is None else previous_end
+        rows.append({"name": step["name"], "busy_ms": busy / 1e3,
+                     "span_ms": (end - begin) / 1e3, "gap_ms": (begin - gap_from) / 1e3,
+                     "host_ms": step["dur"] / 1e3})
+        previous_end = end
+    return {"annotations": [s["name"] for s in steps], "steps": rows,
+            "k3": sum(1 for e in events if e.get("cat") == "kernel"
+                      and "conv3x3_k3_kernel" in str(e.get("name", "")))}
+
+
+def phase_profile(work: str, scene: dict) -> dict:
+    """The train CLI with ``tpu.profile_dir`` (``utils/profiler.py``) on the
+    2048^2 scene. One epoch at 'balanced16' (phase "train-balanced16-cli"'s
+    config) traced, and its untraced twin, both under deterministic cuDNN:
+    the trace parses, holds one ``train#N`` annotation a step and as many
+    K3 kernels as K3's counters counted (3 a step; the counters zeroed just
+    before each run and read just after), and the traced run's
+    ``Model_last.npz`` (weights, BatchNorm statistics, Adam moments) is
+    bitwise the twin's. Then phase 7's float32 'high' epoch traced. For
+    both traces, each step's device-busy ms and the host gap before it
+    (``trace_steps``)."""
+    from resdepth_tpu_torch import train
+    from resdepth_tpu_torch.ops import conv
+    from resdepth_tpu_torch.train import checkpoint as ckpt_io
+
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    runs = {}
+
+    def run(name, config, trace_dir):
+        for key in conv.LAUNCHES:
+            conv.LAUNCHES[key] = 0
+        start = time.perf_counter()
+        trainer = train.main([config, "--device", "cuda"])
+        wall = time.perf_counter() - start
+        runs[name] = {"wall": wall, "k3": dict(conv.LAUNCHES),
+                      "val": list(trainer.val_history),
+                      "last": ckpt_io.load_checkpoint(os.path.join(
+                          trainer.checkpoint_dir, "Model_last.npz"))}
+        if trace_dir:
+            files = os.listdir(trace_dir)
+            if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+                raise AssertionError(f"{name}: the trace directory holds {files}")
+            path = os.path.join(trace_dir, files[0])
+            start = time.perf_counter()
+            runs[name]["trace"] = trace_steps(path)
+            runs[name]["trace_mb"] = os.path.getsize(path) / 2**20
+            runs[name]["parse_s"] = time.perf_counter() - start
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, traced in (("balanced16", True), ("twin", False)):
+            trace_dir = os.path.join(work, f"trace_{name}") if traced else None
+            out_root = os.path.join(work, f"runs_profile_{name}")
+            run(name, balanced16_cli_config(work, scene, out_root, f"profile_{name}",
+                                            **({"profile_dir": trace_dir} if traced else {})),
+                trace_dir)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    trace_dir = os.path.join(work, "trace_high")
+    high = write_train_config(
+        os.path.join(work, "train_profile_high.json"), scene["paths"],
+        os.path.join(work, "runs_profile_high"), suffix="profile_high",
+        general={"evaluate_rate": 1, "save_model_rate": 3, "random_seed": SEED},
+        **{**TRAIN_CLI, "training": {**TRAIN_CLI["training"], "n_epochs": 1},
+           "tpu": {**TRAIN_CLI["tpu"], "profile_dir": trace_dir}})
+    run("high", high, trace_dir)
+
+    traced, twin = runs["balanced16"], runs["twin"]
+    want = [f"train#{i}" for i in range(steps)]
+    k3 = k3_launches_a_step("balanced16")[3] * steps
+    same = {tree: _same_trees(traced["last"][tree], twin["last"][tree])
+            for tree in ("params", "bn_state")}
+    same["adam"] = all(_same_trees(a, b) for a, b in zip(traced["last"]["adam"][:2],
+                                                        twin["last"]["adam"][:2]))
+    problems = []
+    for name in ("balanced16", "high"):
+        if sorted(runs[name]["trace"]["annotations"],
+                  key=lambda n: int(n.split("#")[1])) != want:
+            problems.append(f"{name} annotations {runs[name]['trace']['annotations']}")
+    if not (traced["k3"]["k3"] == traced["k3"]["k3_p3"] == twin["k3"]["k3_p3"]
+            == traced["trace"]["k3"] == k3):
+        problems.append(f"K3: counted {traced['k3']} traced, {twin['k3']} untraced, "
+                        f"{traced['trace']['k3']} kernels in the trace, expected {k3}")
+    if runs["high"]["trace"]["k3"] or runs["high"]["k3"]["k3"]:
+        problems.append(f"float32 'high' launched K3: {runs['high']['k3']}")
+    if not all(same.values()) or traced["val"] != twin["val"]:
+        problems.append(f"traced against untraced: bitwise {same}, val {traced['val']} / "
+                        f"{twin['val']}")
+    for name in ("balanced16", "high"):
+        r = runs[name]
+        log("profile", f"{name} epoch traced by the train CLI (tpu.profile_dir): trace "
+            f"{r['trace_mb']:.1f} MiB, parsed in {r['parse_s']:.1f} s, CLI wall "
+            f"{r['wall']:.1f} s; by step (train#N, from the trace): " + "; ".join(
+                f"{row['name']} device busy {row['busy_ms']:.2f} ms, span "
+                f"{row['span_ms']:.2f}, host gap before {row['gap_ms']:.2f}, host "
+                f"{row['host_ms']:.2f}" for row in r["trace"]["steps"]))
+    log("profile", f"balanced16 traced against its untraced twin, deterministic cuDNN: "
+        f"walls {traced['wall']:.1f} / {twin['wall']:.1f} s, K3 {traced['trace']['k3']} "
+        f"kernels in the trace, counted {traced['k3']['k3_p3']} at 3 passes, "
+        f"Model_last.npz bitwise {same}, val {traced['val']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"launches": {3: traced["k3"]["k3_p3"] + twin["k3"]["k3_p3"]},
+            "steps": {name: runs[name]["trace"]["steps"] for name in ("balanced16", "high")}}
+
+
+# Phase "channel-modes": the channel modes whose first conv is not 3 wide
+# (geom 1, geom-mono and stereo 2, geom-multiview 3-view 4), each with the
+# flagship's seeded random weights (``random_model``; no outer skip for
+# stereo) on a 1024^2 city with three views (``channel_modes_study``).
+CHANNEL_MODES = ("geom", "geom-mono", "stereo", "geom-multiview")
+CHANNEL_SCENE = 1024
+
+
+def phase_channel_modes(work: str) -> dict:
+    """For each of ``CHANNEL_MODES``: K3 against its plain version at the
+    mode's encoder0 conv (batch 128 of 256^2 tiles, Cin -> 64, relu) at 1
+    and 3 passes, within 1e-4 of the largest output (launches counted per
+    call, not on the path); the mode's seeded flagship serving the
+    ``CHANNEL_SCENE``^2 scene with K2 at float32 and 'balanced16' (rasters
+    resident; the counters zeroed just before a counted run and read just
+    after: K2 once a batch, K3 the mode's 'balanced16' launches a batch by
+    pass count, ``mode_k3_convs``; then the median of 3 timed runs, host
+    clock), tiles/s, 'balanced16''s mean deviation from float32; and a
+    512^2 crop refined at float32 on the card (K2) and on the CPU, within
+    ``CROP_ULPS`` f32 ulps of its largest height."""
+    from collections import Counter
+
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import predict_linear_blend, serving_model
+    from resdepth_tpu_torch.ops import conv, stitch
+    from resdepth_tpu_torch.studies import channel_modes_study as study
+
+    device = torch.device("cuda", 0)
+    generator = torch.Generator(device=device).manual_seed(SEED + 2)
+    scene = study.make_scene(os.path.join(work, "channel_modes"), TILE + 32, TILE + 32,
+                             CHANNEL_SCENE, SEED)
+    result, failures, k3_launches, k2_launches = {}, [], Counter(), 0
+    for mode in CHANNEL_MODES:
+        config = study.mode_config(mode)
+        r = {"cin": config.n_input_channels, "k3": {}}
+        for passes in (1, 3):
+            x, kernel, bias, slope = _conv_inputs(generator, device, torch.float32,
+                                                  CONV_BATCH, TILE, TILE,
+                                                  config.n_input_channels,
+                                                  config.start_kernel)
+            for key in conv.LAUNCHES:
+                conv.LAUNCHES[key] = 0
+            got = conv.conv3x3_bias_act(x, kernel, bias, act_fn="relu", passes=passes)
+            torch.cuda.synchronize()
+            counted = conv.LAUNCHES[f"k3_p{passes}"]
+            want = conv.conv3x3_bias_act_plain(x, kernel, bias, act_fn="relu",
+                                               passes=passes)
+            err = float((got - want).abs().max())
+            bar = 1e-4 * float(want.abs().max())
+            r["k3"][passes] = {"err": err, "bar": bar,
+                               **_conv_times(conv, x, kernel, bias, slope, "relu",
+                                             config.start_kernel, passes)}
+            if counted != 1 or not (np.isfinite(err) and err <= bar):
+                failures.append(f"{mode} K3 encoder0 at {passes} passes: max |diff| "
+                                f"{err} (bar {bar}), counted {counted}")
+            del x, got, want
+        model = random_model(config)
+        ds = study.dev_dataset(mode, scene, TILE)
+        rasters = device_put_dataset(ds, device)
+        n_batches = -(-len(ds.positions) // BATCH)
+        scenes = {}
+        for name in ("float32", "balanced16"):
+            dtype = predict.select_compute_dtype(name, device)
+            served = serving_model(model, device, dtype)
+
+            def scene_run():
+                return predict_linear_blend(served, ds, device=device, batch_size=BATCH,
+                                            compute_dtype=dtype, rasters=rasters,
+                                            use_pallas="fused", fold_bn=False)
+
+            for key in conv.LAUNCHES:
+                conv.LAUNCHES[key] = 0
+            for key in stitch.LAUNCHES:
+                stitch.LAUNCHES[key] = 0
+            scenes[name] = scene_run()
+            counts = ({p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)
+                       if conv.LAUNCHES[f"k3_p{p}"]}, stitch.LAUNCHES["k2"])
+            want = ({p: n * n_batches for p, n in Counter(
+                c[4] for c in mode_k3_convs(name, config)).items()}
+                    if name != "float32" else {}, n_batches)
+            if counts != want or not np.isfinite(scenes[name]).all():
+                failures.append(f"{mode} {name} scene: K3 and K2 launches {counts}, "
+                                f"expected {want}; finite {np.isfinite(scenes[name]).all()}")
+            k3_launches.update(counts[0])
+            k2_launches += counts[1]
+            walls = []
+            for _ in range(3):
+                start = time.perf_counter()
+                scene_run()
+                walls.append(time.perf_counter() - start)
+            r[f"{name}_tiles_per_s"] = len(ds.positions) / float(np.median(walls))
+        valid = scene["dev_gt"] != -9999.0
+        r["balanced16_dev_cm"] = 100 * float(
+            np.abs(scenes["balanced16"] - scenes["float32"])[valid].mean())
+
+        crop = study.dev_dataset(mode, scene, TILE, {"x_extent": [(0, CROP_SIZE - 1)],
+                                                     "y_extent": [(0, CROP_SIZE - 1)]})
+        outputs = {name: predict_linear_blend(model, crop, device=on, batch_size=BATCH,
+                                              compute_dtype=predict.select_compute_dtype(
+                                                  "float32", on), use_pallas="fused")
+                   for name, on in (("card", device), ("cpu", torch.device("cpu")))}
+        r["crop_err"] = float(np.abs(outputs["card"] - outputs["cpu"]).max())
+        r["crop_ulps"] = r["crop_err"] / ulps(outputs["cpu"], 1)
+        if not (np.isfinite(outputs["card"]).all() and r["crop_ulps"] <= CROP_ULPS):
+            failures.append(f"{mode} crop: card against CPU {r['crop_err']} m = "
+                            f"{r['crop_ulps']:.2f} ulps (bar {CROP_ULPS})")
+        result[mode] = r
+        del model, rasters
+        torch.cuda.empty_cache()
+    log("channel-modes", f"seeded flagship at each channel mode, {CHANNEL_SCENE}^2 scene "
+        f"({n_batches} batch of up to {BATCH}), K2: " + "; ".join(
+            f"{m} (Cin {r['cin']}): K3 encoder0 {CONV_BATCH}x{TILE}^2 {r['cin']}->64 relu "
+            + ", ".join(f"{p} pass{'es' if p > 1 else ''} max |diff| {k['err']:.3g} (bar "
+                        f"{k['bar']:.3g}), K3 {k['ms']:.3f} ms, plain {k['plain_ms']:.3f}, "
+                        f"library {k['library_ms']:.3f}, bound {k['bound_ms']:.3f} "
+                        f"({k['bound_by']})" for p, k in r["k3"].items())
+            + f"; serving float32 {r['float32_tiles_per_s']:.1f} tiles/s, balanced16 "
+            f"{r['balanced16_tiles_per_s']:.1f} tiles/s (host clock, median of 3), "
+            f"balanced16 mean |dev| from float32 {r['balanced16_dev_cm']:.4f} cm; "
+            f"{CROP_SIZE}^2 crop float32 card (K2) vs CPU max |diff| {r['crop_err']:.3g} m "
+            f"= {r['crop_ulps']:.2f} ulps (bar {CROP_ULPS})" for m, r in result.items())
+        + f"; counted launches K3 {dict(k3_launches)}, K2 {k2_launches}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"modes": result, "launches": {**k3_launches, "k2": k2_launches}}
 
 
 # Phase "train-banded": one epoch of the 2048^2 training scene (4 raster
@@ -2197,9 +2490,9 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
         epoch = trainer.train_one_epoch
         walls = []
 
-        def timed_epoch(index):
+        def timed_epoch(index, **kwargs):
             start = time.perf_counter()
-            meter = epoch(index)
+            meter = epoch(index, **kwargs)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - start)
             return meter
@@ -3094,6 +3387,7 @@ def main(argv: list | None = None) -> int:
     phase_modes_cli(WORK_DIR, scene, model)
 
     convs = phase_conv()
+    channel_modes = phase_channel_modes(WORK_DIR)
     start = time.perf_counter()
     train_scene = write_scene(os.path.join(WORK_DIR, "train_scene"), TRAIN_SCENE,
                               TRAIN_SCENE)
@@ -3102,6 +3396,7 @@ def main(argv: list | None = None) -> int:
     phase_train(WORK_DIR, train_scene)
     train_precisions = phase_train_precisions(train_scene)
     phase_train_balanced16_cli(WORK_DIR, train_scene)
+    profile = phase_profile(WORK_DIR, train_scene)
     streaming_cli = phase_streaming_cli(WORK_DIR, train_scene)
     banded = phase_train_banded(WORK_DIR, train_scene, train_precisions["policies"])
     phase_train_vs_cpu(train_scene)
@@ -3111,20 +3406,22 @@ def main(argv: list | None = None) -> int:
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1 and K2 with their launches on the CLI runs (phase 4), the
-    # streamed scenes (phases streaming and streaming-cli) and the ranks'
-    # scenes (phases dp-nccl-1 and dp-2-on-1).
+    # streamed scenes (phases streaming and streaming-cli), the channel
+    # modes' scenes (phase channel-modes) and the ranks' scenes (phases
+    # dp-nccl-1 and dp-2-on-1).
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": replaces,
          "launches": (flagship["launches"][key] + streaming["launches"][key]
                       + streaming_cli["launches"][key]
+                      + channel_modes["launches"].get(key, 0)
                       + dp_nccl["launches"].get(key, 0) + dp_ranks["launches"][key]),
          **{f: kernels[key][f] for f in fields}}
         for key, (name, replaces) in KERNELS.items()]}
     # K3 once per float32 pass count, with its launches on the mode paths
-    # (phases modes and streaming), the train steps (phases
-    # train-precisions and train-banded) and the ranks' training and serving
-    # (phases dp-nccl-1 and dp-2-on-1), and its times and bound over one
+    # (phases modes, streaming and channel-modes), the train steps (phases
+    # train-precisions, profile and train-banded) and the ranks' training
+    # and serving (phases dp-nccl-1 and dp-2-on-1), and its times and bound over one
     # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
     # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
     # times each shape's once.
@@ -3135,7 +3432,7 @@ def main(argv: list | None = None) -> int:
          "route": "cuda", "source": source, "replaces": replaces,
          "launches": (sum(phase["launches"].get(r["passes"], 0)
                           for phase in (modes, train_precisions, streaming, banded,
-                                        dp_nccl, dp_ranks))
+                                        channel_modes, profile, dp_nccl, dp_ranks))
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
         for key, r in convs.items()]

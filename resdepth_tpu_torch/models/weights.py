@@ -358,3 +358,17 @@ def load_state_dict(path: str, config: UNetConfig) -> dict:
         return read_pth_state_dict(path)
     trees = read_npz_trees(path)
     return state_dict_from_jax_params(trees["params"], trees["bn_state"], config)
+
+
+def export_checkpoint(path: str, model_or_state_dict, *, epoch: int = 0,
+                      loss_train=None, loss_val=None) -> None:
+    """Write a reference-compatible ``.pth`` checkpoint: ``epoch``,
+    ``model_state_dict`` (reference keys, on the CPU), ``loss_train`` and
+    ``loss_val``, the payload of ``torch_import.py::export_checkpoint``
+    (``lib/Trainer.py``'s, without the optimizer state). Takes a ``UNet``
+    or its state_dict."""
+    sd = (model_or_state_dict.state_dict() if isinstance(model_or_state_dict, torch.nn.Module)
+          else model_or_state_dict)
+    torch.save({"epoch": epoch,
+                "model_state_dict": {k: v.detach().cpu() for k, v in sd.items()},
+                "loss_train": loss_train, "loss_val": loss_val}, path)

@@ -39,7 +39,7 @@ MODES = ("float32", "bfloat16", "mixed", "fast32", "act2pass", "balanced",
          "balanced16")
 
 
-def _device_name(device: torch.device) -> str:
+def device_name(device: torch.device) -> str:
     if device.type != "cuda":
         return "cpu"
     try:
@@ -114,10 +114,11 @@ def _train(config, train_ds, device, steps: int, batch: int, seed: int,
     return model, float(maes[0]), float(maes[-1])
 
 
-def _tiles_per_s(served, mode, device, batch: int, tile: int, n_in: int) -> float:
+def tiles_per_s(served, mode, device, batch: int, tile: int, n_in: int,
+                 iters: int = 3) -> float:
     """Forward throughput of the served model at ``batch`` tiles: the best
-    of 3 timings of 3 forwards each, after a warm-up, on the host clock
-    around synchronised runs."""
+    of 3 timings of ``iters`` forwards each, after a warm-up, on the host
+    clock around synchronised runs."""
     from resdepth_tpu_torch.infer.tiled import _storage
     from resdepth_tpu_torch.models.unet import apply_unet
 
@@ -128,7 +129,7 @@ def _tiles_per_s(served, mode, device, batch: int, tile: int, n_in: int) -> floa
 
     def run():
         with torch.inference_mode():
-            for _ in range(3):
+            for _ in range(iters):
                 apply_unet(served, x, **kwargs)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -139,7 +140,7 @@ def _tiles_per_s(served, mode, device, batch: int, tile: int, n_in: int) -> floa
         start = time.perf_counter()
         run()
         best = min(best, time.perf_counter() - start)
-    return 3 * batch / best
+    return iters * batch / best
 
 
 def _card_vs_cpu_shares(model, test_ds, device) -> dict:
@@ -212,7 +213,7 @@ def main(argv=None) -> list:
         config = UNetConfig(n_input_channels=config.n_input_channels,
                             depth=args.depth, start_kernel=args.start_kernel,
                             max_filter_depth=max(args.start_kernel, 8 * args.start_kernel))
-    name = _device_name(device)
+    name = device_name(device)
     print(f"[study] device {name}; {args.steps} training steps at train_precision "
           f"{args.train_precision}, batch {args.batch}, {args.rows}x{args.cols} "
           f"scenes, seeds {args.seeds}", flush=True)
@@ -236,8 +237,8 @@ def main(argv=None) -> list:
                                                      batch_size=128, compute_dtype=dtype,
                                                      fold_bn=False)
                 if not rates.get(mode):
-                    rates[mode] = _tiles_per_s(served, mode, device, args.bench_batch,
-                                               args.tile, config.n_input_channels)
+                    rates[mode] = tiles_per_s(served, mode, device, args.bench_batch,
+                                              args.tile, config.n_input_channels)
             shares = (_card_vs_cpu_shares(model, test_ds, device)
                       if device.type == "cuda" else {})
         valid = gt != -9999.0

@@ -29,9 +29,10 @@ reduces over it flat. Only rank 0 writes the run directory.
 ``train.py`` takes (``train.step.select_train_precision``); validation runs
 the float32 policy at the compute dtype. A region whose rasters exceed
 ``tpu.max_device_pixels`` trains with banded residency (``data/banded.py``:
-the rasters in host RAM, one window on the device at a time). Not ported
-yet, raising an error that names its ROADMAP.md item: a profiler trace
-(``tpu.profile_dir``, item 11).
+the rasters in host RAM, one window on the device at a time).
+``tpu.profile_dir`` traces the first trained epoch with ``torch.profiler``
+into that directory, one Chrome trace JSON file a process
+(``utils/profiler.py``), as ``train.py`` traces it with ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -74,13 +75,6 @@ parser = ArgumentParser(description="ResDepth on PyTorch: train a residual DSM "
 parser.add_argument("config_file", type=str, help="JSON configuration file")
 parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device that trains (default: cuda)")
-
-def check_ported(cfg) -> None:
-    """Raise for the ``tpu`` knobs this port does not run yet."""
-    if cfg.tpu.get("profile_dir"):
-        raise NotImplementedError(
-            "tpu.profile_dir (a profiler trace of the first epoch) is "
-            "ROADMAP.md section 1 item 11 (observability), not ported yet.")
 
 
 def _build_datasets(cfg_data, cfg, strategy, dsm_std, images_mean, images_std,
@@ -251,7 +245,6 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     seed = cfg.general.random_seed if cfg.general.random_seed is not None else 0
     np.random.seed(seed)
 
-    check_ported(cfg)
     chief = bootstrap.is_chief()
     device = resolve_device(args.device)
     train_precision = cfg.tpu.get("train_precision") or "high"
@@ -482,7 +475,8 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
         metrics_jsonl=os.path.join(output_directory, "metrics.jsonl"),
         hparams=hparams, rng_seed=seed,
         # Each band's batches together: one window upload a band an epoch.
-        group_chunks_by_loader=banded_train)
+        group_chunks_by_loader=banded_train,
+        profile_dir=cfg.tpu.get("profile_dir") or None)
 
     if resume_meta is not None:
         trainer.resume_from(resume_meta)

@@ -24,6 +24,11 @@ Augmentation draws from a ``torch.Generator`` on the device, seeded from
 run draws as an uninterrupted one would. Per-step metrics stay on the
 device until a logging point.
 
+With ``profile_dir`` the first trained epoch runs under
+``utils.profiler.trace`` (as the JAX trainer traces it), each of its steps
+under ``step_annotation("train", step)``, ``step`` the run's 0-based step
+index; validation is not traced. Tracing changes no result.
+
 Under a multi-process launch (``parallel.bootstrap``) every process runs
 every step and every validation (the steps' all-reduces need all of them),
 and only the chief writes: checkpoints, metrics, ``training.log`` and the
@@ -32,6 +37,7 @@ console lines; the others log warnings and errors alone.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -46,7 +52,7 @@ from resdepth_tpu_torch.parallel.bootstrap import is_chief, process_index
 from resdepth_tpu_torch.train import checkpoint as ckpt_io
 from resdepth_tpu_torch.train.metrics import AverageMeter, MetricsWriter
 from resdepth_tpu_torch.train.step import TrainState
-from resdepth_tpu_torch.utils import fs
+from resdepth_tpu_torch.utils import fs, profiler
 from resdepth_tpu_torch.utils.logging import setup_logger
 
 
@@ -84,13 +90,15 @@ class Trainer:
                  tboard_log_dir: str | None = None,
                  metrics_jsonl: str | None = None, hparams: dict | None = None,
                  rng_seed: int = 0, logger: logging.Logger | None = None,
-                 group_chunks_by_loader: bool = False):
+                 group_chunks_by_loader: bool = False,
+                 profile_dir: str | None = None):
         """``train_loaders`` / ``val_loaders``: lists of ``(rasters,
         iterator)`` pairs, one per dataset region or raster window. Element
         0 is ``DeviceRasters`` or a provider with ``resolve()`` and
         ``release()`` (``data/banded.py``: ``BandWindow``, ``FullResident``),
         resolved per chunk; element 1 yields index batches
-        (``BatchIndexIterator``)."""
+        (``BatchIndexIterator``). ``profile_dir``: trace the first trained
+        epoch into this directory (``utils/profiler.py``)."""
         self.state = state
         self.train_step = train_step
         self.eval_step = eval_step
@@ -103,6 +111,7 @@ class Trainer:
         self.save_model_rate = save_model_rate
         self.freq_average_train_loss = freq_average_train_loss
         self.group_chunks_by_loader = group_chunks_by_loader
+        self.profile_dir = profile_dir
 
         self.is_chief = is_chief()
         if self.is_chief:
@@ -201,7 +210,9 @@ class Trainer:
             meter.update(float(value))
         pending.clear()
 
-    def train_one_epoch(self, epoch: int) -> AverageMeter:
+    def train_one_epoch(self, epoch: int, annotate: bool = False) -> AverageMeter:
+        """One pass over the training loaders; with ``annotate`` each step
+        runs under ``profiler.step_annotation("train", step)``."""
         meter = AverageMeter()
         pending = []  # device scalars, fetched at logging points
         chunks = self._epoch_chunks(self.train_loaders)
@@ -215,9 +226,11 @@ class Trainer:
                 generators[device] = torch.Generator(device=device).manual_seed(
                     epoch_seed(self.rng_seed, epoch, process_index()))
             for positions, pair_idx, bounds, weights in chunk:
-                pending.append(self.train_step(self.state, rasters, positions,
-                                               pair_idx, bounds, weights,
-                                               generators[device]))
+                with (profiler.step_annotation("train", num_iter * epoch + c_iter + 1)
+                      if annotate else contextlib.nullcontext()):
+                    pending.append(self.train_step(self.state, rasters, positions,
+                                                   pair_idx, bounds, weights,
+                                                   generators[device]))
                 c_iter += 1
             if len(pending) >= self.freq_average_train_loss:
                 self._drain(pending, meter)
@@ -279,7 +292,11 @@ class Trainer:
         for epoch in range(self.start_epoch, self.n_epochs):
             header = f"Epoch {epoch}/{self.n_epochs - 1}"
             self.logger.info("\n{}\n{}\n".format(header, "-" * len(header)))
-            self.train_one_epoch(epoch)
+            # Trace the first trained epoch when a trace directory is set.
+            traced = bool(self.profile_dir) and epoch == self.start_epoch
+            with profiler.trace(self.profile_dir if traced else None,
+                                next(self.state.model.parameters()).device):
+                self.train_one_epoch(epoch, annotate=traced)
 
             if (epoch + 1) % self.evaluate_rate == 0:
                 val_loss = self.validate(epoch)

@@ -17,8 +17,8 @@ bf16 once; the plain version also rounds the conv before the bias).
 The CUDA path's operands (``kernel_operands``: Cin zero-padded to a
 multiple of 16, weights re-laid as (9, Cout, Cin_p), the float32 hi/lo
 split) are held against JAX too, through the kernel's GEMM written out in
-float64 here, at channel counts that need the padding (Cin 3 and 5, Cout
-7).
+float64 here, at channel counts that need the padding (Cin 1, 2, 3, 4 and
+5, Cout 7 and 64: the first convs of the channel modes among them).
 """
 
 import jax.numpy as jnp
@@ -75,6 +75,11 @@ def _jax(x, k, b, ap, act, block_rows=8, dtype=jnp.float32):
     ((1, 16, 16, 64, 32), "relu"),
     ((2, 16, 16, 3, 7), "relu"),
     ((1, 16, 16, 5, 7), "prelu"),
+    # encoder0 of the channel modes geom (1), geom-mono and stereo (2),
+    # geom-multiview 3-view (4): Cin -> 64, relu
+    ((2, 16, 16, 1, 64), "relu"),
+    ((2, 16, 16, 2, 64), "relu"),
+    ((2, 16, 16, 4, 64), "relu"),
 ])
 def test_plain_matches_jax_kernel(shape, act):
     inputs = _inputs(shape, act)
@@ -132,7 +137,9 @@ def _gemm_from_operands(x_hi, x_lo, w_hi, w_lo):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,act", [
     ((2, 16, 16, 3, 7), "relu"), ((1, 16, 16, 5, 7), "prelu"),
-    ((1, 16, 32, 16, 8), "lrelu"), ((1, 16, 16, 20, 64), "none")])
+    ((1, 16, 32, 16, 8), "lrelu"), ((1, 16, 16, 20, 64), "none"),
+    ((2, 16, 16, 1, 64), "relu"), ((2, 16, 16, 2, 64), "relu"),
+    ((2, 16, 16, 4, 64), "relu")])
 def test_kernel_operands_match_jax_kernel(shape, act, dtype):
     """The operands the CUDA path hands K3 (Cin padded to 16, weights re-laid
     (9, Cout, Cin_p), the float32 split) give the JAX kernel's result

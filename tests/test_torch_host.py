@@ -107,7 +107,10 @@ def test_import_guard_sees_every_port_module():
     for path in ("chip_smoke.py", "resdepth_tpu_torch/geo/tiff.py",
                  "resdepth_tpu_torch/config/validate_train.py",
                  "resdepth_tpu_torch/data/dataset.py", "resdepth_tpu_torch/ops/conv.py",
-                 "resdepth_tpu_torch/utils/synth.py"):
+                 "resdepth_tpu_torch/utils/synth.py", "resdepth_tpu_torch/utils/profiler.py",
+                 "resdepth_tpu_torch/export_torch.py",
+                 "resdepth_tpu_torch/studies/convergence_study.py",
+                 "resdepth_tpu_torch/studies/channel_modes_study.py"):
         assert path in PORT_FILES
 
 

@@ -14,11 +14,12 @@
   per-epoch val MAE and final weights, write the same artifact set, and the
   port's ``Model_best.npz`` serves through ``python -m
   resdepth_tpu_torch.predict`` and ``test.py``.
-* Knobs the port does not run yet raise, naming their ROADMAP.md item
-  (the training precisions are ``test_torch_train_precision.py``'s);
-  ``tpu.distributed`` trains in a world of one process and
-  ``tpu.max_device_pixels`` with banded residency (multi-process worlds are
-  ``test_torch_parallel*.py``'s).
+* The ``tpu`` knobs (the training precisions are
+  ``test_torch_train_precision.py``'s): ``tpu.profile_dir`` writes a trace
+  and changes no weight, ``tpu.distributed`` trains in a world of one
+  process, ``tpu.dcn_slices`` 2 over one process raises and
+  ``tpu.max_device_pixels`` trains with banded residency (multi-process
+  worlds are ``test_torch_parallel*.py``'s).
 
 Tolerances (f32 on the CPU; the two frameworks sum in different orders):
 the metric and BN statistics rtol 1e-5; weights after a step rtol 1e-5 and
@@ -420,13 +421,14 @@ def test_port_checkpoint_serves_in_both_clis(e2e_runs, monkeypatch):
 @pytest.mark.parametrize("overrides,raises", [
     (dict(tpu={"distributed": True}), None),
     (dict(tpu={"dcn_slices": 2}), (ValueError, "1 devices not divisible into 2 slices")),
-    (dict(tpu={"profile_dir": "trace"}),
-     (NotImplementedError, "ROADMAP.md section 1 item 11")),
+    (dict(tpu={"profile_dir": "trace"}), None),
     (dict(tpu={"max_device_pixels": 2048}), None)],
     ids=["distributed", "dcn_slices", "profile_dir", "max_device_pixels"])
 def test_not_ported_knobs_raise(e2e_runs, tmp_path, monkeypatch, overrides, raises):
-    """The knob not ported yet (``tpu.profile_dir``) raises, naming its
-    ROADMAP.md item. The multi-process knobs are item 10, ported:
+    """The ``tpu`` knobs of ROADMAP.md's items 7, 10 and 11, ported.
+    ``tpu.profile_dir`` (item 11) trains, writes a trace of the first
+    epoch with one ``train#N`` annotation a step, and leaves
+    ``Model_last.npz`` bitwise its untraced twin's. The multi-process knobs are item 10:
     ``tpu.distributed`` joins the process group through torchrun's
     ``env://`` variables (here a world of one process over gloo, every
     collective a copy) and trains; ``tpu.dcn_slices`` 2 over one process
@@ -434,7 +436,30 @@ def test_not_ported_knobs_raise(e2e_runs, tmp_path, monkeypatch, overrides, rais
     (item 7, ported) every region over the budget trains with banded
     residency and the run writes its checkpoints."""
     root = str(tmp_path / "runs")
+    if "profile_dir" in overrides["tpu"]:
+        overrides = dict(tpu={"profile_dir": str(tmp_path / "trace")})
     config = _e2e_config(str(tmp_path), e2e_runs["scene"], root, None, **overrides)
+    if "profile_dir" in overrides["tpu"]:
+        traced = cli.main([config, "--device", "cpu"])
+        twin_root = str(tmp_path / "twin")
+        twin = cli.main([_e2e_config(str(tmp_path), e2e_runs["scene"], twin_root, None),
+                         "--device", "cpu"])
+        traces = os.listdir(tmp_path / "trace")
+        assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+        with open(tmp_path / "trace" / traces[0]) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation" and e["name"].startswith("train#")]
+        assert sorted(names, key=lambda n: int(n.split("#")[1])) == [
+            f"train#{i}" for i in range(6)]    # epoch 0's 6 steps
+        assert traced.val_history == twin.val_history
+        last = [tckpt.load_checkpoint(os.path.join(chip_smoke.run_dir_of(r, "e2e"),
+                                                   "checkpoints", "Model_last.npz"))
+                for r in (root, twin_root)]
+        for tree in ("params", "bn_state"):
+            a, b = (weights.flatten_keystr(c[tree]) for c in last)
+            assert a.keys() == b.keys()
+            assert all(np.array_equal(a[k], b[k]) for k in a), tree
+        return
     if raises is not None:
         with pytest.raises(raises[0], match=raises[1]):
             cli.main([config, "--device", "cpu"])
