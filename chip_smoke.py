@@ -87,7 +87,18 @@ found:
      per tensor for float32 'high'; for the policies that round operands to
      bf16, their BatchNorm statistics within a share of their own gap to
      the float32 step (``TRAIN_ROUNDED_SHARE``);
-  9. data parallelism (``parallel/``: one process per GPU): "dp-nccl-1"
+  9. studies and CLI cases (``resdepth_tpu_torch/studies``), every
+     kernel call held to its plain version as it is made (``held_kernels``):
+     "studies" writes ``precision_study``'s state cache and reads it back
+     bitwise, runs its ``--attrib`` (K3 at 3 and 1 passes), the stride and
+     TTA x stride studies on a 1024^2 city (K2 bitwise, K3 in
+     'balanced16'), the bilinear study at 8 steps, the train-throughput
+     study and ``train_roofline --measure`` at one mode and batch;
+     "config-smoke" runs 3 cases of ``studies/config_smoke.py`` (seed 21:
+     narrow models on 16- and 32-px tiles, so K3 at 4 and 8 output
+     channels and 16-px images, K1 on 16-px windows) through the CLIs, then
+     serves each again with K2;
+ 10. data parallelism (``parallel/``: one process per GPU): "dp-nccl-1"
      runs the train CLI (an epoch, 'balanced16') and the inference CLI in a
      world of one process over NCCL that ``RESDEPTH_DIST_*`` forms, each
      bitwise its run without a process group; "dp-2-on-1" starts two
@@ -97,6 +108,8 @@ found:
      scene tile-sharded with K1, K2 and K3 in both ranks, and scene-sharded
      against the streamed scene.
 
+``python3 chip_smoke.py --phase studies --phase config-smoke`` runs phases
+1 and 2 and the phases named, and prints no result line.
 ``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
 kernels' times over the scene's batches alone, and prints no result line:
 run in two checkouts in one call, it compares their stitches on one card.
@@ -2413,6 +2426,248 @@ def phase_channel_modes(work: str) -> dict:
     return {"modes": result, "launches": {**k3_launches, "k2": k2_launches}}
 
 
+# Phases "studies" and "config-smoke": the studies of
+# ``resdepth_tpu_torch/studies`` at small sizes, and sampled CLI cases of
+# narrow models, with every kernel call held to its plain version.
+STUDY_STEPS = 24                 # training steps of the state cache
+STUDY_SCENE = 1024               # the stride and TTA x stride studies' city
+SMOKE_SEED, SMOKE_CASES = 21, 3  # config_smoke's draws: 16-px tiles, Cout 4 and 8
+
+
+def _zero_counters() -> None:
+    from resdepth_tpu_torch.ops import conv, stitch
+
+    for counters in (conv.LAUNCHES, stitch.LAUNCHES):
+        for key in counters:
+            counters[key] = 0
+
+
+def _read_counters() -> dict:
+    """The launches since ``_zero_counters``: K3 by float32 pass count
+    (1, 2, 3) and "k1", "k2"."""
+    from resdepth_tpu_torch.ops import conv, stitch
+
+    counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3) if conv.LAUNCHES[f"k3_p{p}"]}
+    counts.update(stitch.LAUNCHES)
+    return counts
+
+
+@contextlib.contextmanager
+def held_kernels(record: dict):
+    """While the block runs, every kernel call on the card is held to its
+    plain version on the same inputs, as it is made: K3 (its wrapper as
+    ``models.unet`` and ``ops.passes`` call it) to ``conv3x3_bias_act_plain``
+    within 1e-4 of the largest output, K2 bitwise and K1 within
+    ``k1_ulps`` of the cover to the plain stitch on the CPU over a copy of
+    the canvas. The plain versions launch no kernel, so the counters see
+    only the path's launches. ``record["k3"]`` gets ``(x shape, Cout,
+    passes, err, bar)`` a call, ``record["k1"]``/``["k2"]`` ``(tile,
+    batch, canvas shape, err, bar)``; a call out of its bar raises."""
+    from unittest import mock
+
+    from resdepth_tpu_torch.models import unet
+    from resdepth_tpu_torch.ops import conv, stitch
+
+    k3, stitch_call = conv.conv3x3_bias_act, stitch.stitch_tiles
+    for key in ("k1", "k2", "k3"):
+        record.setdefault(key, [])
+
+    def k3_held(x, kernel, bias=None, act_param=None, *, act_fn="relu", passes=None):
+        y = k3(x, kernel, bias, act_param, act_fn=act_fn, passes=passes)
+        if x.device.type == "cuda":
+            want = conv.conv3x3_bias_act_plain(x, kernel, bias, act_param, act_fn=act_fn,
+                                               passes=passes)
+            err = float((y.float() - want.float()).abs().max())
+            bar = 1e-4 * float(want.abs().max())
+            record["k3"].append((tuple(x.shape), int(kernel.shape[3]), passes, err, bar))
+            if not err <= bar:
+                raise AssertionError(f"K3 at {tuple(x.shape)} -> {kernel.shape[3]} "
+                                     f"({passes} passes): max |diff| {err} above {bar}")
+        return y
+
+    def stitch_held(scene, tiles, positions, wy, wx, means, sigma, use_pallas=None,
+                    bounds=None):
+        if scene.device.type != "cuda":
+            return stitch_call(scene, tiles, positions, wy, wx, means, sigma,
+                               use_pallas=use_pallas, bounds=bounds)
+        before = scene.cpu()
+        stitch_call(scene, tiles, positions, wy, wx, means, sigma, use_pallas=use_pallas,
+                    bounds=bounds)
+        got = scene.cpu().numpy()
+        batch = {k: v.cpu() for k, v in (("tiles", tiles), ("positions", positions),
+                                         ("wy", wy), ("wx", wx), ("means", means))}
+        want = stitch.stitch_tiles_plain(before, *_stitch_args(batch, "cpu"),
+                                         float(sigma)).numpy()
+        err = float(np.abs(got - want).max())
+        key = "k2" if use_pallas == "fused" else "k1"
+        bar = 0.0 if key == "k2" else ulps(want, k1_ulps(max_cover([batch], want.shape)))
+        record[key].append((tiles.shape[-1], tiles.shape[0], want.shape, err, bar))
+        if not (err <= bar and (key == "k1" or np.array_equal(got, want))):
+            raise AssertionError(f"{key.upper()} at T={tiles.shape[-1]} B={tiles.shape[0]} "
+                                 f"on {want.shape}: max |diff| {err} above {bar}")
+        return scene
+
+    with mock.patch.object(conv, "conv3x3_bias_act", k3_held), \
+            mock.patch.object(unet, "conv3x3_bias_act", k3_held), \
+            mock.patch.object(stitch, "stitch_tiles", stitch_held):
+        yield record
+
+
+def _held_summary(record: dict) -> str:
+    parts = []
+    for key in ("k3", "k2", "k1"):
+        calls = record.get(key, [])
+        if calls:
+            worst = max(calls, key=lambda c: c[-2] / c[-1] if c[-1] else c[-2])
+            parts.append(f"{key.upper()} {len(calls)} calls held, worst max |diff| "
+                         f"{worst[-2]:.3g} (bar {worst[-1]:.3g})")
+    return "; ".join(parts) or "no kernel call"
+
+
+def phase_studies(work: str) -> dict:
+    """The studies on the card at small sizes, each run with the launch
+    counters zeroed just before and read just after: ``precision_study``'s
+    state cache (``STUDY_STEPS`` 'default' steps of the flagship on its
+    512x768 city) written and read back bitwise, and ``--attrib`` on it
+    (``run_attribution``: K3 at 3 and 1 passes held at every conv it is
+    handed, ``held_kernels``); ``stride_study`` and ``tta_stride_study`` on a
+    ``STUDY_SCENE``^2 city, strides 128 and 192 x TTA 1 and 4 at
+    'balanced16' (K2 bitwise the plain stitch at every call, K3 held);
+    ``bilinear_study`` at 8 steps (its ``balanced16`` forward hands K3 two
+    convs: no composed top); ``train_throughput_study`` at 'default' batch
+    20 and ``train_roofline --measure`` at 'balanced16' batch 20."""
+    from resdepth_tpu_torch.studies import (bilinear_study, precision_study,
+                                            stride_study, train_roofline,
+                                            train_throughput_study, tta_stride_study)
+
+    device = torch.device("cuda", 0)
+    os.makedirs(work, exist_ok=True)
+    cache = os.path.join(work, "study_state_s3.npz")
+    config = precision_study.study_config()
+    key = precision_study.study_key(3, STUDY_STEPS, 512, 768, TRAIN_BATCH, "default")
+    launches, lines, held = {}, [], {}
+
+    def counted(name, fn):
+        _zero_counters()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = _read_counters()
+        lines.append(f"{name} {time.perf_counter() - start:.1f} s, launches {launches[name]}")
+        return out
+
+    _, train_ds, test_ds = precision_study._scene(work, 512, 768, 3, TILE)
+    model, first, last = counted("cache training", lambda: precision_study._train(
+        config, train_ds, device, STUDY_STEPS, TRAIN_BATCH, 3, "default"))
+    precision_study.save_state_cache(cache, model, key)
+    loaded, _ = precision_study.load_state_cache(cache, config, device, key)
+    if not all(torch.equal(v, loaded.state_dict()[k]) for k, v in model.state_dict().items()):
+        raise AssertionError("the state cache does not read back bitwise")
+    with held_kernels(held.setdefault("attrib", {})):
+        attrib = counted("attrib", lambda: precision_study.run_attribution(
+            loaded, test_ds, train_ds.dsm_std, device))
+    if not (launches["attrib"].get(1) and launches["attrib"].get(3)):
+        raise AssertionError(f"--attrib launched K3 {launches['attrib']}: 1 and 3 passes "
+                             "expected")
+    city = ["--state-cache", cache, "--rows", str(STUDY_SCENE), "--cols", str(STUDY_SCENE),
+            "--mode", "balanced16", "--strides", "128", "192"]
+    with held_kernels(held.setdefault("stride", {})):
+        stride = counted("stride_study", lambda: stride_study.main(city))
+    with held_kernels(held.setdefault("tta_stride", {})):
+        grid = counted("tta_stride_study", lambda: tta_stride_study.main(
+            city + ["--ttas", "1", "4"]))
+    for name in ("stride_study", "tta_stride_study"):
+        if not (launches[name].get("k2") and launches[name].get(3)):
+            raise AssertionError(f"{name} launched {launches[name]}: K2 and K3 expected")
+    with held_kernels(held.setdefault("bilinear", {})):
+        bilinear = counted("bilinear_study", lambda: bilinear_study.main(
+            ["--steps", "8", "--batch", "4", "--dev-rows", "512", "--bench-batch", "32",
+             "--iters", "2"]))
+    throughput = counted("train_throughput_study", lambda: train_throughput_study.main(
+        ["--modes", "default", "--batches", str(TRAIN_BATCH), "-K", "4", "--windows", "2"]))
+    roofline = counted("train_roofline", lambda: train_roofline.main(
+        ["--modes", "balanced16", "--batches", str(TRAIN_BATCH), "--measure"]))
+    if not np.isfinite([c["mae_m"] for c in stride["cells"] + grid["cells"]]).all():
+        raise AssertionError("a study cell's MAE is not finite")
+    top = ", ".join(f"{n} {attrib['solo_cm'][n]:.4f}" for n in attrib["ranked"][:3])
+    log("studies", f"state cache {STUDY_STEPS} 'default' steps (train MAE {first:.3f} -> "
+        f"{last:.3f} m), read back bitwise; attrib {attrib['tiles']} tiles: all-DEFAULT "
+        f"{attrib['all_default_cm']:.4f} cm, first of the ranked solo demotions {top} cm; "
+        "stride study " + ", ".join(
+            f"{c['stride']}: {c['tiles']} tiles {c['device_s']:.4f} s MAE {c['mae_m']:.4f} m"
+            for c in stride["cells"])
+        + "; TTA x stride " + ", ".join(
+            f"({c['stride']}, {c['tta']}) {c['device_s']:.4f} s MAE {c['mae_m']:.4f}"
+            for c in grid["cells"])
+        + f"; bilinear balanced16 dev {bilinear['bilinear_balanced16_dev_cm']:.4f} cm, "
+        f"tiles/s f32 {bilinear['bilinear_f32_tiles_s']:.1f} (transpose "
+        f"{bilinear['transpose_f32_tiles_s']:.1f}); throughput default B=20 "
+        f"{throughput[0]['step_ms']:.2f} ms a step; roofline balanced16 B=20 measured "
+        f"{roofline[0]['measured_samples_per_s']:.1f} samples/s = "
+        f"{roofline[0]['pct_of_roofline']:.1f} % of {roofline[0]['ceiling_samples_per_s']:.1f}"
+        f", {roofline[0]['pct_of_achievable']:.1f} % of the achievable "
+        f"{roofline[0]['achievable_samples_per_s']:.1f}; " + "; ".join(lines)
+        + "; held: " + "; ".join(f"{k}: {_held_summary(v)}" for k, v in held.items()))
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return {"launches": total}
+
+
+def phase_config_smoke(work: str) -> dict:
+    """``studies/config_smoke.py``'s first ``SMOKE_CASES`` cases of seed
+    ``SMOKE_SEED`` on the card through the CLIs in this process (narrow
+    models on 16- and 32-px tiles: training at 'high', 'default' and
+    'balanced', serving 'mixed', 'balanced' and bfloat16 with K1), then
+    each served case again with K2 (``use_pallas: "fused"``); every kernel
+    call held (``held_kernels``), the counters zeroed just before and read
+    just after. K3 must have met 4 and 8 output channels and 16-px images,
+    K2 and K1 16-px windows."""
+    from resdepth_tpu_torch.studies import config_smoke
+
+    root = os.path.join(work, "config_smoke")
+    record = {}
+    _zero_counters()
+    start = time.perf_counter()
+    with held_kernels(record):
+        result = config_smoke.run_cases(SMOKE_SEED, SMOKE_CASES, root, "cuda",
+                                        run=config_smoke.run_in_process)
+        fused = 0
+        for i, case in enumerate(result["cases"]):
+            if case["eval"] is None:
+                continue
+            cfg = json.loads(json.dumps(case["eval"]))
+            cfg["general"]["use_pallas"] = "fused"
+            cfg["output"]["directory"] += "_k2"
+            path = os.path.join(root, f"case{i}", "eval_k2.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            code, output = config_smoke.run_in_process("resdepth_tpu_torch.predict", path,
+                                                       "cuda")
+            if code != 0:
+                raise AssertionError(f"case{i} served with K2 failed: {output}")
+            fused += 1
+    launches = _read_counters()
+    seconds = time.perf_counter() - start
+    if result["fails"]:
+        raise AssertionError(f"config smoke: {result['fails']} of {SMOKE_CASES} cases failed")
+    k3_couts = {c[1] for c in record["k3"]}
+    k3_tiles = {c[0][1] for c in record["k3"]}
+    if not ({4, 8} <= k3_couts and 16 in k3_tiles and launches.get("k2")
+            and any(c[0] == 16 for c in record["k2"]) and any(c[0] == 16 for c in record["k1"])):
+        raise AssertionError(f"config smoke: K3 met Cout {sorted(k3_couts)} at sizes "
+                             f"{sorted(k3_tiles)}, K2 {len(record['k2'])} calls, K1 "
+                             f"{len(record['k1'])}: the narrow shapes did not all run")
+    log("config-smoke", f"seed {SMOKE_SEED}, {SMOKE_CASES} cases in {seconds:.1f} s: "
+        + "; ".join(c["tag"] + (f" served {c['eval']['general']}" if c["eval"] else "")
+                    for c in result["cases"])
+        + f"; {fused} served again with K2; launches {launches}; K3 shapes (x, Cout, "
+        f"passes): {sorted({(c[0], c[1], c[2]) for c in record['k3']})}; "
+        f"{_held_summary(record)}")
+    return {"launches": launches}
+
+
 # Phase "train-banded": one epoch of the 2048^2 training scene (4 raster
 # planes, 16,777,216 px resident) under banded residency at a 1-D budget
 # (768-row windows) and a 2-D one (627^2 windows), at float32 'high' and
@@ -3347,6 +3602,9 @@ def main(argv: list | None = None) -> int:
                              "the 4096x4096 scene's batches (phase stitch-scene), "
                              "to compare two checkouts on one card; prints no "
                              "result line")
+    parser.add_argument("--phase", action="append", choices=("studies", "config-smoke"),
+                        help="run phases 1-2 and only this phase (repeatable), to "
+                             "iterate on it; prints no result line")
     parser.add_argument("--dp-rank", metavar="PLAN",
                         help="run one rank of phase dp-2-on-1 from its plan (the "
                              "phase starts the ranks itself); prints no result line")
@@ -3367,6 +3625,12 @@ def main(argv: list | None = None) -> int:
         phase_stitch_scene(grid_batches())
         return 0
     phase_build()
+    if args.phase:
+        for name in args.phase:
+            {"studies": phase_studies, "config-smoke": phase_config_smoke}[name](
+                os.path.join(WORK_DIR, name))
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return 0
     kernels, stitch_scene = phase_kernels()
     phase_stitch_scene(stitch_scene)
     del stitch_scene
@@ -3388,6 +3652,8 @@ def main(argv: list | None = None) -> int:
 
     convs = phase_conv()
     channel_modes = phase_channel_modes(WORK_DIR)
+    studies = phase_studies(os.path.join(WORK_DIR, "studies"))
+    smoke = phase_config_smoke(WORK_DIR)
     start = time.perf_counter()
     train_scene = write_scene(os.path.join(WORK_DIR, "train_scene"), TRAIN_SCENE,
                               TRAIN_SCENE)
@@ -3407,21 +3673,23 @@ def main(argv: list | None = None) -> int:
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1 and K2 with their launches on the CLI runs (phase 4), the
     # streamed scenes (phases streaming and streaming-cli), the channel
-    # modes' scenes (phase channel-modes) and the ranks' scenes (phases
-    # dp-nccl-1 and dp-2-on-1).
+    # modes' scenes (phase channel-modes), the ranks' scenes (phases
+    # dp-nccl-1 and dp-2-on-1), the studies and the config smoke.
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": replaces,
          "launches": (flagship["launches"][key] + streaming["launches"][key]
                       + streaming_cli["launches"][key]
                       + channel_modes["launches"].get(key, 0)
-                      + dp_nccl["launches"].get(key, 0) + dp_ranks["launches"][key]),
+                      + dp_nccl["launches"].get(key, 0) + dp_ranks["launches"][key]
+                      + studies["launches"][key] + smoke["launches"][key]),
          **{f: kernels[key][f] for f in fields}}
         for key, (name, replaces) in KERNELS.items()]}
     # K3 once per float32 pass count, with its launches on the mode paths
     # (phases modes, streaming and channel-modes), the train steps (phases
-    # train-precisions, profile and train-banded) and the ranks' training
-    # and serving (phases dp-nccl-1 and dp-2-on-1), and its times and bound over one
+    # train-precisions, profile and train-banded), the ranks' training
+    # and serving (phases dp-nccl-1 and dp-2-on-1), the studies and the
+    # config smoke (phases studies and config-smoke), and its times and bound over one
     # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
     # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
     # times each shape's once.
@@ -3432,7 +3700,8 @@ def main(argv: list | None = None) -> int:
          "route": "cuda", "source": source, "replaces": replaces,
          "launches": (sum(phase["launches"].get(r["passes"], 0)
                           for phase in (modes, train_precisions, streaming, banded,
-                                        channel_modes, profile, dp_nccl, dp_ranks))
+                                        channel_modes, profile, dp_nccl, dp_ranks,
+                                        studies, smoke))
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
         for key, r in convs.items()]

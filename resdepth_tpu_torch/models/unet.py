@@ -832,3 +832,100 @@ def fold_top_decoder(model: UNet) -> UNet:
 def fold_serving(model: UNet) -> UNet:
     """All exact serving-time rewrites: BN fold + top-decoder composition."""
     return fold_top_decoder(fold_batchnorm(model))
+
+
+# ------------------------------- accounting ------------------------------- #
+
+def param_count(model: UNet) -> int:
+    """Trainable parameters of ``model`` (the JAX ``param_count`` of its
+    params tree: the same leaves)."""
+    return int(sum(p.numel() for p in model.parameters()))
+
+
+def analytic_flops(config: UNetConfig, tile_size: int, *,
+                   composed_top: bool = False) -> int:
+    """Conv FLOPs of one forward on a ``tile_size`` tile, multiply-adds as
+    2 (port of ``resdepth_tpu/models/unet.py::analytic_flops``): the
+    encoder's 3x3 convs, the bottleneck, ``depth`` upsamplings (one tap an
+    output pixel, transposed or bilinear + 1x1), the 3x3 conv after each
+    non-top skip and the last conv to one channel. With ``composed_top``
+    (``fold_serving``'s graph, transpose mode only: the fold is a no-op for
+    bilinear) the top upconv is folded into the last conv: the skip conv at
+    full resolution and a 4-phase conv at half. A train step is about 3x."""
+    widths = config.filter_depths
+    t = tile_size
+    flops = 0
+    in_ch = config.n_input_channels
+    for i, w in enumerate(widths):
+        r = t >> i
+        flops += 2 * 9 * r * r * in_ch * w
+        in_ch = w
+    r = t >> config.depth
+    flops += 2 * 9 * r * r * widths[-1] * widths[-1]
+    composed = composed_top and config.up_mode == "transpose"
+    widths_up = tuple(reversed(widths))
+    for i in range(config.depth):
+        r_out = t >> (config.depth - 1 - i)
+        top = i == config.depth - 1
+        if top and composed:
+            break
+        flops += 2 * r_out * r_out * widths_up[i] * widths_up[i]
+        if not top:
+            flops += 2 * 9 * r_out * r_out * widths_up[i] * widths_up[i + 1]
+    flops += 2 * 9 * t * t * config.start_kernel * 1
+    if composed:
+        flops += 2 * 9 * (t // 2) * (t // 2) * config.start_kernel * 4
+    return flops
+
+
+def describe_unet(model: UNet, tile_size: int | None = None) -> str:
+    """Layer-by-layer summary of ``model``'s parameters, the text of the
+    JAX ``describe_unet`` (reference: ``lib/utils.py:711-729``, via
+    torchsummary): one row a block of the JAX params tree, its kernel's
+    HWIO shape where the block is a bare conv, and its parameter count."""
+    from resdepth_tpu_torch.models.weights import jax_params_from_state_dict
+
+    config = model.config
+    params, _ = jax_params_from_state_dict(model.state_dict(), config)
+    lines = [f"UNet architecture ({config.depth} levels, "
+             f"{config.n_input_channels} input channels)", ""]
+    lines.append(f"{'layer':<28}{'kernel':<22}{'params':>12}")
+    lines.append("-" * 62)
+    total = 0
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [leaf for value in tree.values() for leaf in leaves(value)]
+        if isinstance(tree, (list, tuple)):
+            return [leaf for value in tree for leaf in leaves(value)]
+        return [tree]
+
+    def row(name, layer):
+        nonlocal total
+        count = int(sum(np.prod(leaf.shape) for leaf in leaves(layer)))
+        total += count
+        kernel = tuple(layer["kernel"].shape) if "kernel" in layer else "-"
+        lines.append(f"{name:<28}{str(kernel):<22}{count:>12,}")
+
+    for i, block in enumerate(params["encoder"]):
+        row(f"encoder.{i}.conv(+bn)", block)
+        lines.append(f"{'encoder.' + str(i) + '.maxpool2x2':<28}{'-':<22}{0:>12,}")
+    row("bottleneck.conv(+bn)", params["bottleneck"])
+    for i, block in enumerate(params["decoder"]):
+        label = f"decoder.{i}.up" + ("" if "conv" not in block else "+conv(+bn)")
+        row(label, block)
+    row("last.conv3x3", params["last"])
+    if "outer_skip_bn" in params:
+        row("outer_skip.bn", params["outer_skip_bn"])
+    elif config.outer_skip:
+        lines.append(f"{'outer_skip.add':<28}{'-':<22}{0:>12,}")
+
+    lines.append("-" * 62)
+    lines.append(f"{'total':<50}{total:>12,}")
+    if tile_size:
+        widths = config.filter_depths
+        act_mb = sum((tile_size // 2 ** i) ** 2 * w * 4 / 2 ** 20
+                     for i, w in enumerate(widths))
+        lines.append(f"approx. activation footprint per sample @{tile_size}px "
+                     f"(f32 encoder): {act_mb:.1f} MiB")
+    return "\n".join(lines)

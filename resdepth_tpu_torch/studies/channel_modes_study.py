@@ -22,7 +22,7 @@ The channel modes give the flagship's first conv 1 (``geom``), 2
      the same draws of positions and pairs, which changes no result;
   2. time serving of the folded flagship at float32 and ``balanced16``:
      tiles/s at ``--bench-batch`` tiles (the best of 3 runs of ``--iters``
-     forwards, host clock around synchronised runs), and the rate of
+     forwards between CUDA events), and the rate of
      operations (``analytic_flops``) as a share of the card's bf16 peak
      (``PEAK_BF16``);
   3. refine a second city (``--dev-rows`` square, one image pair of the
@@ -75,38 +75,6 @@ DEV_PAIRS = {  # deviation scene: one pair of the mode's arity
     "geom-multiview": [(0, 1, 2)],
 }
 STEPS_A_DRAW = 8     # positions are drawn 8 steps at a time, as the JAX study's calls
-
-
-def analytic_flops(config, tile_size: int, *, composed_top: bool = False) -> int:
-    """Conv FLOPs of one forward on a ``tile_size`` tile (multiply-adds as
-    2; the port's copy of ``resdepth_tpu/models/unet.py::analytic_flops``).
-    With ``composed_top`` (``fold_serving``'s graph, transpose mode) the top
-    upconv is folded into the last conv: the skip conv at full resolution
-    and a 4-phase conv at half."""
-    widths = config.filter_depths
-    t = tile_size
-    flops = 0
-    in_ch = config.n_input_channels
-    for i, w in enumerate(widths):
-        r = t >> i
-        flops += 2 * 9 * r * r * in_ch * w
-        in_ch = w
-    r = t >> config.depth
-    flops += 2 * 9 * r * r * widths[-1] * widths[-1]
-    composed = composed_top and config.up_mode == "transpose"
-    widths_up = tuple(reversed(widths))
-    for i in range(config.depth):
-        r_out = t >> (config.depth - 1 - i)
-        top = i == config.depth - 1
-        if top and composed:
-            break
-        flops += 2 * r_out * r_out * widths_up[i] * widths_up[i]
-        if not top:
-            flops += 2 * 9 * r_out * r_out * widths_up[i] * widths_up[i + 1]
-    flops += 2 * 9 * t * t * config.start_kernel * 1
-    if composed:
-        flops += 2 * 9 * (t // 2) * (t // 2) * config.start_kernel * 4
-    return flops
 
 
 def mode_config(mode: str, smoke: bool = False):
@@ -179,13 +147,12 @@ def _train(mode, config, scene, device, args, cache_key):
     from resdepth_tpu_torch.data.dataset import TileDataset
     from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
     from resdepth_tpu_torch.models.unet import init_unet
-    from resdepth_tpu_torch.models.weights import (jax_params_from_state_dict,
-                                                   state_dict_from_jax_params)
+    from resdepth_tpu_torch.studies.precision_study import (load_state_cache,
+                                                            save_state_cache)
     from resdepth_tpu_torch.train import checkpoint as ckpt_io
     from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
                                                select_train_precision)
 
-    model = init_unet(config, torch.Generator().manual_seed(0), device)
     cache = (os.path.join(args.state_cache_dir, f"{mode}.npz")
              if args.state_cache_dir else None)
     if cache and os.path.exists(cache):
@@ -195,11 +162,10 @@ def _train(mode, config, scene, device, args, cache_key):
         if meta.get("study_key") != cache_key:
             sys.exit(f"ERROR: cache {cache} trained with {meta.get('study_key')}, "
                      f"not {cache_key}.")
-        loaded = ckpt_io.load_checkpoint(cache)
-        model.load_state_dict(state_dict_from_jax_params(loaded["params"],
-                                                         loaded["bn_state"], config))
         print(f"[{mode}/train] loaded cached state: {cache}", flush=True)
-        return model.eval()
+        return load_state_cache(cache, config, device)[0]
+
+    model = init_unet(config, torch.Generator().manual_seed(0), device)
 
     rows, cols, tile = scene["rows"], scene["cols"], args.tile
     dataset = {"name": mode, "raster_in": scene["p_in"], "raster_gt": scene["p_gt"],
@@ -232,14 +198,13 @@ def _train(mode, config, scene, device, args, cache_key):
           f"({time.perf_counter() - start:.0f}s)", flush=True)
     model.eval()
     if cache:
-        params, bn_state = jax_params_from_state_dict(model.state_dict(), config)
-        ckpt_io.save_checkpoint(cache, epoch=0, params=params, bn_state=bn_state,
-                                extra={"study_key": cache_key})
+        save_state_cache(cache, model, cache_key)
     return model
 
 
 def run_mode(mode: str, args, scene: dict, results: dict, device) -> None:
     from resdepth_tpu_torch.infer.tiled import predict_linear_blend, serving_model
+    from resdepth_tpu_torch.models.unet import analytic_flops
     from resdepth_tpu_torch.predict import select_compute_dtype
     from resdepth_tpu_torch.studies.precision_study import tiles_per_s
 

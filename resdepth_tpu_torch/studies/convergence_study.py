@@ -142,6 +142,30 @@ def refined_test_mae(pred: np.ndarray, pred_origin_col: int, gt: np.ndarray,
     return float(np.abs(pred_crop[valid] - gt_crop[valid]).mean())
 
 
+def stripe_maes(scene: dict, eval_dir: str) -> tuple:
+    """``(refined, initial)`` test-stripe MAE (m): the predict CLI's
+    ``*prediction_test_area.tif`` under ``eval_dir`` and the scene's input
+    DSM, each against the ground truth over the test stripe."""
+    from resdepth_tpu_torch.geo import raster as geo_raster
+
+    pred_path = None
+    for root, _dirs, files in os.walk(eval_dir):
+        for name in files:
+            if name.endswith("prediction_test_area.tif"):
+                pred_path = os.path.join(root, name)
+    if pred_path is None:
+        raise RuntimeError(f"no *prediction_test_area.tif under {eval_dir}")
+    pred_r = geo_raster.open_raster(pred_path)
+    gt_r = geo_raster.open_raster(scene["paths"]["gt"])
+    origin_col = int(round((pred_r.geotransform[0] - gt_r.geotransform[0]) / GSD))
+    stripe = scene["cols"] // 5
+    test_x = (TEST_STRIPE * stripe, TEST_STRIPE * stripe + stripe - 1)
+    gt = np.asarray(gt_r.data)
+    return (refined_test_mae(np.asarray(pred_r.data), origin_col, gt, test_x),
+            refined_test_mae(np.asarray(geo_raster.open_raster(scene["paths"]["dsm"]).data),
+                             0, gt, test_x))
+
+
 def _run_module(module: str, config: str, device: str, tag: str) -> None:
     proc = subprocess.run([sys.executable, "-m", module, config, "--device", device],
                           cwd=REPO, capture_output=True, text=True)
@@ -152,8 +176,10 @@ def _run_module(module: str, config: str, device: str, tag: str) -> None:
 
 def train_config(scene: dict, protocol: Protocol, run_root: str, *, seed: int,
                  epochs: int, scheduler: str, precision: str, batch: int, lr: float,
-                 n_samples: int, remat: bool) -> dict:
-    """The JAX arm's training config (``run_jax``)."""
+                 n_samples: int, remat: bool, extra_training: dict | None = None) -> dict:
+    """The JAX arm's training config (``run_jax``); ``extra_training``
+    merges further ``training_settings`` keys into it (``ema_decay`` for
+    ``studies/ema_study.py``)."""
     if scheduler == "steplr":
         sched = {"enabled": True, "name": "StepLR",
                  "settings": {"step_size": STEP_SIZE, "gamma": GAMMA}}
@@ -176,7 +202,8 @@ def train_config(scene: dict, protocol: Protocol, run_root: str, *, seed: int,
         "stereopair_settings": {"use_all_stereo_pairs": False,
                                 "permute_images_within_pair": False},
         "training_settings": {"tile_size": protocol.tile, "batch_size": batch,
-                              "n_epochs": epochs, "augment": True, "loss": "L1"},
+                              "n_epochs": epochs, "augment": True, "loss": "L1",
+                              **(extra_training or {})},
         "optimizer": {"name": "Adam", "learning_rate": lr, "weight_decay": WD},
         "scheduler": sched,
         "general": {"evaluate_rate": EVALUATE_RATE, "save_model_rate": 10_000,
@@ -194,12 +221,14 @@ def run_port(out_dir: str, protocol: Protocol, *, seed: int = 0, epochs: int = N
              scheduler: str = "steplr", precision: str = "balanced16",
              device: str = "cuda", tag: str | None = None, batch: int | None = None,
              lr: float | None = None, n_samples: int | None = None,
-             remat: bool = False) -> dict:
+             remat: bool = False, extra_training: dict | None = None) -> dict:
     """Train through the port's train CLI, refine the test stripe through
-    its predict CLI, score it, and write ``results/port_<tag>.json``."""
+    its predict CLI, score it, and write ``results/port_<tag>.json``.
+    ``extra_training`` merges further ``training_settings`` keys into the
+    run's config (``{"ema_decay": 0.999}`` for the EMA study); the rest of
+    the protocol stays, so the results compare with the stored ones."""
     import torch
 
-    from resdepth_tpu_torch.geo import raster as geo_raster
     from resdepth_tpu_torch.studies.precision_study import device_name
 
     batch = BATCH if batch is None else int(batch)
@@ -212,7 +241,7 @@ def run_port(out_dir: str, protocol: Protocol, *, seed: int = 0, epochs: int = N
 
     cfg = train_config(scene, protocol, run_root, seed=seed, epochs=epochs,
                        scheduler=scheduler, precision=precision, batch=batch, lr=lr,
-                       n_samples=n_samples, remat=remat)
+                       n_samples=n_samples, remat=remat, extra_training=extra_training)
     cfg_path = os.path.join(run_root, "config_train.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f, indent=1)
@@ -255,23 +284,7 @@ def run_port(out_dir: str, protocol: Protocol, *, seed: int = 0, epochs: int = N
         json.dump(eval_cfg, f, indent=1)
     _run_module("resdepth_tpu_torch.predict", eval_cfg_path, device, tag)
 
-    pred_path = None
-    for root, _dirs, files in os.walk(os.path.join(run_root, "eval_out")):
-        for name in files:
-            if name.endswith("prediction_test_area.tif"):
-                pred_path = os.path.join(root, name)
-    if pred_path is None:
-        raise RuntimeError(f"no *prediction_test_area.tif under {run_root}/eval_out "
-                           f"({tag})")
-    pred_r = geo_raster.open_raster(pred_path)
-    gt_r = geo_raster.open_raster(scene["paths"]["gt"])
-    origin_col = int(round((pred_r.geotransform[0] - gt_r.geotransform[0]) / GSD))
-    stripe = protocol.cols // 5
-    test_x = (TEST_STRIPE * stripe, TEST_STRIPE * stripe + stripe - 1)
-    gt = np.asarray(gt_r.data)
-    mae = refined_test_mae(np.asarray(pred_r.data), origin_col, gt, test_x)
-    initial = refined_test_mae(np.asarray(geo_raster.open_raster(scene["paths"]["dsm"]).data),
-                               0, gt, test_x)
+    mae, initial = stripe_maes(scene, os.path.join(run_root, "eval_out"))
 
     result = {
         "side": "resdepth-tpu-torch", "tag": tag, "seed": seed,

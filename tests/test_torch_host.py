@@ -110,7 +110,17 @@ def test_import_guard_sees_every_port_module():
                  "resdepth_tpu_torch/utils/synth.py", "resdepth_tpu_torch/utils/profiler.py",
                  "resdepth_tpu_torch/export_torch.py",
                  "resdepth_tpu_torch/studies/convergence_study.py",
-                 "resdepth_tpu_torch/studies/channel_modes_study.py"):
+                 "resdepth_tpu_torch/studies/channel_modes_study.py",
+                 "resdepth_tpu_torch/studies/stride_study.py",
+                 "resdepth_tpu_torch/studies/tta_study.py",
+                 "resdepth_tpu_torch/studies/tta_stride_study.py",
+                 "resdepth_tpu_torch/studies/bilinear_study.py",
+                 "resdepth_tpu_torch/studies/ema_study.py",
+                 "resdepth_tpu_torch/studies/train_throughput_study.py",
+                 "resdepth_tpu_torch/studies/train_roofline.py",
+                 "resdepth_tpu_torch/studies/config_smoke.py",
+                 "resdepth_tpu_torch/make_demo_data.py",
+                 "resdepth_tpu_torch/make_demo_goldens.py"):
         assert path in PORT_FILES
 
 

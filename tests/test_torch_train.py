@@ -551,3 +551,87 @@ def test_cli_auto_resumes_from_model_last(e2e_runs, tmp_path):
     assert meta["epoch"] == 2
     # StepLR(step_size 1, gamma 0.5) stepped once more after the resume
     assert meta["scheduler_state"]["n_steps"] == 3
+
+
+# ---- the host random streams against JAX's (ROADMAP section 3's open fault) ---- #
+
+@pytest.mark.parametrize("channels,pairs,kwargs", [
+    ("geom-stereo", ((2, 1), (0, 1)), dict(use_all_stereo_pairs=True)),
+    ("geom-stereo", ((2, 1), (0, 1), (0, 2)), {}),
+    ("geom", (), {}),
+], ids=["stereo-cross-product", "stereo-random-pairs", "geom"])
+def test_training_positions_match_jax(make_geotiff, channels, pairs, kwargs):
+    """The 'train' TileDataset's chosen positions and pair draws
+    (``resdepth_tpu/data/dataset.py:196``) for the same seed."""
+    paths = _training_scene(make_geotiff)
+    got = _training_dataset(paths, channels, "train", pairs=pairs, augment=True, **kwargs)
+    want = _training_dataset(paths, channels, "train", pairs=pairs, augment=True,
+                             cls=JTileDataset, **kwargs)
+    np.testing.assert_array_equal(got.positions, want.positions)
+    np.testing.assert_array_equal(got.pair_indices, want.pair_indices)
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["shuffled", "grouped-by-loader"])
+def test_epoch_sample_order_matches_jax(make_geotiff, grouped):
+    """Each epoch's batches, padding and weights (``BatchIndexIterator``,
+    ``resdepth_tpu/data/pipeline.py:292-302``) and the trainer's chunk
+    order (``_epoch_chunks``, the epoch rng of
+    ``resdepth_tpu/train/trainer.py:105``) over 3 epochs of two loaders
+    with a padded last batch, for the seeds the train CLIs give them."""
+    from types import SimpleNamespace
+
+    from resdepth_tpu.train.trainer import Trainer as JTrainer
+    from resdepth_tpu_torch.data.dataset import TileDataset as TTileDataset
+    from resdepth_tpu_torch.train.trainer import Trainer as TTrainer
+
+    paths = _training_scene(make_geotiff)
+    seed = 7
+
+    def run(pipe, dataset_cls, trainer_cls):
+        loaders = [(None, pipe.BatchIndexIterator(
+            _training_dataset(paths, "geom-stereo", "train", cls=dataset_cls, augment=True),
+            5, shuffle=True, seed=seed + 1000 + i)) for i in range(2)]
+        trainer = SimpleNamespace(epoch_rng=np.random.default_rng(seed), steps_per_call=2,
+                                  group_chunks_by_loader=grouped)
+        return [trainer_cls._epoch_chunks(trainer, loaders) for _ in range(3)]
+
+    got = run(tpipe, TTileDataset, TTrainer)
+    want = run(jpipe, JTileDataset, JTrainer)
+    for got_epoch, want_epoch in zip(got, want):
+        assert [loader for loader, _ in got_epoch] == [loader for loader, _ in want_epoch]
+        for (_, got_chunk), (_, want_chunk) in zip(got_epoch, want_epoch):
+            assert len(got_chunk) == len(want_chunk)
+            for got_batch, want_batch in zip(got_chunk, want_chunk):
+                for g, w in zip(got_batch, want_batch):   # positions, pairs, bounds, weights
+                    np.testing.assert_array_equal(g, w)
+    weights = [b[3] for _, chunk in got[0] for b in chunk]
+    assert any(w.min() == 0 for w in weights)   # a padded last batch was compared
+
+
+def test_augment_draws_each_symmetry_at_one_eighth():
+    """The port's ``_augment`` hits each of the square's 8 symmetries with
+    probability 1/8 over 64k draws, within 4 sigma, as JAX's ``_augment``
+    (``resdepth_tpu/data/pipeline.py:158-180``) does on the same count."""
+    n = 65536
+    base = torch.arange(4, dtype=torch.float32).reshape(1, 1, 2, 2)
+    # the 8 images of [[0, 1], [2, 3]] under the dihedral group, by pixel order
+    symmetries = {tuple(t.flatten().tolist()) for t in (
+        torch.rot90(base, k, (2, 3)).flip(f) if f else torch.rot90(base, k, (2, 3))
+        for k in range(4) for f in ((), (3,)))}
+    assert len(symmetries) == 8
+
+    def freqs(images):
+        keys = [tuple(row) for row in images.reshape(n, 4).tolist()]
+        return {s: keys.count(s) / n for s in symmetries}, set(keys)
+
+    generator = torch.Generator().manual_seed(0)
+    port, seen = freqs(tpipe._augment(base.expand(n, 1, 2, 2), generator).numpy())
+    jax_images = np.asarray(jpipe._augment(
+        jax.numpy.broadcast_to(jax.numpy.arange(4.0).reshape(1, 2, 2, 1), (n, 2, 2, 1)),
+        jax.random.PRNGKey(0)))
+    jax_freqs, jax_seen = freqs(jax_images)
+    sigma = (0.125 * 0.875 / n) ** 0.5
+    assert seen == symmetries == jax_seen
+    for s in symmetries:
+        assert abs(port[s] - 0.125) <= 4 * sigma, (s, port[s])
+        assert abs(jax_freqs[s] - 0.125) <= 4 * sigma, (s, jax_freqs[s])
