@@ -106,10 +106,22 @@ found:
      gloo: 5 flagship train steps at batch 20 (10 a rank) at 'high' and
      'balanced16' against one process (``_hold_dp_training``), the 4096^2
      scene tile-sharded with K1, K2 and K3 in both ranks, and scene-sharded
-     against the streamed scene.
+     against the streamed scene;
+ 11. "dryrun" (``resdepth_tpu_torch/graft_entry.py``, the port of
+     ``__graft_entry__.py``): ``entry()``'s flagship forward on 4 tiles of
+     256^2 timed on the card and held to the CPU forward within 1e-5 of the
+     largest output, then ``dryrun_multichip(1)`` in a world of one over
+     NCCL and ``dryrun_multichip(4, share_cards=True)``, four ranks on the
+     card over gloo (all five legs: a DP train step at 'default', banded
+     training over 2-D windows, tile-sharded inference at tta 1 and 4,
+     scene-sharded inference, the 2x2 (dcn, ici) step), every rank a
+     process of ``chip_smoke.py --dryrun-rank`` that runs the legs under
+     ``held_kernels``: K3 at 1 pass in the train legs, K1 in the
+     tile-sharded leg and K2 in the scene-sharded leg, each call held to its
+     plain version, and each leg's launches counted.
 
 ``python3 chip_smoke.py --phase studies --phase config-smoke`` runs phases
-1 and 2 and the phases named, and prints no result line.
+1 and 2 and the phases named (also ``dryrun``), and prints no result line.
 ``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
 kernels' times over the scene's batches alone, and prints no result line:
 run in two checkouts in one call, it compares their stitches on one card.
@@ -1950,7 +1962,8 @@ def phase_train_precisions(scene: dict) -> dict:
     every call shape the policies' steps hand it (forward and dx), with
     their times, the plain version's, one ``F.conv2d``'s and the bound, and
     K3's time a step of each policy from them."""
-    from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
+    from resdepth_tpu_torch.data.pipeline import (GeneratorDraws, batch_spec_for,
+                                                  device_put_dataset)
     from resdepth_tpu_torch.models.unet import flagship_config, init_unet
     from resdepth_tpu_torch.ops import conv
     from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
@@ -1970,7 +1983,7 @@ def phase_train_precisions(scene: dict) -> dict:
         model = init_unet(config, torch.Generator().manual_seed(SEED), device)
         state = init_train_state(model, "Adam", 2e-4, 1e-5)
         step = make_train_step(spec, weighted_bn=False, compute_dtype=dtype, **kwargs)
-        generator = torch.Generator(device=device).manual_seed(SEED)
+        draws = GeneratorDraws(torch.Generator(device=device).manual_seed(SEED))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         for key in conv.LAUNCHES:
@@ -1980,7 +1993,7 @@ def phase_train_precisions(scene: dict) -> dict:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            metrics.append(step(state, rasters, *batch, generator))
+            metrics.append(step(state, rasters, *batch, draws))
             end.record()
             events.append((start, end))
         torch.cuda.synchronize()
@@ -1999,7 +2012,7 @@ def phase_train_precisions(scene: dict) -> dict:
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         with _recorded_k3_calls() as calls:
             breakdown = device_breakdown(lambda: step(state, rasters, *batches[-1],
-                                                      generator))
+                                                      draws))
         for x_shape, k_shape, passes in calls:
             key = (x_shape, k_shape, passes)
             shapes.setdefault(key, {}).setdefault(policy, 0)
@@ -2920,7 +2933,8 @@ def phase_train_vs_cpu(scene: dict) -> dict:
     ``TRAIN_ROUNDED_SHARE`` of the policy's own gap to the float32 step on
     the card, a bar the float32 step's, in the policy's place, must miss;
     the same shares of their gradients are printed."""
-    from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
+    from resdepth_tpu_torch.data.pipeline import (GeneratorDraws, batch_spec_for,
+                                                  device_put_dataset)
     from resdepth_tpu_torch.models.unet import flagship_config, init_unet
     from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
                                                select_train_precision)
@@ -2947,7 +2961,7 @@ def phase_train_vs_cpu(scene: dict) -> dict:
             state = init_train_state(model, "Adam", 2e-4, 1e-5)
             rasters = device_put_dataset(ds, device, include_target=True)
             metric = make_train_step(spec, compute_dtype=dtype, **kwargs)(
-                state, rasters, *batch, torch.Generator(device=device))
+                state, rasters, *batch, GeneratorDraws(torch.Generator(device=device)))
             runs[policy, name] = {
                 "metric": float(metric),
                 "grads": {n: p.grad.detach().cpu().numpy()
@@ -3192,7 +3206,8 @@ def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> 
     and the first step's gradients (summed over the group). ``reverse``
     hands each batch's samples in reverse order: the same sums, grouped
     otherwise."""
-    from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
+    from resdepth_tpu_torch.data.pipeline import (GeneratorDraws, batch_spec_for,
+                                                  device_put_dataset)
     from resdepth_tpu_torch.models.unet import flagship_config, init_unet
     from resdepth_tpu_torch.ops import conv
     from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
@@ -3206,7 +3221,7 @@ def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> 
     state = init_train_state(model, "Adam", DP_LR, 1e-5)
     step = make_train_step(batch_spec_for(ds, augment=False), weighted_bn=False,
                            compute_dtype=dtype, group=group, **kwargs)
-    generator = torch.Generator(device=device).manual_seed(SEED)
+    draws = GeneratorDraws(torch.Generator(device=device).manual_seed(SEED))
     events, metrics = [], []
     torch.cuda.synchronize()
     for key in conv.LAUNCHES:
@@ -3222,7 +3237,7 @@ def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> 
                                 np.ascontiguousarray(ds.positions[i:i + TRAIN_BATCH][order]),
                                 np.ascontiguousarray(ds.pair_indices[i:i + TRAIN_BATCH][order]),
                                 np.zeros((TRAIN_BATCH, 4), np.int32),
-                                np.ones(TRAIN_BATCH, np.float32), generator))
+                                np.ones(TRAIN_BATCH, np.float32), draws))
             end.record()
             events.append((start, end))
             if grads is None:
@@ -3329,47 +3344,6 @@ def dp_rank(plan_path: str) -> int:
     return 0
 
 
-def _run_ranks(plan_path: str, work: str) -> list:
-    """``DP_RANKS`` processes of ``chip_smoke.py --dp-rank`` joined through
-    ``RESDEPTH_DIST_*`` at a free localhost port, on the one card; their
-    output goes to files beside the plan. A rank that fails, or ranks that
-    outlast ``DP_TIMEOUT``, stop the others and raise."""
-    from resdepth_tpu_torch.parallel import bootstrap
-
-    coordinator = f"localhost:{bootstrap.free_port()}"
-    procs, logs = [], []
-    try:
-        for rank in range(DP_RANKS):
-            env = {**os.environ, "RESDEPTH_DIST_COORDINATOR": coordinator,
-                   "RESDEPTH_DIST_NUM_PROCESSES": str(DP_RANKS),
-                   "RESDEPTH_DIST_PROCESS_ID": str(rank)}
-            env.pop("RESDEPTH_DISTRIBUTED", None)
-            logs.append(open(os.path.join(work, f"dp_rank{rank}.log"), "w+"))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-rank", plan_path],
-                env=env, cwd=REPO, stdout=logs[-1], stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + DP_TIMEOUT
-        for proc in procs:
-            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            tails = []
-            for rank in failed:
-                logs[rank].seek(0)
-                tails.append(f"rank {rank} (exit {procs[rank].returncode}):\n"
-                             + logs[rank].read()[-4000:])
-            raise AssertionError("dp-2-on-1: " + "\n".join(tails))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for f in logs:
-            f.close()
-    return [torch.load(f"{os.path.join(work, 'dp')}.r{r}.pt", weights_only=False)
-            for r in range(DP_RANKS)]
-
-
 def _dp_gaps(got: dict, alone: dict, start: dict, bar: dict) -> dict:
     """How far a run (``dp_train``'s result) lies from one process: the
     metric's largest relative gap, the worst excess over ``bar``'s atol +
@@ -3464,6 +3438,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
                                                 serving_model)
     from resdepth_tpu_torch.models import weights
     from resdepth_tpu_torch.models.unet import UNet, flagship_config, init_unet
+    from resdepth_tpu_torch.parallel import bootstrap
 
     device = device or torch.device("cuda", 0)
     config = flagship_config("geom-stereo")
@@ -3499,7 +3474,13 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
         json.dump({"scene": scene, "train_scene": train_scene,
                    "model_weights": model["weights"], "out": os.path.join(work, "dp")}, f)
     begin = time.perf_counter()
-    ranks = _run_ranks(plan, work)
+    try:
+        bootstrap.run_world([sys.executable, os.path.abspath(__file__), "--dp-rank", plan],
+                            DP_RANKS, timeout=DP_TIMEOUT, cwd=REPO, log_dir=work)
+    except bootstrap.WorldFailed as exc:
+        raise AssertionError(f"dp-2-on-1: {exc}") from None
+    ranks = [torch.load(f"{os.path.join(work, 'dp')}.r{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
     wall = time.perf_counter() - begin
     if [(r["rank"], r["world"], r["backend"]) for r in ranks] != [
             (i, DP_RANKS, "gloo") for i in range(DP_RANKS)]:
@@ -3593,6 +3574,127 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
     return {"launches": launches}
 
 
+# ``resdepth_tpu_torch/graft_entry.py``: the flagship forward and the dry run.
+DRYRUN_RANKS = 4                 # ranks of the shared-card world: every leg runs
+DRYRUN_FORWARD_BAR = 1e-5        # of the largest output: the port's f32 forward bar
+DRYRUN_TIMEOUT = 300             # seconds a dry run's world may take
+
+
+def dryrun_rank(plan_path: str) -> int:
+    """One rank of phase dryrun (``--dryrun-rank``): ``graft_entry.rank_main``
+    under ``held_kernels``; adds each kernel's held calls (count, worst
+    error and its bar) to the rank's result file."""
+    from resdepth_tpu_torch import graft_entry
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    record = {}
+    with held_kernels(record):
+        graft_entry.rank_main(plan_path)
+    path = f"{plan['out']}.r{os.environ['RESDEPTH_DIST_PROCESS_ID']}.json"
+    with open(path) as f:
+        result = json.load(f)
+    result["held"] = {}
+    for key, calls in record.items():
+        # the call farthest into its bar, and the largest |diff| of any call
+        worst = max(calls, key=lambda c: c[-2] / c[-1] if c[-1] else c[-2],
+                    default=(0.0, 0.0))
+        largest = max(calls, key=lambda c: c[-2], default=(0.0, 0.0))
+        result["held"][key] = {"calls": len(calls), "worst": worst[-2], "bar": worst[-1],
+                               "largest": largest[-2], "largest_bar": largest[-1]}
+    with open(path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_dryrun() -> dict:
+    """``entry()``'s forward on the card against the CPU, then the dry run in
+    a world of one over NCCL and in ``DRYRUN_RANKS`` ranks sharing the card
+    over gloo (``graft_entry.dryrun_multichip``, which checks the legs'
+    bars), each rank a ``--dryrun-rank`` process holding every kernel call
+    to its plain version. Asserts the launches of each leg in every rank:
+    K3 at 1 pass in the train legs (``k3_launches_a_step('default', depth)``
+    a step), K1 in the tile-sharded leg, K2 in the scene-sharded leg (a
+    rank with bands), and no other kernel. Returns the launches by kernel
+    and the forward's ms."""
+    from resdepth_tpu_torch import graft_entry
+
+    start = time.perf_counter()
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    fn, (model, x) = graft_entry.entry()
+    torch.backends.cudnn.allow_tf32 = False
+    x_dev = torch.from_numpy(x).cuda()
+    ms = cuda_ms(lambda: fn(model, x_dev), iters=10)
+    got = fn(model, x_dev).cpu().numpy()
+    cpu_model = graft_entry.entry("cpu")[1][0]
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want = fn(cpu_model, x).numpy()
+    err = float(np.abs(got - want).max())
+    bar = DRYRUN_FORWARD_BAR * float(np.abs(want).max())
+    if not (got.shape == want.shape == (4, 256, 256, 1) and np.isfinite(got).all()
+            and err <= bar):
+        raise AssertionError(f"dryrun: entry forward card vs CPU max |diff| {err:.3g} "
+                             f"(bar {bar:.3g}), shape {got.shape}")
+    log("dryrun", f"entry(): flagship forward on 4x256^2x3 {ms:.2f} ms (CUDA events, "
+        f"TF32 off), card vs CPU max |diff| {err:.3g} (bar {bar:.3g})")
+    del model, x_dev
+    torch.cuda.empty_cache()
+
+    argv = [sys.executable, os.path.abspath(__file__), "--dryrun-rank"]
+    want_k3 = {"train": k3_launches_a_step("default", 3)[1],
+               "train-2d": k3_launches_a_step("default", 3)[1],
+               "banded": 2 * k3_launches_a_step("default", 2)[1]}
+    launches = {"k1": 0, "k2": 0, 1: 0}
+    for n, share in ((1, False), (DRYRUN_RANKS, True)):
+        begin = time.perf_counter()
+        ranks = graft_entry.dryrun_multichip(n, share_cards=share, rank_argv=argv,
+                                             timeout=DRYRUN_TIMEOUT)
+        wall = time.perf_counter() - begin
+        failures, lines = [], []
+        for name in graft_entry.legs(n):
+            counts = [r["legs"][name]["launches"] for r in ranks]
+            for rank, c in enumerate(counts):
+                # "k3" counts every K3 launch and "k3_split" its split kernel
+                other = {k: v for k, v in c.items()
+                         if v and k not in ("k1", "k2", "k3_p1", "k3", "k3_split")}
+                if name in want_k3:
+                    ok = (c["k3_p1"] == c["k3"] == want_k3[name]
+                          and not c["k1"] and not c["k2"])
+                elif name == "tile-sharded":
+                    ok = c["k1"] > 0 and not c["k2"] and not c["k3"]
+                else:   # a rank with a band launches K2
+                    bands = ranks[0]["legs"][name]["bands"]
+                    ok = (c["k2"] > 0) == (rank < bands) and not c["k1"] and not c["k3"]
+                if not ok or other:
+                    failures.append(f"{name} rank {rank}: launches {c}")
+            launches["k1"] += sum(c["k1"] for c in counts)
+            launches["k2"] += sum(c["k2"] for c in counts)
+            launches[1] += sum(c["k3_p1"] for c in counts)
+            lines.append(f"{name} {max(r['legs'][name]['seconds'] for r in ranks):.2f} s, "
+                         "launches a rank " + ", ".join(
+                             "/".join(str(c[k]) for c in counts) + f" {k}"
+                             for k in ("k3_p1", "k1", "k2") if any(c[k] for c in counts)))
+        held = {}
+        for key in ("k3", "k1", "k2"):
+            worst = max((r["held"][key] for r in ranks),
+                        key=lambda h: h["worst"] / h["bar"] if h["bar"] else h["worst"])
+            largest = max((r["held"][key] for r in ranks), key=lambda h: h["largest"])
+            held[key] = (sum(r["held"][key]["calls"] for r in ranks), worst["worst"],
+                         worst["bar"], largest["largest"], largest["largest_bar"])
+        if any(held[key][0] == 0 for key in held):
+            failures.append(f"held calls {held}: a kernel was never held")
+        log("dryrun", f"dryrun_multichip({n}"
+            + (", share_cards=True" if share else "") + f"): {wall:.1f} s with the ranks' "
+            f"start, {ranks[0]['backend']}; " + "; ".join(lines) + "; held: " + ", ".join(
+                f"{k.upper()} {c} calls, farthest into its bar |diff| {w:.3g} (bar "
+                f"{b:.3g}), largest |diff| {g:.3g} (bar {gb:.3g})"
+                for k, (c, w, b, g, gb) in held.items()))
+        if failures:
+            raise AssertionError("dryrun: " + "; ".join(failures))
+    log("dryrun", f"done in {time.perf_counter() - start:.1f} s")
+    return {"launches": launches, "forward_ms": ms}
+
+
 def main(argv: list | None = None) -> int:
     import argparse
 
@@ -3602,11 +3704,15 @@ def main(argv: list | None = None) -> int:
                              "the 4096x4096 scene's batches (phase stitch-scene), "
                              "to compare two checkouts on one card; prints no "
                              "result line")
-    parser.add_argument("--phase", action="append", choices=("studies", "config-smoke"),
+    parser.add_argument("--phase", action="append",
+                        choices=("studies", "config-smoke", "dryrun"),
                         help="run phases 1-2 and only this phase (repeatable), to "
                              "iterate on it; prints no result line")
     parser.add_argument("--dp-rank", metavar="PLAN",
                         help="run one rank of phase dp-2-on-1 from its plan (the "
+                             "phase starts the ranks itself); prints no result line")
+    parser.add_argument("--dryrun-rank", metavar="PLAN",
+                        help="run one rank of phase dryrun from its plan (the "
                              "phase starts the ranks itself); prints no result line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3616,6 +3722,8 @@ def main(argv: list | None = None) -> int:
     import resdepth_tpu_torch  # noqa: F401  (fails outside a checkout)
     if args.dp_rank:
         return dp_rank(args.dp_rank)
+    if args.dryrun_rank:
+        return dryrun_rank(args.dryrun_rank)
     from resdepth_tpu_torch.models.unet import flagship_config
     from resdepth_tpu_torch.ops import stitch
 
@@ -3627,6 +3735,9 @@ def main(argv: list | None = None) -> int:
     phase_build()
     if args.phase:
         for name in args.phase:
+            if name == "dryrun":
+                phase_dryrun()
+                continue
             {"studies": phase_studies, "config-smoke": phase_config_smoke}[name](
                 os.path.join(WORK_DIR, name))
         shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -3668,13 +3779,14 @@ def main(argv: list | None = None) -> int:
     phase_train_vs_cpu(train_scene)
     dp_nccl = phase_dp_nccl_1(WORK_DIR, train_scene)
     dp_ranks = phase_dp_2_on_1(WORK_DIR, scene, model, train_scene)
+    dryrun = phase_dryrun()
     shutil.rmtree(WORK_DIR, ignore_errors=True)
 
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K1 and K2 with their launches on the CLI runs (phase 4), the
     # streamed scenes (phases streaming and streaming-cli), the channel
     # modes' scenes (phase channel-modes), the ranks' scenes (phases
-    # dp-nccl-1 and dp-2-on-1), the studies and the config smoke.
+    # dp-nccl-1, dp-2-on-1 and dryrun), the studies and the config smoke.
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": replaces,
@@ -3682,13 +3794,14 @@ def main(argv: list | None = None) -> int:
                       + streaming_cli["launches"][key]
                       + channel_modes["launches"].get(key, 0)
                       + dp_nccl["launches"].get(key, 0) + dp_ranks["launches"][key]
+                      + dryrun["launches"][key]
                       + studies["launches"][key] + smoke["launches"][key]),
          **{f: kernels[key][f] for f in fields}}
         for key, (name, replaces) in KERNELS.items()]}
     # K3 once per float32 pass count, with its launches on the mode paths
     # (phases modes, streaming and channel-modes), the train steps (phases
     # train-precisions, profile and train-banded), the ranks' training
-    # and serving (phases dp-nccl-1 and dp-2-on-1), the studies and the
+    # and serving (phases dp-nccl-1, dp-2-on-1 and dryrun), the studies and the
     # config smoke (phases studies and config-smoke), and its times and bound over one
     # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
     # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
@@ -3701,7 +3814,7 @@ def main(argv: list | None = None) -> int:
          "launches": (sum(phase["launches"].get(r["passes"], 0)
                           for phase in (modes, train_precisions, streaming, banded,
                                         channel_modes, profile, dp_nccl, dp_ranks,
-                                        studies, smoke))
+                                        dryrun, studies, smoke))
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
         for key, r in convs.items()]

@@ -8,7 +8,9 @@ mask from the raw ground truth (nodata, the reference's ``!= 0`` quirk, the
 inclusive exclusive-area bounds), per-tile masked-mean normalisation of the
 DSM and the target, ortho views (optionally permuted within the pair), and
 a uniform dihedral augmentation applied alike to mask, target and input.
-The random draws come from a ``torch.Generator`` on the rasters' device.
+The random draws come from a draw source (``GeneratorDraws``: a
+``torch.Generator`` on the rasters' device, unless the caller hands
+another source with the same calls).
 
 ``BatchIndexIterator`` is the JAX module's host-side epoch iterator, ported
 verbatim (it is numpy; the JAX module imports jax).
@@ -127,13 +129,35 @@ def _bounds_mask(bounds: torch.Tensor, tile: int) -> torch.Tensor:
             & (cols >= b[:, 1]) & (cols <= b[:, 3]))
 
 
-def _permutation_per_sample(generator, batch: int, n_views: int, device):
-    """(B, V) uniform random permutations of the views, one per sample."""
-    keys = torch.rand((batch, n_views), generator=generator, device=device)
-    return torch.argsort(keys, dim=1)
+class GeneratorDraws:
+    """The default draw source: a ``torch.Generator`` on the rasters'
+    device.
+
+    A draw source makes the two random draws of a training batch:
+    ``view_permutations`` (the ortho views' order, drawn first) and
+    ``dihedral_bits`` (the augmentation). ``at_step(step)`` gives the
+    source for the train step of that index; this one draws on from the
+    generator whatever the step. Another source (for example one that
+    replays another package's draws) needs only these three calls."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def at_step(self, step: int) -> "GeneratorDraws":
+        return self
+
+    def view_permutations(self, batch: int, n_views: int, device) -> torch.Tensor:
+        """(B, V) int64: a uniform random permutation of the views a sample."""
+        keys = torch.rand((batch, n_views), generator=self.generator, device=device)
+        return torch.argsort(keys, dim=1)
+
+    def dihedral_bits(self, batch: int, device) -> torch.Tensor:
+        """(3, B) bool: transpose, flip rows, flip columns, fair and
+        independent."""
+        return torch.rand((3, batch), generator=self.generator, device=device) < 0.5
 
 
-def _augment(stacked: torch.Tensor, generator) -> torch.Tensor:
+def _augment(stacked: torch.Tensor, draws) -> torch.Tensor:
     """Uniform random dihedral transform per sample of ``stacked`` (B, C,
     T, T), the same for every channel.
 
@@ -141,8 +165,7 @@ def _augment(stacked: torch.Tensor, generator) -> torch.Tensor:
     rows, flip columns. Together they hit each of the square's 8 symmetries
     with probability 1/8, the distribution of the reference's rot90^k with
     independent flips (``resdepth_tpu/data/pipeline.py::_augment``)."""
-    bits = torch.rand((3, stacked.shape[0]), generator=generator,
-                      device=stacked.device) < 0.5
+    bits = draws.dihedral_bits(stacked.shape[0], stacked.device)
     transpose, flip_rows, flip_cols = (b[:, None, None, None] for b in bits)
     stacked = torch.where(transpose, stacked.transpose(2, 3), stacked)
     stacked = torch.where(flip_rows, stacked.flip(2), stacked)
@@ -151,14 +174,15 @@ def _augment(stacked: torch.Tensor, generator) -> torch.Tensor:
 
 def build_batch(rasters: DeviceRasters, positions: torch.Tensor,
                 pair_indices: torch.Tensor, spec: BatchSpec, *, bounds=None,
-                generator: torch.Generator | None = None) -> dict:
+                draws: GeneratorDraws | None = None) -> dict:
     """Assemble one batch on the rasters' device.
 
     ``positions``: (B, 2) integer (y, x) tile origins; ``pair_indices``:
     (B,); ``bounds``: (B, 4) inclusive loss boxes, read when
-    ``spec.use_bounds``; ``generator``: a ``torch.Generator`` on the
-    rasters' device, needed for ``spec.augment`` and
-    ``spec.permute_images_within_pair``.
+    ``spec.use_bounds``; ``draws``: a draw source (``GeneratorDraws`` over
+    a ``torch.Generator`` on the rasters' device), needed for
+    ``spec.augment`` and ``spec.permute_images_within_pair``; the view
+    permutations are drawn before the dihedral bits.
 
     Returns ``input`` (B, T, T, C) in the JAX package's NHWC layout (a view
     of a contiguous NCHW tensor, so ``apply_unet`` reads it without a copy)
@@ -166,9 +190,9 @@ def build_batch(rasters: DeviceRasters, positions: torch.Tensor,
     ``spec.has_target`` also ``target`` and ``loss_mask`` (B, T, T, 1),
     the target normalised by the same mean and the mask in float32.
     """
-    if (spec.augment or spec.permute_images_within_pair) and generator is None:
-        raise ValueError("augmentation and view permutation draw from a "
-                         "torch.Generator: pass generator=")
+    if (spec.augment or spec.permute_images_within_pair) and draws is None:
+        raise ValueError("augmentation and view permutation need a draw source: "
+                         "pass draws=GeneratorDraws(generator)")
     tile = spec.tile_size
     device = rasters.dsm_input.device
     positions = positions.long()
@@ -200,7 +224,7 @@ def build_batch(rasters: DeviceRasters, positions: torch.Tensor,
     if spec.input_channels != "geom":
         view_ids = rasters.pairs[pair_indices.long()]                 # (B, V)
         if spec.permute_images_within_pair:
-            perm = _permutation_per_sample(generator, *view_ids.shape, device)
+            perm = draws.view_permutations(*view_ids.shape, device)
             view_ids = torch.gather(view_ids, 1, perm)
         orthos = rasters.orthos[view_ids[:, :, None, None],
                                 rows[:, None, :, None],
@@ -220,13 +244,13 @@ def build_batch(rasters: DeviceRasters, positions: torch.Tensor,
 
     if not spec.has_target:
         if spec.augment:
-            inputs = _augment(inputs, generator)
+            inputs = _augment(inputs, draws)
         return {"input": inputs.permute(0, 2, 3, 1), "dsm_mean": dsm_mean}
 
     stacked = torch.cat([mask[:, None].to(torch.float32), target[:, None],
                          inputs], dim=1)
     if spec.augment:
-        stacked = _augment(stacked, generator)
+        stacked = _augment(stacked, draws)
     nhwc = stacked.permute(0, 2, 3, 1)
     return {"input": nhwc[..., 2:], "target": nhwc[..., 1:2],
             "loss_mask": nhwc[..., 0:1], "dsm_mean": dsm_mean}

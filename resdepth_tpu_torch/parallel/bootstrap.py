@@ -19,6 +19,9 @@ import datetime
 import importlib
 import os
 import socket
+import subprocess
+import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -149,3 +152,73 @@ def launch_per_gpu(module: str, argv, n: int) -> None:
 
     mp.start_processes(_spawned, args=(module, argv, f"localhost:{free_port()}", n),
                        nprocs=n, start_method="spawn")
+
+
+class WorldFailed(RuntimeError):
+    """A rank of ``run_world`` failed, or the world outlasted its timeout."""
+
+
+def run_world(argv, n: int, *, timeout: float, cwd: str | None = None,
+              env: dict | None = None, local_rank=None, log_dir: str | None = None,
+              until=None) -> list:
+    """Run the command ``argv`` as ranks 0..n-1 of one world: ``n``
+    processes joined through ``RESDEPTH_DIST_*`` at a free localhost port,
+    over ``env`` (default: this process's environment). Each rank's
+    standard output and error go to ``log_dir/rank<r>.log`` (a temporary
+    directory by default); returns each rank's output.
+
+    A rank that fails, or a world that outlasts ``timeout`` seconds (a hung
+    collective), stops every rank and raises ``WorldFailed`` with the
+    failed ranks' last lines. ``local_rank(rank)``: the card a rank binds
+    (``LOCAL_RANK``; None, or a call that returns None, leaves it to
+    ``maybe_initialize_distributed``). ``until``: a call polled while the
+    world runs; once it returns true every rank is stopped and the outputs
+    so far are returned (``WorldFailed`` if the ranks all ended first)."""
+    coordinator = f"localhost:{free_port()}"
+    base = dict(os.environ if env is None else env)
+    for key in (_ENV_AUTO, "LOCAL_RANK"):
+        base.pop(key, None)
+    with tempfile.TemporaryDirectory(prefix="world_") as scratch:
+        log_dir = log_dir or scratch
+        procs, logs = [], []
+        try:
+            for rank in range(n):
+                rank_env = {**base, _ENV_COORDINATOR: coordinator,
+                            _ENV_NUM_PROCESSES: str(n), _ENV_PROCESS_ID: str(rank)}
+                local = local_rank(rank) if local_rank else None
+                if local is not None:
+                    rank_env["LOCAL_RANK"] = str(local)
+                logs.append(open(os.path.join(log_dir, f"rank{rank}.log"), "w+"))
+                procs.append(subprocess.Popen(argv, env=rank_env, cwd=cwd, stdout=logs[-1],
+                                              stderr=subprocess.STDOUT))
+            deadline = time.monotonic() + timeout
+            stopped = False
+            while any(p.poll() is None for p in procs):
+                if until is not None and until():
+                    stopped = True
+                    break
+                if (any(p.poll() not in (None, 0) for p in procs)
+                        or time.monotonic() > deadline):
+                    break
+                time.sleep(0.005 if until is not None else 0.1)
+            failed = [] if stopped else [r for r, p in enumerate(procs) if p.poll() != 0]
+            hung = [r for r in failed if procs[r].poll() is None]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        outputs = []
+        for f in logs:
+            f.seek(0)
+            outputs.append(f.read())
+            f.close()
+    if failed:
+        raise WorldFailed(
+            f"a world of {n} rank(s) failed"
+            + (f": it outlasted {timeout:.0f} s" if hung else "") + "\n" + "\n".join(
+                f"rank {r} ({'running' if r in hung else f'exit {procs[r].returncode}'}):\n"
+                + outputs[r][-4000:] for r in failed))
+    if until is not None and not stopped:
+        raise WorldFailed(f"a world of {n} rank(s) ended before it was to be stopped")
+    return outputs

@@ -145,7 +145,8 @@ def _train(mode, config, scene, device, args, cache_key):
     """The mode's trained model: from the cache, or ``args.steps`` steps at
     the 'default' policy (written to the cache when one is set)."""
     from resdepth_tpu_torch.data.dataset import TileDataset
-    from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
+    from resdepth_tpu_torch.data.pipeline import (GeneratorDraws, batch_spec_for,
+                                                  device_put_dataset)
     from resdepth_tpu_torch.models.unet import init_unet
     from resdepth_tpu_torch.studies.precision_study import (load_state_cache,
                                                             save_state_cache)
@@ -179,7 +180,7 @@ def _train(mode, config, scene, device, args, cache_key):
     state = init_train_state(model, "Adam", 2e-4, 1e-5)
     step = make_train_step(batch_spec_for(train_ds), **policy)
     rasters = device_put_dataset(train_ds, device, include_target=True)
-    generator = torch.Generator(device=device).manual_seed(0)
+    draws = GeneratorDraws(torch.Generator(device=device).manual_seed(0))
     rng = np.random.default_rng(args.scene_seed + 1)
     n_pairs = len(MODE_PAIRS[mode] or [()])
     k, b = STEPS_A_DRAW, args.train_batch
@@ -193,7 +194,7 @@ def _train(mode, config, scene, device, args, cache_key):
         pidx = rng.integers(0, n_pairs, (k, b)).astype(np.int32)
         for i in range(k):
             maes.append(step(state, rasters, pos[i], pidx[i], np.zeros((b, 4), np.int32),
-                             np.ones(b, np.float32), generator))
+                             np.ones(b, np.float32), draws))
     print(f"[{mode}/train] MAE {float(maes[0]):.3f} -> {float(maes[-1]):.3f} m "
           f"({time.perf_counter() - start:.0f}s)", flush=True)
     model.eval()

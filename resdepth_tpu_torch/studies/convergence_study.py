@@ -7,6 +7,7 @@
         [--seed 0] [--precision balanced16|high|default|balanced]
         [--scheduler steplr|plateau] [--epochs 300] [--samples N] [--batch N]
         [--lr X] [--remat] [--device cuda|cpu] [--flagship] [--tag TAG]
+        [--init NPZ]
     python -m resdepth_tpu_torch.studies.convergence_study report --out DIR
         [--flagship]
 
@@ -20,7 +21,11 @@ from ``Model_best.npz``, and writes ``DIR/results/port_<tag>.json`` with
 the JAX arm's keys: the val-MAE and learning-rate curves, the best val
 MAE and its epoch, the final lr and the refined and initial test-stripe
 MAE. ``report`` prints a markdown row per result beside the JAX
-package's refined-test-MAE anchors (``ANCHORS``).
+package's refined-test-MAE anchors (``ANCHORS``). ``port --init NPZ``
+starts from the weights of an epoch -1 checkpoint (``model.pretrained_path``)
+instead of the port's seeded init: with the JAX package's init
+(``tests/_jax_draws.py init`` writes it) the two packages' runs differ in
+their augmentation draws and their arithmetic.
 
 Two protocols, the JAX script's: the toy one (depth-4 UNet, start 16, cap
 128, 64-px tiles, a 256x400 scene of 5 vertical 80-px stripes, 320
@@ -221,12 +226,15 @@ def run_port(out_dir: str, protocol: Protocol, *, seed: int = 0, epochs: int = N
              scheduler: str = "steplr", precision: str = "balanced16",
              device: str = "cuda", tag: str | None = None, batch: int | None = None,
              lr: float | None = None, n_samples: int | None = None,
-             remat: bool = False, extra_training: dict | None = None) -> dict:
+             remat: bool = False, extra_training: dict | None = None,
+             init: str | None = None) -> dict:
     """Train through the port's train CLI, refine the test stripe through
     its predict CLI, score it, and write ``results/port_<tag>.json``.
     ``extra_training`` merges further ``training_settings`` keys into the
     run's config (``{"ema_decay": 0.999}`` for the EMA study); the rest of
-    the protocol stays, so the results compare with the stored ones."""
+    the protocol stays, so the results compare with the stored ones.
+    ``init``: an epoch -1 checkpoint to start from (it adds a suffix to the
+    default tag; the result keeps the JAX arm's keys)."""
     import torch
 
     from resdepth_tpu_torch.studies.precision_study import device_name
@@ -235,13 +243,15 @@ def run_port(out_dir: str, protocol: Protocol, *, seed: int = 0, epochs: int = N
     lr = LR if lr is None else float(lr)
     n_samples = protocol.n_samples if n_samples is None else int(n_samples)
     scene = _load_scene(out_dir, protocol)
-    tag = tag or f"seed{seed}_{scheduler}_{precision}"
+    tag = tag or f"seed{seed}_{scheduler}_{precision}" + ("_init" if init else "")
     run_root = os.path.abspath(os.path.join(out_dir, "runs_port", tag))
     os.makedirs(run_root, exist_ok=True)
 
     cfg = train_config(scene, protocol, run_root, seed=seed, epochs=epochs,
                        scheduler=scheduler, precision=precision, batch=batch, lr=lr,
                        n_samples=n_samples, remat=remat, extra_training=extra_training)
+    if init:
+        cfg["model"]["pretrained_path"] = os.path.abspath(init)
     cfg_path = os.path.join(run_root, "config_train.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f, indent=1)
@@ -356,6 +366,8 @@ def main(argv=None) -> None:
     p.add_argument("--batch", type=int, default=None, help="training batch size")
     p.add_argument("--lr", type=float, default=None, help="the Adam learning rate")
     p.add_argument("--remat", action="store_true", help="set tpu.remat")
+    p.add_argument("--init", default=None,
+                   help="start from this epoch -1 checkpoint's weights")
     args = p.parse_args(argv)
     protocol = FLAGSHIP if args.flagship else TOY
     if args.cmd == "gen":
@@ -364,7 +376,7 @@ def main(argv=None) -> None:
         run_port(args.out, protocol, seed=args.seed, epochs=args.epochs,
                  scheduler=args.scheduler, precision=args.precision,
                  device=args.device, tag=args.tag, batch=args.batch, lr=args.lr,
-                 n_samples=args.samples, remat=args.remat)
+                 n_samples=args.samples, remat=args.remat, init=args.init)
     else:
         report(args.out, protocol)
 

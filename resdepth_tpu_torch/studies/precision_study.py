@@ -120,7 +120,8 @@ def _train(config, train_ds, device, steps: int, batch: int, seed: int,
     """``steps`` Adam steps (lr 2e-4, weight decay 1e-5) at
     ``train_precision`` (float32 compute) on random tiles; returns the model
     and the first and last batch MAE (m)."""
-    from resdepth_tpu_torch.data.pipeline import batch_spec_for, device_put_dataset
+    from resdepth_tpu_torch.data.pipeline import (GeneratorDraws, batch_spec_for,
+                                                  device_put_dataset)
     from resdepth_tpu_torch.models.unet import init_unet
     from resdepth_tpu_torch.train.step import (init_train_state, make_train_step,
                                                select_train_precision)
@@ -132,7 +133,7 @@ def _train(config, train_ds, device, steps: int, batch: int, seed: int,
                           augment=True)
     step = make_train_step(spec, **policy)
     rasters = device_put_dataset(train_ds, device, include_target=True)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    draws = GeneratorDraws(torch.Generator(device=device).manual_seed(seed))
     rng = np.random.default_rng(seed)
     rows, cols = train_ds.dsm_input.shape
     tile = train_ds.tile_size
@@ -142,7 +143,7 @@ def _train(config, train_ds, device, steps: int, batch: int, seed: int,
                         rng.integers(0, cols - tile, batch)], -1).astype(np.int32)
         pair = rng.integers(0, 2, batch).astype(np.int32)
         maes.append(step(state, rasters, pos, pair, np.zeros((batch, 4), np.int32),
-                         np.ones(batch, np.float32), generator))
+                         np.ones(batch, np.float32), draws))
     model.eval()
     return model, float(maes[0]), float(maes[-1])
 

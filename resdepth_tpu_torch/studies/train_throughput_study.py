@@ -73,9 +73,11 @@ def measure(config, tile: int, mode: str, batch: int, remat: bool, k: int,
             windows: int, device) -> dict:
     """Samples/s and ms a step of the best of ``windows`` windows of ``k``
     steps, after one untimed window."""
+    from resdepth_tpu_torch.data.pipeline import GeneratorDraws
+
     state, step, rasters = build_step(config, tile, mode, remat, device)
     rng = np.random.default_rng(0)
-    generator = torch.Generator(device=device).manual_seed(0)
+    draws = GeneratorDraws(torch.Generator(device=device).manual_seed(0))
     bounds = np.zeros((batch, 4), np.int32)
     weights = np.ones(batch, np.float32)
 
@@ -90,7 +92,7 @@ def measure(config, tile: int, mode: str, batch: int, remat: bool, k: int,
         else:
             t0 = time.perf_counter()
         for i in range(k):
-            metric = step(state, rasters, pos[i], pidx[i], bounds, weights, generator)
+            metric = step(state, rasters, pos[i], pidx[i], bounds, weights, draws)
         if device.type == "cuda":
             end.record()
             end.synchronize()

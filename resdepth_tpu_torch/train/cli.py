@@ -12,7 +12,8 @@ Model_after_{N}_epochs, Model_last}.npz`` in the JAX checkpoint layout, so
 ``test.py``, ``python -m resdepth_tpu_torch.predict`` and the JAX
 ``train.py`` (resume) all read them. Warm starts read reference ``.pth``
 files (with their Adam moments) and ``.npz`` checkpoints of either package;
-``general.auto_resume`` continues from the newest ``Model_last.npz``.
+``general.auto_resume`` continues from the newest ``Model_last.npz`` or,
+of a run that was stopped before it wrote one, ``Model_after_{N}_epochs.npz``.
 
 Training runs on ``--device`` (default ``cuda``, which raises when CUDA is
 absent). Data parallelism is one process per GPU over ``torch.distributed``
@@ -181,10 +182,13 @@ def _close_file_handlers(logger: logging.Logger) -> None:
             handler.close()
 
 
-def main(argv=None) -> Trainer | None:
+def main(argv=None, *, draw_factory=None) -> Trainer | None:
     """Run the CLI; returns the finished Trainer (its ``val_history`` holds
     the val MAE of each validated epoch), or None where this process only
-    started one process per GPU (``parallel.bootstrap.launch_per_gpu``)."""
+    started one process per GPU (``parallel.bootstrap.launch_per_gpu``).
+    ``draw_factory``, for a caller in this process: the ``Trainer``'s
+    source of augmentation and permutation draws (default: its seeded
+    generators)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     cfg_file = args.config_file
@@ -217,7 +221,7 @@ def main(argv=None) -> Trainer | None:
     logger = setup_logger("root_logger", level=logging.INFO if chief else logging.WARNING,
                           log_to_console=True, log_file=log_file)
     try:
-        return _train(args, cfg_file, cfg_user, output_directory, logger)
+        return _train(args, cfg_file, cfg_user, output_directory, logger, draw_factory)
     finally:
         # Loggers are process-wide: a later run in this process must not
         # write into this run's files.
@@ -225,7 +229,8 @@ def main(argv=None) -> Trainer | None:
             _close_file_handlers(logging.getLogger(name))
 
 
-def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
+def _train(args, cfg_file, cfg_user, output_directory, logger,
+           draw_factory=None) -> Trainer:
     logger.info(f"Validate the configuration file:\t{cfg_file}\n\n")
     if validate_train.validate_cfg_file(cfg_user, logger) is False:
         sys.exit(1)
@@ -391,10 +396,13 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
     # ------------------------------ warm start ----------------------------- #
     pretrained_path = cfg.model.get("pretrained_path")
     if not pretrained_path and cfg.general.get("auto_resume"):
+        # A stopped run's newest epoch checkpoint is a resume point too; a
+        # finished run's Model_last.npz is written after its last one.
         candidates = sorted(
-            glob.glob(os.path.join(cfg_user.output.output_directory,
-                                   "*", "checkpoints", "Model_last.npz")),
-            key=os.path.getmtime)
+            (path for name in ("Model_last.npz", "Model_after_*_epochs.npz")
+             for path in glob.glob(os.path.join(cfg_user.output.output_directory,
+                                                "*", "checkpoints", name))),
+            key=lambda path: (os.path.getmtime(path), path.endswith("Model_last.npz")))
         if candidates:
             pretrained_path = candidates[-1]
             logger.info(f"auto_resume: continuing from {pretrained_path}")
@@ -476,7 +484,7 @@ def _train(args, cfg_file, cfg_user, output_directory, logger) -> Trainer:
         hparams=hparams, rng_seed=seed,
         # Each band's batches together: one window upload a band an epoch.
         group_chunks_by_loader=banded_train,
-        profile_dir=cfg.tpu.get("profile_dir") or None)
+        profile_dir=cfg.tpu.get("profile_dir") or None, draw_factory=draw_factory)
 
     if resume_meta is not None:
         trainer.resume_from(resume_meta)

@@ -166,10 +166,13 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
                     group=None):
     """Build the train step.
 
-    ``step(state, rasters, positions, pair_idx, bounds, weights, generator)
+    ``step(state, rasters, positions, pair_idx, bounds, weights, draws)
     -> metric``: one optimizer step on ``state`` (in place) and the batch's
-    masked MAE in meters as a 0-d device tensor. ``generator`` is a
-    ``torch.Generator`` on the rasters' device (augmentation, permutation).
+    masked MAE in meters as a 0-d device tensor. ``draws`` is a draw
+    source for augmentation and permutation (``data.pipeline.
+    GeneratorDraws`` over a ``torch.Generator`` on the rasters' device); the
+    step draws from its ``at_step(state.step)``, as the JAX step folds its
+    step count into the key.
 
     ``weighted_bn=False`` leaves the sample weights out of the BatchNorm
     statistics, which is the same only when no sample is padding.
@@ -181,7 +184,7 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
 
     ``group`` (``parallel.mesh.data_mesh``) trains data-parallel: the step
     is handed the global batch, whose size the group's ranks divide, and
-    runs this rank's shard (``shard``); ``generator`` should be seeded per
+    runs this rank's shard (``shard``); ``draws`` should be seeded per
     rank, as the JAX step folds in the axis index. The metric is the
     global batch's.
 
@@ -196,7 +199,7 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
     move = float(np.float32(1) - decay)
 
     def step(state: TrainState, rasters: DeviceRasters, positions, pair_idx,
-             bounds, weights, generator):
+             bounds, weights, draws):
         device = rasters.dsm_input.device
         model = state.model
         model.train()
@@ -204,7 +207,8 @@ def make_train_step(spec: BatchSpec, *, weighted_bn: bool = True,
                                                      bounds, weights)
         w = _on(device, weights, torch.float32)
         batch = build_batch(rasters, _on(device, positions), _on(device, pair_idx),
-                            spec, bounds=_on(device, bounds), generator=generator)
+                            spec, bounds=_on(device, bounds),
+                            draws=None if draws is None else draws.at_step(state.step))
         pred, bn_state = apply_unet(model, batch["input"].to(compute_dtype),
                                     train=True,
                                     sample_weights=w if weighted_bn else None,

@@ -19,10 +19,19 @@ Batch order is the JAX trainer's: each region's batches are grouped into
 batches in the same order. Under banded residency (``data/banded.py``) a
 loader is one raster window: ``group_chunks_by_loader`` keeps each
 loader's chunks together, so an epoch uploads each window once.
-Augmentation draws from a ``torch.Generator`` on the device, seeded from
-``(rng_seed, epoch)`` and, past rank 0, the process's rank, so a resumed
-run draws as an uninterrupted one would. Per-step metrics stay on the
+Augmentation draws from a ``torch.Generator`` on the device
+(``data.pipeline.GeneratorDraws``), seeded from ``(rng_seed, epoch)``
+and, past rank 0, the process's rank, so a resumed run draws as an
+uninterrupted one would; a ``draw_factory`` replaces it with the draw
+source it gives for ``(epoch, rank)``. Per-step metrics stay on the
 device until a logging point.
+
+A run that resumes from an epoch's checkpoint (``Model_last.npz``, or
+``Model_after_{N}_epochs.npz`` of a run that was stopped) first replays
+the batch order of the epochs before its start (``_epoch_chunks`` of
+each, with no step run), so it trains the batches an uninterrupted run
+would: with the per-epoch augmentation seeds, the resumed run is the
+uninterrupted one, bit for bit on the same hardware.
 
 With ``profile_dir`` the first trained epoch runs under
 ``utils.profiler.trace`` (as the JAX trainer traces it), each of its steps
@@ -46,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from resdepth_tpu_torch.data.pipeline import GeneratorDraws
 from resdepth_tpu_torch.models.weights import (adam_moments_to_jax,
                                                jax_params_from_state_dict)
 from resdepth_tpu_torch.parallel.bootstrap import is_chief, process_index
@@ -91,14 +101,16 @@ class Trainer:
                  metrics_jsonl: str | None = None, hparams: dict | None = None,
                  rng_seed: int = 0, logger: logging.Logger | None = None,
                  group_chunks_by_loader: bool = False,
-                 profile_dir: str | None = None):
+                 profile_dir: str | None = None, draw_factory=None):
         """``train_loaders`` / ``val_loaders``: lists of ``(rasters,
         iterator)`` pairs, one per dataset region or raster window. Element
         0 is ``DeviceRasters`` or a provider with ``resolve()`` and
         ``release()`` (``data/banded.py``: ``BandWindow``, ``FullResident``),
         resolved per chunk; element 1 yields index batches
         (``BatchIndexIterator``). ``profile_dir``: trace the first trained
-        epoch into this directory (``utils/profiler.py``)."""
+        epoch into this directory (``utils/profiler.py``). ``draw_factory``
+        (None: the seeded generators): ``draw_factory(epoch, rank)`` gives
+        the draw source of that epoch's steps on this process."""
         self.state = state
         self.train_step = train_step
         self.eval_step = eval_step
@@ -112,6 +124,7 @@ class Trainer:
         self.freq_average_train_loss = freq_average_train_loss
         self.group_chunks_by_loader = group_chunks_by_loader
         self.profile_dir = profile_dir
+        self.draw_factory = draw_factory
 
         self.is_chief = is_chief()
         if self.is_chief:
@@ -223,8 +236,10 @@ class Trainer:
             rasters = self._resolve(self.train_loaders[loader_id][0])
             device = rasters.dsm_input.device
             if device not in generators:
-                generators[device] = torch.Generator(device=device).manual_seed(
-                    epoch_seed(self.rng_seed, epoch, process_index()))
+                generators[device] = (
+                    self.draw_factory(epoch, process_index()) if self.draw_factory
+                    else GeneratorDraws(torch.Generator(device=device).manual_seed(
+                        epoch_seed(self.rng_seed, epoch, process_index()))))
             for positions, pair_idx, bounds, weights in chunk:
                 with (profiler.step_annotation("train", num_iter * epoch + c_iter + 1)
                       if annotate else contextlib.nullcontext()):
@@ -288,6 +303,10 @@ class Trainer:
         self.logger.info("Start training...\n")
         start_time = time.time()
         epoch = self.start_epoch
+        # A resumed run: the host streams as they stood after the earlier
+        # epochs (each loader's sample order, the chunk order).
+        for _ in range(self.start_epoch):
+            self._epoch_chunks(self.train_loaders)
 
         for epoch in range(self.start_epoch, self.n_epochs):
             header = f"Epoch {epoch}/{self.n_epochs - 1}"

@@ -32,7 +32,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from resdepth_tpu_torch.data.dataset import TileDataset  # noqa: E402
-from resdepth_tpu_torch.data.pipeline import BatchSpec, DeviceRasters  # noqa: E402
+from resdepth_tpu_torch.data.pipeline import (BatchSpec, DeviceRasters,  # noqa: E402
+                                              GeneratorDraws)
 from resdepth_tpu_torch.infer import tiled  # noqa: E402
 from resdepth_tpu_torch.models import unet  # noqa: E402
 from resdepth_tpu_torch.parallel import bootstrap, mesh  # noqa: E402
@@ -68,7 +69,8 @@ def run_train(task: dict, arrays, group) -> dict:
     rasters = toy_rasters(arrays)
     batch = (arrays["positions"], np.zeros(len(arrays["positions"]), np.int32),
              np.zeros((len(arrays["positions"]), 4), np.int32), arrays["weights"])
-    metrics = [float(step(state, rasters, *batch, torch.Generator().manual_seed(0)))
+    metrics = [float(step(state, rasters, *batch,
+                          GeneratorDraws(torch.Generator().manual_seed(0))))
                for _ in range(task["steps"])]
     return {"metrics": np.asarray(metrics),
             **{f"state.{k}": v.numpy() for k, v in model.state_dict().items()}}

@@ -120,7 +120,11 @@ def test_import_guard_sees_every_port_module():
                  "resdepth_tpu_torch/studies/train_roofline.py",
                  "resdepth_tpu_torch/studies/config_smoke.py",
                  "resdepth_tpu_torch/make_demo_data.py",
-                 "resdepth_tpu_torch/make_demo_goldens.py"):
+                 "resdepth_tpu_torch/make_demo_goldens.py",
+                 "resdepth_tpu_torch/graft_entry.py",
+                 "resdepth_tpu_torch/data/pipeline.py",
+                 "resdepth_tpu_torch/train/trainer.py",
+                 "resdepth_tpu_torch/studies/golden_spread.py"):
         assert path in PORT_FILES
 
 

@@ -27,7 +27,6 @@ weights and inputs:
 
 import json
 import os
-import subprocess
 import sys
 
 import jax
@@ -75,37 +74,12 @@ TRAIN_CASES = {"high-b8": ("high", 8, 8), "high-b6-emit8": ("high", 8, 6),
                "balanced16-b8": ("balanced16", 8, 8)}
 
 
-def dist_env(rank: int, port: int, n: int = RANKS) -> dict:
-    env = {**os.environ, "RESDEPTH_DIST_COORDINATOR": f"localhost:{port}",
-           "RESDEPTH_DIST_NUM_PROCESSES": str(n), "RESDEPTH_DIST_PROCESS_ID": str(rank),
-           "OMP_NUM_THREADS": "2"}
-    env.pop("RESDEPTH_DISTRIBUTED", None)
-    return env
-
-
-def run_world(argv: list, cwd: str, timeout: float = WORLD_TIMEOUT, n: int = RANKS) -> list:
-    """Run ``argv`` as ranks 0..n-1 of one world (``RESDEPTH_DIST_*`` on a
-    free localhost port); returns their outputs. A rank that fails, or a
-    world that outlasts ``timeout`` (a hung collective), kills the others
-    and fails the test."""
-    port = bootstrap.free_port()
-    procs = [subprocess.Popen(argv, env=dist_env(r, port, n), cwd=cwd,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(n)]
-    outputs = []
-    try:
-        for proc in procs:
-            outputs.append(proc.communicate(timeout=timeout))
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"a world of {n} ranks outlasted {timeout} s")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    for rank, (proc, (out, err)) in enumerate(zip(procs, outputs)):
-        assert proc.returncode == 0, f"rank {rank}:\n{out[-3000:]}\n{err[-5000:]}"
-    return outputs
+def run_world(argv: list, cwd: str, **kwargs) -> list:
+    """``parallel.bootstrap.run_world`` for the tests: ``RANKS`` ranks of
+    2 threads each under ``WORLD_TIMEOUT``; returns their outputs."""
+    return bootstrap.run_world(argv, kwargs.pop("n", RANKS),
+                               timeout=kwargs.pop("timeout", WORLD_TIMEOUT), cwd=cwd,
+                               env={**os.environ, "OMP_NUM_THREADS": "2"}, **kwargs)
 
 
 # ------------------------------- the inputs --------------------------------- #
@@ -214,7 +188,7 @@ def _toy_rasters(arrays):
 
 def _one_process(arrays, policy, real):
     """The port's steps in this process, no group, on the real samples."""
-    from resdepth_tpu_torch.data.pipeline import BatchSpec
+    from resdepth_tpu_torch.data.pipeline import BatchSpec, GeneratorDraws
     from resdepth_tpu_torch.train.step import select_train_precision
 
     model = unet.UNet(unet.UNetConfig(**TOY))
@@ -227,7 +201,8 @@ def _one_process(arrays, policy, real):
     batch = (arrays["positions"][:real], np.zeros(real, np.int32),
              np.zeros((real, 4), np.int32), np.ones(real, np.float32))
     metrics = [float(step(state, _toy_rasters(arrays), *batch,
-                          torch.Generator().manual_seed(0))) for _ in range(STEPS)]
+                          GeneratorDraws(torch.Generator().manual_seed(0))))
+               for _ in range(STEPS)]
     return metrics, {k: v.numpy() for k, v in model.state_dict().items()}
 
 

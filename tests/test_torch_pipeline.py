@@ -147,7 +147,7 @@ def _both(ds, jds, spec_overrides=None, seed=0):
                             torch.from_numpy(ds.positions),
                             torch.from_numpy(ds.pair_indices), tspec,
                             bounds=torch.from_numpy(bounds),
-                            generator=torch.Generator().manual_seed(seed))
+                            draws=tpipe.GeneratorDraws(torch.Generator().manual_seed(seed)))
     return ({k: np.asarray(v) for k, v in want.items()},
             {k: v.numpy() for k, v in got.items()})
 
@@ -205,7 +205,7 @@ def test_augment_is_one_dihedral_transform_per_sample(make_geotiff):
             torch.from_numpy(ds.pair_indices[idx]))
     plain = tpipe.build_batch(*args, spec)
     aug = tpipe.build_batch(*args, dataclasses.replace(spec, augment=True),
-                            generator=torch.Generator().manual_seed(4))
+                            draws=tpipe.GeneratorDraws(torch.Generator().manual_seed(4)))
     stack = lambda b, i: torch.cat(
         [b["loss_mask"][i], b["target"][i], b["input"][i]], dim=-1).numpy()
     seen = set()
@@ -229,7 +229,7 @@ def test_permutation_is_a_permutation_of_the_pair(make_geotiff):
     plain = tpipe.build_batch(*args, spec)["input"].numpy()
     perm = tpipe.build_batch(*args, dataclasses.replace(
         spec, permute_images_within_pair=True),
-        generator=torch.Generator().manual_seed(5))["input"].numpy()
+        draws=tpipe.GeneratorDraws(torch.Generator().manual_seed(5)))["input"].numpy()
     orders = set()
     for i in range(len(ds)):
         if np.array_equal(perm[i], plain[i]):

@@ -114,9 +114,9 @@ def _port_run(ds, model, batches, name, wd, ema_decay=0.0, state=None):
     state = state or init_train_state(model, name, LR, wd, ema=ema_decay > 0)
     rasters = tpipe.device_put_dataset(ds, "cpu", include_target=True)
     spec = tpipe.batch_spec_for(ds)
-    generator = torch.Generator().manual_seed(0)
+    draws = tpipe.GeneratorDraws(torch.Generator().manual_seed(0))
     step = make_train_step(spec, ema_decay=ema_decay)
-    metrics = [float(step(state, rasters, *b, generator)) for b in batches]
+    metrics = [float(step(state, rasters, *b, draws)) for b in batches]
     return state, metrics
 
 
@@ -624,8 +624,8 @@ def test_augment_draws_each_symmetry_at_one_eighth():
         keys = [tuple(row) for row in images.reshape(n, 4).tolist()]
         return {s: keys.count(s) / n for s in symmetries}, set(keys)
 
-    generator = torch.Generator().manual_seed(0)
-    port, seen = freqs(tpipe._augment(base.expand(n, 1, 2, 2), generator).numpy())
+    draws = tpipe.GeneratorDraws(torch.Generator().manual_seed(0))
+    port, seen = freqs(tpipe._augment(base.expand(n, 1, 2, 2), draws).numpy())
     jax_images = np.asarray(jpipe._augment(
         jax.numpy.broadcast_to(jax.numpy.arange(4.0).reshape(1, 2, 2, 1), (n, 2, 2, 1)),
         jax.random.PRNGKey(0)))

@@ -193,7 +193,7 @@ def _port_step(ds, model, policy, **overrides):
     step = make_train_step(tpipe.batch_spec_for(ds), compute_dtype=dtype,
                            **{**kwargs, **overrides})
     metric = step(state, tpipe.device_put_dataset(ds, "cpu", include_target=True),
-                  *_batch(ds), torch.Generator().manual_seed(0))
+                  *_batch(ds), tpipe.GeneratorDraws(torch.Generator().manual_seed(0)))
     return state, float(metric)
 
 
