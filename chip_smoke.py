@@ -46,15 +46,19 @@ found:
      (``CROP_SHARES``) that every other compute dtype served on the card
      in its place misses; "modes-cli": one CLI run at ``compute_dtype:
      "balanced16"`` that writes its rasters;
-  6. conv: kernel K3 (``wgmma`` fed by TMA; the SASS of its library must
-     hold HGMMA and UTMALDG) at batch 128 at every 3x3 conv the served
-     flagship hands it in the modes (``mode_k3_convs``, traced: one a
-     block and the composed top's two) and at ragged shapes, in float32 at
-     3, 1 and 2 bf16 passes and in bfloat16, against the plain version on
-     cuDNN, TF32 off; times of K3, the plain version, one ``F.conv2d``
-     (``library_ms``), the split of x and, at 3 passes, cuDNN with TF32
-     on, each beside K3's bound (its passes' operations); K3's time in one
-     forward of each mode;
+  6. conv: kernel K3 (its wide variant ``wgmma`` fed by TMA; the SASS of
+     its library must hold HGMMA and UTMALDG) at batch 128 at every 3x3
+     conv the served flagship hands it in the modes (``mode_k3_convs``,
+     traced: one a block and the composed top's two) and at ragged shapes,
+     in float32 at 3, 1 and 2 bf16 passes and in bfloat16, against the
+     plain version on cuDNN, TF32 off; times of K3, the plain version, one
+     ``F.conv2d`` (``library_ms``), the split of x and, at 3 passes, cuDNN
+     with TF32 on, each beside K3's bound (its passes' operations); K3's
+     time in one forward of each mode; then K3's narrow variant (float32,
+     Cout <= 8: ``phase_conv_narrow``) at the top's two convs and at ragged
+     narrow shapes, in two layouts, bitwise across two launches, timed
+     beside the wide kernel on the same calls, and the layouts the served
+     flagship hands it;
   7. train: the flagship trained on a seeded 2048x2048 scene by the train
      CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
      float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
@@ -121,7 +125,8 @@ found:
      plain version, and each leg's launches counted.
 
 ``python3 chip_smoke.py --phase studies --phase config-smoke`` runs phases
-1 and 2 and the phases named (also ``dryrun``), and prints no result line.
+1 and 2 and the phases named (also ``conv``, phase 6, and ``dryrun``), and
+prints no result line.
 ``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
 kernels' times over the scene's batches alone, and prints no result line:
 run in two checkouts in one call, it compares their stitches on one card.
@@ -132,7 +137,8 @@ scene and the CLI's outputs go to ``build/chip_smoke/`` and are removed at
 the end of a passing run. The last three lines of standard output are the
 kernels' JSON record (K3 once per float32 pass count, with its launches on
 the mode paths and the train steps and its times and bound over one
-forward of each mode at that pass count, and once for bfloat16), the card's
+forward of each mode at that pass count, once for bfloat16, and its narrow
+variant alone with its launches and its share of those times), the card's
 name and power limit
 as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
 """
@@ -171,6 +177,8 @@ KERNELS = {
 KERNEL_SOURCE = "resdepth_tpu_torch/csrc/stitch.cu"
 K3 = ("conv3x3_k3", "resdepth_tpu_torch/csrc/conv.cu",
       "resdepth_tpu/ops/pallas_conv.py:101")
+# K3's device kernels, by name (the wide and the narrow variant): one a launch
+K3_KERNEL_NAMES = ("conv3x3_k3_kernel", "conv3x3_k3_narrow_kernel")
 
 # Phase 6: K3 at batch 128 at the 3x3 convs the served flagship hands it
 # in the serving modes (``mode_k3_convs``), in float32 at each pass count
@@ -181,6 +189,16 @@ CONV_PASSES = (3, 1, 2)
 # image's edge, Cin padded to 16, Cout not a multiple of 8 or of 64.
 CONV_RAGGED = ((1, 17, 23, 5, 7, "prelu"), (3, 40, 9, 16, 72, "lrelu"),
                (2, 20, 150, 80, 40, "none"))
+
+# Phase 6, K3's narrow variant (float32, Cout <= 8): the composed top's
+# convs at batch 128 as the served flagship hands them (``k3_cases``) and
+# ragged narrow shapes (N, H, W, Cin, Cout, activation): Cout 1, 3 and 7,
+# images off the variant's 16x32 tile, Cin 3, 5 and 80. Each in two
+# layouts: the NHWC view of NCHW memory, as a conv after cuDNN hands it,
+# and NHWC memory, as K3 writes it.
+NARROW_RAGGED = ((2, 17, 23, 3, 1, "prelu"), (3, 40, 9, 5, 3, "lrelu"),
+                 (1, 17, 23, 80, 7, "none"), (2, 40, 9, 80, 1, "prelu"))
+NARROW_LAYOUTS = ("nchw", "nhwc")
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # memory bytes/s and bf16 tensor-core FLOP/s, for the kernels' bounds.
@@ -522,7 +540,8 @@ def phase_build() -> float:
     with ThreadPoolExecutor(max_workers=2) as pool:
         libs = list(pool.map(lambda load: load(), (stitch._library, conv._library)))
     seconds = time.perf_counter() - start
-    for lib, names in zip(libs, (("stitch_k1", "stitch_k2"), ("conv3x3_k3",))):
+    for lib, names in zip(libs, (("stitch_k1", "stitch_k2"),
+                                 ("conv3x3_k3", "conv3x3_k3_narrow"))):
         if not all(hasattr(lib, name) for name in names):
             raise RuntimeError(f"a kernel library lacks one of {names}")
     log("build", "; ".join(
@@ -1052,12 +1071,16 @@ def device_breakdown(fn) -> dict:
 def k3_ms_by_passes(names: dict) -> dict:
     """K3's device time (``device_breakdown``'s per-kernel ms) by its pass
     count, the second template argument of ``conv3x3_k3_kernel<BN,
-    kPasses, kF32, KC, MT>`` (f32 launches only), and its split kernel's."""
+    kPasses, kF32, KC, MT>`` (f32 launches only) and the first of
+    ``conv3x3_k3_narrow_kernel<kPasses, kLoad>``, and its split kernels'
+    (``split_hi_lo_kernel`` and the narrow variant's
+    ``split_hi_lo_fragments_kernel``)."""
     import re
 
     out = {}
     for name, ms in names.items():
-        match = re.search(r"conv3x3_k3_kernel<\s*\d+,\s*(\d+),\s*true", name)
+        match = (re.search(r"conv3x3_k3_kernel<\s*\d+,\s*(\d+),\s*true", name)
+                 or re.search(r"conv3x3_k3_narrow_kernel<\s*(\d+)", name))
         if match:
             key = int(match.group(1))
         elif "split_hi_lo" in name:
@@ -1110,7 +1133,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
     served = serving_model(base, device, dtype)
     reference = run(served, dtype).cpu().numpy()
     breakdowns = {"float32": device_breakdown(lambda: run(served, dtype))}
-    result, launches = {}, {1: 0, 2: 0, 3: 0}
+    result, launches = {}, {1: 0, 2: 0, 3: 0, "narrow": 0}
     for mode in SERVING_PRECISION_MODES:
         dtype = predict.select_compute_dtype(mode, device)
         served = serving_model(base, device, dtype)
@@ -1118,7 +1141,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
             conv.LAUNCHES[key] = 0
         canvas = run(served, dtype)
         torch.cuda.synchronize()
-        counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in launches}
+        counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)}
         want = {p: n * n_batches
                 for p, n in k3_calls_a_forward(mode, config.depth).items()}
         if ({p: c for p, c in counts.items() if c} != want
@@ -1127,6 +1150,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
                                  f"{want} by pass count ({n_batches} batches)")
         for p, c in counts.items():
             launches[p] += c
+        launches["narrow"] += conv.LAUNCHES["k3_narrow"]
         out = canvas.cpu().numpy()
         if not np.isfinite(out).all():
             raise AssertionError(f"{mode}: non-finite refined scene")
@@ -1456,7 +1480,7 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
     base.load_state_dict(weights.load_state_dict(model_path, config))
     n_batches = geometry["batches"]
     result, scenes = {}, {}
-    launches = {"k1": 0, "k2": 0, 3: 0}
+    launches = {"k1": 0, "k2": 0, 3: 0, "narrow": 0}
 
     def timed(fn):
         fn()
@@ -1507,6 +1531,7 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
                                  f"and {want_k3} K3 at 3 passes")
         launches[kernel] += n_batches
         launches[3] += k3
+        launches["narrow"] += conv.LAUNCHES["k3_narrow"]
         stream_s, stream_walls, stream_peak = timed(streamed)
         if use_pallas:
             held = hold_streamed(name, got, resident, geometry)
@@ -1659,8 +1684,9 @@ def _library_conv(x, kernel, bias):
 def phase_conv() -> dict:
     """K3 against the plain version at every 3x3 conv the serving modes
     hand it (``k3_cases``: the served flagship's own shapes, batch 128) and
-    at ragged ones: float32 at 3, 1 and 2 bf16 passes, and bfloat16; the
-    SASS of the built library holds wgmma and TMA loads. The launch
+    at ragged ones: float32 at 3, 1 and 2 bf16 passes, and bfloat16, each
+    call on the variant ``k3_variant`` routes it to; the SASS of the built
+    library holds wgmma and TMA loads. The launch
     counters are zeroed before each case's one call through
     ``conv3x3_bias_act`` and read after it; the timing launches come later
     and are not counted. Times, from CUDA events in turns: K3, the plain
@@ -1670,7 +1696,9 @@ def phase_conv() -> dict:
     "float32_p2" and "bfloat16": its times and bound summed over the
     shapes, each float32 shape weighted by its launches at that pass count
     in one forward of each mode (``k3_cases``; bfloat16, on no path, each
-    shape once), and per mode the K3 time of one forward."""
+    shape once), and per mode the K3 time of one forward; and "narrow":
+    ``phase_conv_narrow``'s rows, and the narrow variant's share of the
+    float32 records (the shapes it takes)."""
     from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES
     from resdepth_tpu_torch.ops import build, conv
 
@@ -1726,8 +1754,10 @@ def phase_conv() -> dict:
                 row["weight"] = weights[row["key"]][passes] if passes else 1
             rows.append(row)
             del x
-        # float32 splits x and the weights in each call; bfloat16 splits nothing
-        want_splits = 2 * len(cases) if dtype == torch.float32 else 0
+        # a float32 call on the wide variant splits x and the weights, on the
+        # narrow one the weights alone; bfloat16 splits nothing
+        want_splits = (sum(1 if conv.k3_variant(dtype, c[4]) == "narrow" else 2
+                           for c in cases) if dtype == torch.float32 else 0)
         if launches != len(cases) or splits != want_splits:
             raise AssertionError(f"K3 launched {launches} times and its split "
                                  f"{splits} for {len(cases)} calls in {name}")
@@ -1764,6 +1794,18 @@ def phase_conv() -> dict:
                 f"{m} {t:.3f} ms" for m, t in result[name]["forward_ms"].items() if t)
                if passes else ""))
     torch.cuda.empty_cache()
+    # the narrow variant's share of the float32 rows above (the shapes it
+    # takes, by their launches a forward of each mode), and its own cases
+    narrow = phase_conv_narrow(generator)
+    timed = [r for v in result.values() if v["passes"] for r in v["rows"]
+             if "ms" in r and conv.k3_variant(torch.float32, r["key"][2]) == "narrow"]
+    result["narrow"] = {
+        **narrow, **{key: sum(r["weight"] * r[key] for r in timed)
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "max_abs_err": max(r["err"] for r in timed + narrow["rows"]),
+        "bound_by": ("operations" if sum(r["weight"] * r["bound_ms"] for r in timed
+                                         if r["bound_by"] == "operations")
+                     >= sum(r["weight"] * r["bound_ms"] for r in timed) / 2 else "bytes")}
     return result
 
 
@@ -1786,14 +1828,143 @@ def _conv_times(conv, x, kernel, bias, slope, act, c_out, passes) -> dict:
                 torch.backends.cudnn.allow_tf32 = False
 
         timers["tf32"] = tf32
+    bound, bound_by = conv_bound(x, c_out, passes or 1)
+    return {**{("ms" if k == "k3" else f"{k}_ms"): v for k, v in _in_turns(timers).items()},
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def _in_turns(timers: dict) -> dict:
+    """Each timer's mean CUDA-event ms over two turns, the timers in order
+    and then reversed (5 launches after 2 warm-up ones each turn)."""
     order = list(timers)
     times = {name: [] for name in timers}
     for name in order + order[::-1]:
         times[name].append(cuda_ms(timers[name], iters=5, warmup=2))
-    bound, bound_by = conv_bound(x, c_out, passes or 1)
-    return {**{("ms" if k == "k3" else f"{k}_ms"): float(np.mean(v))
-               for k, v in times.items()},
-            "bound_ms": bound, "bound_by": bound_by}
+    return {name: float(np.mean(v)) for name, v in times.items()}
+
+
+def as_layout(x, layout: str):
+    """``x`` (N, H, W, C) as the NHWC view of NCHW memory ("nchw") or as
+    NHWC memory ("nhwc")."""
+    if layout == "nchw":
+        return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return x.contiguous()
+
+
+def layout_of(x) -> str:
+    """Which of ``NARROW_LAYOUTS`` an (N, H, W, C) tensor's memory is, or
+    "other"."""
+    n, h, w, c = x.shape
+    if x.stride() == (c * h * w, w, 1, h * w):
+        return "nchw"
+    return "nhwc" if x.is_contiguous() else "other"
+
+
+def top_layouts() -> dict:
+    """The layout (``layout_of``) of x at each narrow K3 call of one
+    forward of the served flagship (seeded random weights, 2 tiles) in
+    each serving mode, as ``{mode: [(H, Cin, Cout, layout), ...]}``."""
+    from unittest import mock
+
+    from resdepth_tpu_torch.infer.tiled import serving_model
+    from resdepth_tpu_torch.models import unet
+    from resdepth_tpu_torch.ops import conv
+
+    device = torch.device("cuda", 0)
+    config = unet.flagship_config("geom-stereo")
+    base, found = random_model(config), {}
+    x = torch.randn((2, TILE, TILE, config.n_input_channels),
+                    generator=torch.Generator().manual_seed(SEED)).to(device)
+    for mode in unet.SERVING_PRECISION_MODES:
+        calls = found.setdefault(mode, [])
+
+        def record(x, kernel, *args, **kwargs):
+            if conv.k3_variant(x.dtype, kernel.shape[3]) == "narrow":
+                calls.append((x.shape[1], x.shape[3], kernel.shape[3], layout_of(x)))
+            return conv.conv3x3_bias_act(x, kernel, *args, **kwargs)
+
+        served = serving_model(base, device, mode)
+        with mock.patch.object(unet, "conv3x3_bias_act", record), torch.inference_mode():
+            unet.apply_unet(served, x, **unet.serving_precision(mode).apply_kwargs())
+    return found
+
+
+def phase_conv_narrow(generator) -> dict:
+    """K3's narrow variant at the composed top's convs (batch 128) and
+    ``NARROW_RAGGED``, in both of ``NARROW_LAYOUTS``, at 1, 2 and 3 passes:
+    two counted calls through ``conv3x3_bias_act`` (counters zeroed just
+    before, read just after: 2 narrow launches and 2 splits, the weights')
+    bitwise equal, each within 1e-4 of the largest output of the plain
+    version. At batch 128, times in turns (CUDA events): the narrow kernel,
+    the wide kernel on the same call (``conv._launch_wide``), the plain
+    version, ``F.conv2d`` in float32 with TF32 off (``library_ms``) and on
+    bf16 copies of the operands, and the wide path's copy (``.contiguous()``)
+    and split of x; the bound (``conv_bound``). Returns the rows."""
+    from resdepth_tpu_torch.ops import conv
+
+    device = torch.device("cuda", 0)
+    top = [(CONV_BATCH, h, h, c_in, c_out, act) for h, c_in, c_out, act in k3_cases()
+           if conv.k3_variant(torch.float32, c_out) == "narrow"]
+    rows = []
+    for n, h, w, c_in, c_out, act in top + list(NARROW_RAGGED):
+        for layout in NARROW_LAYOUTS:
+            for passes in CONV_PASSES:
+                x, kernel, bias, slope = _conv_inputs(generator, device, torch.float32,
+                                                      n, h, w, c_in, c_out)
+                x = as_layout(x, layout)
+                for key in conv.LAUNCHES:
+                    conv.LAUNCHES[key] = 0
+                got, again = (conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act,
+                                                    passes=passes) for _ in range(2))
+                torch.cuda.synchronize()
+                counted = {k: v for k, v in conv.LAUNCHES.items() if v}
+                want = conv.conv3x3_bias_act_plain(x, kernel, bias, slope, act_fn=act,
+                                                   passes=passes)
+                err = float((got - want).abs().max())
+                bar = 1e-4 * float(want.abs().max())
+                shape = f"{n}x{h}x{w} {c_in}->{c_out} {act} {layout} {passes}p"
+                expected = {"k3": 2, f"k3_p{passes}": 2, "k3_narrow": 2, "k3_split": 2}
+                if not (np.isfinite(err) and err <= bar and torch.equal(got, again)
+                        and counted == expected):
+                    raise AssertionError(
+                        f"K3 narrow {shape}: max |diff| {err} (bar {bar}), bitwise across "
+                        f"two launches {torch.equal(got, again)}, launches {counted}")
+                row = {"shape": shape, "key": (h, c_in, c_out, act), "passes": passes,
+                       "layout": layout, "err": err, "bar": bar}
+                del got, again, want
+                if n == CONV_BATCH:
+                    b, a = conv._epilogue_vectors(x, kernel, bias, slope)
+                    x_bf16, k_bf16 = x.to(torch.bfloat16), kernel.to(torch.bfloat16)
+                    c_in_p = -(-c_in // conv.CIN_ALIGN) * conv.CIN_ALIGN
+                    row.update(_in_turns({
+                        "ms": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope,
+                                                            act_fn=act, passes=passes),
+                        "wide_ms": lambda: conv._launch_wide(x, kernel, b, a, act, passes),
+                        "plain_ms": lambda: conv.conv3x3_bias_act_plain(
+                            x, kernel, bias, slope, act_fn=act, passes=passes),
+                        "library_ms": lambda: _library_conv(x, kernel, bias),
+                        "bf16_library_ms": lambda: _library_conv(x_bf16, k_bf16, bias),
+                        "copy_split_ms": lambda: conv._split(x, c_in_p,
+                                                             with_lo=passes >= 2)}))
+                    row["bound_ms"], row["bound_by"] = conv_bound(x, c_out, passes)
+                    del x_bf16, k_bf16
+                rows.append(row)
+                del x
+    torch.cuda.empty_cache()
+    layouts = top_layouts()
+    log("conv", "K3 narrow variant (float32, Cout <= 8), two counted launches a case, "
+        "bitwise equal, against the plain version; at batch 128 CUDA events in turns "
+        "(5 launches each): " + "; ".join(
+            f"{r['shape']}: max |diff| {r['err']:.3g} (bar {r['bar']:.3g})"
+            + (f", narrow {r['ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.0f} % of "
+               f"bound {r['bound_ms']:.3f}, {r['bound_by']}), wide {r['wide_ms']:.3f}, "
+               f"plain {r['plain_ms']:.3f}, library f32 {r['library_ms']:.3f}, bf16 "
+               f"{r['bf16_library_ms']:.3f}, the wide path's copy and split of x "
+               f"{r['copy_split_ms']:.3f}" if "ms" in r else "")
+            for r in rows)
+        + "; the layouts of x at the narrow calls of one served flagship forward: "
+        + "; ".join(f"{m} {sorted(set(c))}" for m, c in layouts.items()))
+    return {"rows": rows, "layouts": layouts}
 
 
 @contextlib.contextmanager
@@ -1977,7 +2148,7 @@ def phase_train_precisions(scene: dict) -> dict:
     batches = [(ds.positions[i:i + TRAIN_BATCH], ds.pair_indices[i:i + TRAIN_BATCH],
                 np.zeros((TRAIN_BATCH, 4), np.int32), np.ones(TRAIN_BATCH, np.float32))
                for i in range(0, TRAIN_BATCH * (TRAIN_STEPS + 1), TRAIN_BATCH)]
-    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0}
+    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0, "narrow": 0}
     for policy, (train_precision, compute_dtype) in TRAIN_POLICIES.items():
         kwargs, dtype = select_train_precision(train_precision, compute_dtype, device)
         model = init_unet(config, torch.Generator().manual_seed(SEED), device)
@@ -1997,7 +2168,7 @@ def phase_train_precisions(scene: dict) -> dict:
             end.record()
             events.append((start, end))
         torch.cuda.synchronize()
-        counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in launches}
+        counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)}
         want = {p: n * TRAIN_STEPS for p, n in k3_launches_a_step(policy).items()}
         if ({p: c for p, c in counts.items() if c} != want
                 or conv.LAUNCHES["k3"] != sum(want.values())):
@@ -2005,6 +2176,7 @@ def phase_train_precisions(scene: dict) -> dict:
                                  f"{TRAIN_STEPS} steps, expected {want} by pass count")
         for p, c in counts.items():
             launches[p] += c
+        launches["narrow"] += conv.LAUNCHES["k3_narrow"]
         metrics = [float(m) for m in metrics]
         if not all(np.isfinite(metrics)):
             raise AssertionError(f"{policy}: train metrics {metrics}")
@@ -2212,7 +2384,7 @@ def trace_steps(path: str) -> dict:
         previous_end = end
     return {"annotations": [s["name"] for s in steps], "steps": rows,
             "k3": sum(1 for e in events if e.get("cat") == "kernel"
-                      and "conv3x3_k3_kernel" in str(e.get("name", "")))}
+                      and any(k in str(e.get("name", "")) for k in K3_KERNEL_NAMES))}
 
 
 def phase_profile(work: str, scene: dict) -> dict:
@@ -2307,7 +2479,8 @@ def phase_profile(work: str, scene: dict) -> dict:
         f"Model_last.npz bitwise {same}, val {traced['val']}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"launches": {3: traced["k3"]["k3_p3"] + twin["k3"]["k3_p3"]},
+    return {"launches": {3: traced["k3"]["k3_p3"] + twin["k3"]["k3_p3"],
+                         "narrow": traced["k3"]["k3_narrow"] + twin["k3"]["k3_narrow"]},
             "steps": {name: runs[name]["trace"]["steps"] for name in ("balanced16", "high")}}
 
 
@@ -2389,6 +2562,7 @@ def phase_channel_modes(work: str) -> dict:
             scenes[name] = scene_run()
             counts = ({p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)
                        if conv.LAUNCHES[f"k3_p{p}"]}, stitch.LAUNCHES["k2"])
+            k3_launches["narrow"] += conv.LAUNCHES["k3_narrow"]
             want = ({p: n * n_batches for p, n in Counter(
                 c[4] for c in mode_k3_convs(name, config)).items()}
                     if name != "float32" else {}, n_batches)
@@ -2457,10 +2631,12 @@ def _zero_counters() -> None:
 
 def _read_counters() -> dict:
     """The launches since ``_zero_counters``: K3 by float32 pass count
-    (1, 2, 3) and "k1", "k2"."""
+    (1, 2, 3), its narrow variant ("narrow"), and "k1", "k2"."""
     from resdepth_tpu_torch.ops import conv, stitch
 
     counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3) if conv.LAUNCHES[f"k3_p{p}"]}
+    if conv.LAUNCHES["k3_narrow"]:
+        counts["narrow"] = conv.LAUNCHES["k3_narrow"]
     counts.update(stitch.LAUNCHES)
     return counts
 
@@ -2771,12 +2947,12 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         trainer.train()
-        k3 = conv.LAUNCHES["k3"]
+        k3, narrow = conv.LAUNCHES["k3"], conv.LAUNCHES["k3_narrow"]
         metrics = [float(m) for _, _, m in events]
         if not np.isfinite(metrics).all():
             raise AssertionError(f"{tag}: train metrics {metrics}")
         step_ms = [s.elapsed_time(e) for s, e, _ in events]
-        out = {"windows": len(loaders), "steps": len(events), "k3": k3,
+        out = {"windows": len(loaders), "steps": len(events), "k3": k3, "narrow": narrow,
                "samples_per_s": TRAIN_SAMPLES / walls[0], "epoch_s": walls[0],
                "step_ms": float(np.mean(step_ms[TRAIN_WARMUP:] or step_ms)),
                "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
@@ -2797,9 +2973,10 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
                 f"train-banded {tag}: {b['uploads']} uploads for {b['windows']} "
                 f"windows, a window left resident: {b['resident_after'] is not None}, "
                 f"K3 launched {b['k3']} times in {b['steps']} steps (expected {want_k3})")
+        narrow[0] += b["narrow"]
         return b["k3"]
 
-    result, lines, launches = {}, [], 0
+    result, lines, launches, narrow = {}, [], 0, [0]
     for policy in BANDED_POLICIES:
         for budget_name, budget in BANDED_BUDGETS.items():
             tag = f"{policy}-{budget_name}"
@@ -2873,10 +3050,11 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
                              f"{trainer.val_history}, wrote "
                              f"{os.listdir(os.path.join(run_dir, 'checkpoints'))}")
     launches += cli_k3
+    narrow[0] += conv.LAUNCHES["k3_narrow"]
     log("train-banded", f"train CLI, balanced16, tpu.max_device_pixels {budget:,}, 1 "
         f"epoch: CLI wall {wall:.1f} s; {' | '.join(banded_lines)}; val MAE "
         f"{trainer.val_history[0][1]:.4f} m; K3 launches {cli_k3}; wrote Model_best.npz")
-    return {"runs": result, "launches": {3: launches}}
+    return {"runs": result, "launches": {3: launches, "narrow": narrow[0]}}
 
 
 def _share_decisions(model, card: dict | None = None):
@@ -3194,7 +3372,8 @@ def phase_dp_nccl_1(work: str, scene: dict) -> dict:
         f"{TRAIN_SCENE}^2 scene: walls {served['alone']['wall']:.2f} s alone, "
         f"{served['world']['wall']:.2f} s in the world, raster bitwise, K2 "
         f"{served['world']['k2']} launches")
-    return {"launches": {"k2": served["world"]["k2"], 3: world["k3"]["k3_p3"]}}
+    return {"launches": {"k2": served["world"]["k2"], 3: world["k3"]["k3_p3"],
+                         "narrow": world["k3"]["k3_narrow"]}}
 
 
 def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> dict:
@@ -3288,7 +3467,8 @@ def dp_serve(plan: dict, device, group) -> dict:
             walls.append(time.perf_counter() - start)
             if launches is None:
                 launches = {**stitch.LAUNCHES, "k3_p3": conv.LAUNCHES["k3_p3"],
-                            "k3": conv.LAUNCHES["k3"]}
+                            "k3": conv.LAUNCHES["k3"],
+                            "k3_narrow": conv.LAUNCHES["k3_narrow"]}
         out[name] = {"scene": None if got is None else torch.from_numpy(got),
                      "launches": launches, "walls": walls}
 
@@ -3491,7 +3671,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
         return ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
                          for k, v in gaps.items())
 
-    lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0}
+    lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0, "narrow": 0}
     for policy in DP_POLICIES:
         gaps, floor, failure = _hold_dp_training(policy, ranks, alone[policy],
                                                  control[policy], start)
@@ -3503,6 +3683,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
             raise AssertionError(f"dp-2-on-1 {policy}: K3 launches a rank {k3}, expected "
                                  f"{want_k3} at 3 passes")
         launches[3] += sum(c["k3_p3"] for c in k3)
+        launches["narrow"] += sum(c["k3_narrow"] for c in k3)
         step_ms = [float(np.mean(r["train"][policy]["step_ms"][DP_WARMUP:])) for r in ranks]
         lines.append(
             f"train {policy}: metric {ranks[0]['train'][policy]['metrics'][-1]:.6f} m after "
@@ -3536,6 +3717,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
                             f"{n_steps} {kernel}, {want_k3} K3)")
         launches[kernel] += sum(c[kernel] for c in counts)
         launches[3] += sum(c["k3_p3"] for c in counts)
+        launches["narrow"] += sum(c["k3_narrow"] for c in counts)
         lines.append(f"{name}: {diff:.2f} ulps from the resident K2 scene (bar {bar}), "
                      f"launches a rank {counts[0]}, scene s a rank (counted run, then one "
                      "more) " + "; ".join(", ".join(f"{w:.3f}" for w in r["walls"])
@@ -3644,7 +3826,7 @@ def phase_dryrun() -> dict:
     want_k3 = {"train": k3_launches_a_step("default", 3)[1],
                "train-2d": k3_launches_a_step("default", 3)[1],
                "banded": 2 * k3_launches_a_step("default", 2)[1]}
-    launches = {"k1": 0, "k2": 0, 1: 0}
+    launches = {"k1": 0, "k2": 0, 1: 0, "narrow": 0}
     for n, share in ((1, False), (DRYRUN_RANKS, True)):
         begin = time.perf_counter()
         ranks = graft_entry.dryrun_multichip(n, share_cards=share, rank_argv=argv,
@@ -3654,9 +3836,11 @@ def phase_dryrun() -> dict:
         for name in graft_entry.legs(n):
             counts = [r["legs"][name]["launches"] for r in ranks]
             for rank, c in enumerate(counts):
-                # "k3" counts every K3 launch and "k3_split" its split kernel
+                # "k3" counts every K3 launch, "k3_narrow" those of its narrow
+                # variant and "k3_split" its split kernels
                 other = {k: v for k, v in c.items()
-                         if v and k not in ("k1", "k2", "k3_p1", "k3", "k3_split")}
+                         if v and k not in ("k1", "k2", "k3_p1", "k3", "k3_split",
+                                            "k3_narrow")}
                 if name in want_k3:
                     ok = (c["k3_p1"] == c["k3"] == want_k3[name]
                           and not c["k1"] and not c["k2"])
@@ -3670,6 +3854,7 @@ def phase_dryrun() -> dict:
             launches["k1"] += sum(c["k1"] for c in counts)
             launches["k2"] += sum(c["k2"] for c in counts)
             launches[1] += sum(c["k3_p1"] for c in counts)
+            launches["narrow"] += sum(c["k3_narrow"] for c in counts)
             lines.append(f"{name} {max(r['legs'][name]['seconds'] for r in ranks):.2f} s, "
                          "launches a rank " + ", ".join(
                              "/".join(str(c[k]) for c in counts) + f" {k}"
@@ -3705,7 +3890,7 @@ def main(argv: list | None = None) -> int:
                              "to compare two checkouts on one card; prints no "
                              "result line")
     parser.add_argument("--phase", action="append",
-                        choices=("studies", "config-smoke", "dryrun"),
+                        choices=("conv", "studies", "config-smoke", "dryrun"),
                         help="run phases 1-2 and only this phase (repeatable), to "
                              "iterate on it; prints no result line")
     parser.add_argument("--dp-rank", metavar="PLAN",
@@ -3735,8 +3920,8 @@ def main(argv: list | None = None) -> int:
     phase_build()
     if args.phase:
         for name in args.phase:
-            if name == "dryrun":
-                phase_dryrun()
+            if name in ("conv", "dryrun"):
+                {"conv": phase_conv, "dryrun": phase_dryrun}[name]()
                 continue
             {"studies": phase_studies, "config-smoke": phase_config_smoke}[name](
                 os.path.join(WORK_DIR, name))
@@ -3806,18 +3991,24 @@ def main(argv: list | None = None) -> int:
     # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
     # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
     # times each shape's once.
+    # Then K3's narrow variant alone (float32, Cout <= 8), with its launches
+    # on those paths and its share of those times and bounds.
     name, source, replaces = K3
+    k3_phases = (modes, train_precisions, streaming, banded, channel_modes, profile,
+                 dp_nccl, dp_ranks, dryrun, studies, smoke)
     record["kernels"] += [
         {"name": (f"{name} (float32, {r['passes']} pass{'es' if r['passes'] > 1 else ''})"
                   if r["passes"] else f"{name} ({key})"),
          "route": "cuda", "source": source, "replaces": replaces,
-         "launches": (sum(phase["launches"].get(r["passes"], 0)
-                          for phase in (modes, train_precisions, streaming, banded,
-                                        channel_modes, profile, dp_nccl, dp_ranks,
-                                        dryrun, studies, smoke))
+         "launches": (sum(phase["launches"].get(r["passes"], 0) for phase in k3_phases)
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
-        for key, r in convs.items()]
+        for key, r in convs.items() if key != "narrow"]
+    record["kernels"].append(
+        {"name": f"{name}_narrow (float32, Cout <= 8)", "route": "cuda", "source": source,
+         "replaces": replaces,
+         "launches": sum(phase["launches"].get("narrow", 0) for phase in k3_phases),
+         **{f: convs["narrow"][f] for f in fields}})
     print(json.dumps(record))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,7 +38,10 @@
 // activation run on the accumulators in registers; stores are masked at
 // the ragged pixel and Cout edges.
 //
-// The wrapper (ops/conv.py) hands the kernel bf16 operands: x as it is, or
+// This wide kernel takes bfloat16 calls and float32 calls with Cout > 8;
+// float32 calls with Cout <= 8 go to the narrow variant further down
+// (ops/conv.py::k3_variant routes them). Its wrapper hands it bf16
+// operands: x as it is, or
 // padded with zero channels to a multiple of 16 (TMA needs 16-byte strides,
 // wgmma takes K in steps of 16); the weights re-laid once a call as
 // (9, Cout, Cin_p), K-major. For f32 the split kernel below writes x_hi,
@@ -50,7 +53,8 @@
 // are 0.31 TFLOP against 0.5-2 GB of activations, so bf16 is bound by the
 // tensor cores' 989 TFLOP/s (0.31 ms) except the first layer (Cin 3) and
 // the top's (Cout 1 and 4), which are bound by their bytes (the first
-// writes about 1 GB, 0.34 ms); f32 does 1 to 3 passes (up to 0.94 ms). This design reaches the tensor cores, with the loads
+// writes about 1 GB, 0.34 ms; the top's go to the narrow variant in f32);
+// f32 does 1 to 3 passes (up to 0.94 ms). This design reaches the tensor cores, with the loads
 // overlapped by the ring, and runs at 40-50 % of the bound in bf16 and
 // 50-60 % in f32 at Cin >= 128 (PERF.md). What it leaves: each tap reloads
 // its window from L2 (9 A tiles a chunk; at 128 px x 128 Cout that was
@@ -468,6 +472,403 @@ split_hi_lo_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ hi
   }
 }
 
+// ---------------------------------------------------------------------------
+// The narrow variant: float32 x, Cout <= 8 (the composed top's 256^2 64->1
+// and 128^2 64->4 convs, the last conv in training, the studies' narrow
+// models). Its products are the wide kernel's, passes and all; its design is
+// for a conv whose output is a sliver of its input, so the input's bytes are
+// the bound:
+//
+//   * x is read once, as float32, where it lies: base pointer and four
+//     element strides, so the model's NHWC views (of K3's own NHWC output,
+//     or of NCHW memory) are read in place, without a copy or a split
+//     launch. The CTA splits each value in registers, hi = bf16(v), lo =
+//     bf16(v - hi) (round to nearest even), as it moves a chunk into the
+//     split buffers.
+//   * A CTA owns 16 x 32 output pixels of one image and walks Cin in chunks
+//     of 16. A chunk's halo block (18 x 34 pixels) comes into a 2-stage
+//     float32 ring as one TMA load (cp.async.bulk.tensor, 4-D tensor map of
+//     x's own layout, mbarrier completion; TMA's zero fill outside the
+//     tensor is the same padding and the Cin tail), issued by one thread a
+//     chunk ahead. TMA takes x where C is contiguous (NHWC memory: box 16
+//     channels x 34 x 18) or W is (the NHWC view of NCHW memory: box 40 x
+//     18 x 16 channels), with 16-byte aligned strides; any other layout
+//     comes in by predicated 4-byte cp.async. (Loaded by 16- and 4-byte
+//     cp.async from all 256 threads, the loads alone ran at 46-61 % of the
+//     byte bound on an H100 SXM.) All 9 taps read the chunk from shared
+//     memory: the halo is loaded once per chunk, not once per tap.
+//   * Products by mma.sync m16n8k16 (bf16 in, f32 accumulate): 16 pixels of
+//     a row x 8 output channels x 16 input channels, so Cout 1 wastes 7/8 of
+//     the N dimension (the wide kernel's BN 64 wasted 63/64). A warp owns 16
+//     columns x 4 rows: each A fragment (ldmatrix from a split buffer, at
+//     a 48-byte pixel pitch that keeps its rows off each other's banks) of
+//     an input row and column shift serves the up to 3 output rows that
+//     read it, so a warp loads 18 fragments a chunk (and 18 of x_lo from 2
+//     passes) for 36 tap products a pass. (Packing the passes into fewer
+//     mma, x_hi and x_lo of 8 channels in one k16 step and w_lo in the spare
+//     columns, was measured and did not help: PERF.md.)
+//   * Two sets of split buffers: in one iteration a CTA takes the products
+//     of chunk i and splits chunk i + 1, half its warps in each order, so
+//     the tensor cores and the split's shared-memory traffic overlap, with
+//     one barrier an iteration.
+//   * The weights go through one small kernel a call (split_hi_lo_fragments
+//     _kernel): hi and lo in the B-fragment order of every chunk and tap, so
+//     a thread takes its 9 taps of a chunk as 9 16-byte loads from L2.
+//   * Persistent: one CTA an SM (206 KB of shared memory) walks tiles
+//     blockIdx.x, + gridDim.x, ...; the ring runs on across tiles, so the
+//     loads of the next tile overlap this tile's last products and its
+//     epilogue. Each output is one CTA's, summed in a fixed order: no
+//     atomics, the same bits every run.
+//
+// What bounds it (PERF.md, studies/narrow_ablation.py): 256^2 64->1 at
+// batch 128 reads 2.15 GB (0.65 ms at 3.35 TB/s); its products at 3 passes
+// are 0.23 TFLOP of mma.sync with N padded to 8. On an H100 SXM at 700 W,
+// at 1 pass the kernel runs as fast as its loads alone (about 80 % of the
+// byte bound on NHWC memory; the box of 160-byte rows of NCHW memory
+// reaches 60 %); from 2 passes the products and the split of a chunk
+// together outlast its loads.
+namespace narrow {
+
+constexpr int kTH = 16, kTW = 32;             // output rows and columns a tile
+constexpr int kHaloH = kTH + 2;               // 18 halo rows
+constexpr int kHaloW = kTW + 2;               // 34 halo columns in the split buffers
+constexpr int kHaloPx = kHaloH * kHaloW;      // 612
+// 40 floats a staged row, x0 - 4 .. x0 + 35: a TMA box starts 16-byte
+// aligned in W (a box at x0 - 1 never completed)
+constexpr int kRowW = kTW + 8;
+constexpr int kRowX = 3;                      // the column of x0 - 1
+constexpr int kKC = 16;                       // input channels a chunk (one k16 step)
+constexpr int kStages = 2;                    // float32 ring
+constexpr int kWarps = 8;                     // 2 across (16 columns) x 4 down (4 rows)
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpRows = kTH / (kWarps / 2); // 4 output rows a warp
+constexpr int kPitch = kKC + 8;               // bf16 a pixel in a split buffer (48 B)
+// How a chunk comes in (a launch's inputs pick one): a TMA box of rows
+// into [channel][halo row][kRowW] (W contiguous), a TMA box of pixels into
+// [halo pixel][kKC] (C contiguous), or 4-byte cp.async into the first
+// layout (any other strides).
+enum Load { kScalar = 0, kRows = 1, kChannels = 2 };
+constexpr int kRowStageBytes = kKC * kHaloH * kRowW * 4;      // 46,080
+constexpr int kPixStageBytes = kHaloPx * kKC * 4;             // 39,168
+constexpr int kStageBytes = 45 * 1024;                        // either, 1 KB aligned
+static_assert(kStageBytes >= kRowStageBytes && kStageBytes >= kPixStageBytes, "stage");
+constexpr int kSplitBytes = kHaloPx * kPitch * 2;             // 29,376
+// the ring, two sets of split buffers (hi, lo), the stages' barriers and
+// slack to align to 1 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 4 * kSplitBytes + 8 * kStages + 1024;
+constexpr int kMaxCout = 8;
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// D(16 x 8, f32) += A(16 x 16, bf16, row) * B(16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// hi = bf16(v0, v1), lo = bf16(v - hi), each a packed pair (v0 in the low half).
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - back.x, v1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+struct XView {
+  const float* p;
+  long long sn, sh, sw, sc;                   // element strides of (N, H, W, Cin)
+};
+
+// One chunk's halo block of image n (output origin y0, x0; channels c0 ..
+// c0 + 15) by 4-byte cp.async into a ring stage laid out [channel][halo
+// row][kRowW], zeros outside the image and past Cin: the layouts TMA does
+// not take. Channels go first where they are contiguous (c_fast), so that
+// neighbouring threads read neighbouring addresses.
+__device__ __forceinline__ void load_chunk_scalar(uint32_t stage, const XView& x, int n, int y0,
+                                                  int x0, int c0, int H, int W, int Cin,
+                                                  bool c_fast, int tid) {
+  const float* img = x.p + n * x.sn;
+  for (int e = tid; e < kKC * kHaloPx; e += kThreads) {
+    const int c = c_fast ? e % kKC : e / kHaloPx;
+    const int p = c_fast ? e / kKC : e % kHaloPx;
+    const int hy = p / kHaloW, hx = p % kHaloW;
+    const int y = y0 - 1 + hy, xx = x0 - 1 + hx, ch = c0 + c;
+    const bool ok = y >= 0 && y < H && xx >= 0 && xx < W && ch < Cin;
+    const float* src = ok ? img + y * x.sh + xx * x.sw + ch * x.sc : x.p;
+    cp_async4(stage + ((c * kHaloH + hy) * kRowW + kRowX + hx) * 4, src, ok ? 4 : 0);
+  }
+}
+
+// A staged chunk into the split buffers, [halo pixel][kPitch] bf16: hi,
+// and lo when a pass reads it. From a [pixel][kKC] stage a thread takes 4
+// channels of a pixel (a quarter warp reads 2 pixels' 128 contiguous
+// bytes: a thread on 8 channels read at a 64-byte stride, 4 ways on the
+// same banks, and took a third of the kernel's time), else 8 channels of a
+// pixel, neighbouring threads on neighbouring pixels of a staged row; each
+// writes its channels' hi and lo as one row segment of each buffer.
+template <int kLoad, bool kLo>
+__device__ __forceinline__ void split_chunk(const float* stage, __nv_bfloat16* hi,
+                                            __nv_bfloat16* lo, int tid) {
+  if constexpr (kLoad == kChannels) {
+    for (int i = tid; i < kHaloPx * (kKC / 4); i += kThreads) {
+      const int p = i / (kKC / 4), q = i % (kKC / 4);
+      const float4 v = *reinterpret_cast<const float4*>(stage + p * kKC + 4 * q);
+      uint32_t h[2], l[2];
+      split2(v.x, v.y, h[0], l[0]);
+      split2(v.z, v.w, h[1], l[1]);
+      *reinterpret_cast<uint2*>(hi + p * kPitch + 4 * q) = make_uint2(h[0], h[1]);
+      if constexpr (kLo) {
+        *reinterpret_cast<uint2*>(lo + p * kPitch + 4 * q) = make_uint2(l[0], l[1]);
+      }
+    }
+  } else {
+    for (int i = tid; i < 2 * kHaloPx; i += kThreads) {
+      const int p = i % kHaloPx, half = i / kHaloPx;
+      const int hy = p / kHaloW, hx = p % kHaloW;
+      const float* s = stage + (half * 8 * kHaloH + hy) * kRowW + kRowX + hx;
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split2(s[2 * j * kHaloH * kRowW], s[(2 * j + 1) * kHaloH * kRowW], h[j], l[j]);
+      }
+      *reinterpret_cast<uint4*>(hi + p * kPitch + half * 8) = make_uint4(h[0], h[1], h[2], h[3]);
+      if constexpr (kLo) {
+        *reinterpret_cast<uint4*>(lo + p * kPitch + half * 8) = make_uint4(l[0], l[1], l[2], l[3]);
+      }
+    }
+  }
+}
+
+// grid min(tiles, SMs), block 256: warp w owns output columns 16 (w % 2) ..
+// + 15 and rows 4 (w / 2) .. + 3 of each of its CTA's tiles.
+template <int kPasses, int kLoad>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_k3_narrow_kernel(__grid_constant__ const CUtensorMap x_map, XView x,
+                         const uint4* __restrict__ frags,
+                         const float* __restrict__ bias, const float* __restrict__ prelu,
+                         float* __restrict__ out, int H, int W, int Cin, int Cout, int act,
+                         int tiles_x, int tiles_y, int n_tiles, int n_chunks, int c_fast) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // TMA writes boxes to 128-byte aligned addresses: align the ring to 1 KB
+  uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw));
+  const uint32_t base = smem_u32(smem);
+  // split buffers b = 0, 1: hi at 2 b kSplitBytes, lo kSplitBytes on
+  __nv_bfloat16* splits = reinterpret_cast<__nv_bfloat16*>(smem + kStages * kStageBytes);
+  const uint32_t splits_u32 = smem_u32(splits);
+  const uint32_t bars = base + kStages * kStageBytes + 4 * kSplitBytes;
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int warp = tid / 32, lane = tid % 32;
+  const int warp_col = 16 * (warp % 2), warp_row = kWarpRows * (warp / 2);
+  const int my_tiles = (n_tiles - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                       static_cast<int>(gridDim.x);
+  const int total = my_tiles * n_chunks;
+
+  auto tile_origin = [&](int it, int& n, int& y0, int& x0) {
+    int t = static_cast<int>(blockIdx.x) + (it / n_chunks) * static_cast<int>(gridDim.x);
+    x0 = (t % tiles_x) * kTW;
+    t /= tiles_x;
+    y0 = (t % tiles_y) * kTH;
+    n = t / tiles_y;
+  };
+  // Chunk it into stage it % kStages: by TMA, one thread, completing on the
+  // stage's barrier; or by every thread's cp.async, one group an iteration
+  // (empty or not).
+  auto issue = [&](int it) {
+    const int stage = it % kStages;
+    if constexpr (kLoad == kScalar) {
+      if (it < total) {
+        int n, y0, x0;
+        tile_origin(it, n, y0, x0);
+        load_chunk_scalar(base + stage * kStageBytes, x, n, y0, x0, (it % n_chunks) * kKC, H,
+                          W, Cin, c_fast != 0, tid);
+      }
+      cp_async_commit();
+    } else if (tid == 0 && it < total) {
+      int n, y0, x0;
+      tile_origin(it, n, y0, x0);
+      const int c0 = (it % n_chunks) * kKC;
+      const uint32_t bar = bars + 8u * stage, dst = base + stage * kStageBytes;
+      if constexpr (kLoad == kRows) {
+        mbar_expect_tx(bar, kRowStageBytes);
+        tma_load_4d(dst, &x_map, bar, x0 - 1 - kRowX, y0 - 1, c0, n);
+      } else {
+        mbar_expect_tx(bar, kPixStageBytes);
+        tma_load_4d(dst, &x_map, bar, c0, x0 - 1, y0 - 1, n);
+      }
+    }
+  };
+  // Wait until chunk it has landed in its stage, for this thread.
+  auto landed = [&](int it) {
+    if constexpr (kLoad == kScalar) {
+      cp_async_wait<kStages - 1>();           // of the first two; later ones wait on all
+    } else {
+      mbar_wait(bars + 8u * (it % kStages), static_cast<uint32_t>(it / kStages) & 1u);
+    }
+  };
+
+  if (kLoad != kScalar && tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8u * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[kWarpRows][4];
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  // ldmatrix row of this lane: pixel (lane % 16) of the 16, channels
+  // 8 (lane / 16) .. + 7
+  const uint32_t lane_off = ((lane % 16) * kPitch + (lane / 16) * 8) * 2;
+  // Chunk it from its stage into split buffer it % 2.
+  auto split_into = [&](int it) {
+    __nv_bfloat16* hi = splits + (it % 2) * kSplitBytes;
+    split_chunk<kLoad, (kPasses >= 2)>(
+        reinterpret_cast<const float*>(smem + (it % kStages) * kStageBytes), hi,
+        hi + kSplitBytes / 2, tid);
+  };
+  // Chunk it's products from split buffer it % 2, with the chunk's weights.
+  auto products = [&](int it, const uint32_t (&bh)[9][2], const uint32_t (&bl)[9][2]) {
+    const uint32_t hi_u32 = splits_u32 + (it % 2) * 2 * kSplitBytes;
+    const uint32_t lo_u32 = hi_u32 + kSplitBytes;
+#pragma unroll
+    for (int r = 0; r < kWarpRows + 2; ++r) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const uint32_t off = ((warp_row + r) * kHaloW + warp_col + dx) * kPitch * 2 + lane_off;
+        uint32_t a[4], al[4];
+        ldmatrix_x4(a, hi_u32 + off);
+        if constexpr (kPasses >= 2) ldmatrix_x4(al, lo_u32 + off);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const int i = r - dy;               // the output row that reads this input row at dy
+          if (i >= 0 && i < kWarpRows) {
+            const int t = 3 * dy + dx;
+            // the passes in the TPU kernel's order
+            mma_16816(acc[i], a, bh[t][0], bh[t][1]);
+            if constexpr (kPasses == 3) mma_16816(acc[i], a, bl[t][0], bl[t][1]);
+            if constexpr (kPasses >= 2) mma_16816(acc[i], al, bh[t][0], bh[t][1]);
+          }
+        }
+      }
+    }
+  };
+
+  // Iteration it takes the products of chunk it and splits chunk it + 1,
+  // half the warps in each order, so that the tensor cores and the split's
+  // loads and stores run at once; one barrier an iteration.
+  issue(0);
+  issue(1);
+  landed(0);
+  if constexpr (kLoad == kScalar) __syncthreads();   // everyone's copies of chunk 0
+  split_into(0);
+  for (int it = 0; it < total; ++it) {
+    if constexpr (kLoad == kScalar) cp_async_wait<0>();   // this thread's copies of it + 1
+    // Split buffer it % 2 is whole; buffer (it + 1) % 2 and stage it % 2
+    // were last read in iteration it - 1.
+    __syncthreads();
+    issue(it + 2);
+    const int chunk = it % n_chunks;
+    uint32_t bh[9][2], bl[9][2];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const uint4 f = __ldg(frags + (chunk * 9 + t) * 32 + lane);
+      bh[t][0] = f.x;
+      bh[t][1] = f.y;
+      bl[t][0] = f.z;
+      bl[t][1] = f.w;
+    }
+    auto split_next = [&]() {
+      if (it + 1 < total) {
+        if constexpr (kLoad != kScalar) landed(it + 1);
+        split_into(it + 1);
+      }
+    };
+    if (warp % 2 == 0) {
+      products(it, bh, bl);
+      split_next();
+    } else {
+      split_next();
+      products(it, bh, bl);
+    }
+
+    if (chunk == n_chunks - 1) {
+      // Accumulator layout of m16n8: lane holds pixels lane / 4 (+ 8) of
+      // the 16 and output channels 2 (lane % 4) (+ 1).
+      int n, y0, x0;
+      tile_origin(it, n, y0, x0);
+      const int g = lane / 4, q = lane % 4;
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) {
+        const int y = y0 + warp_row + i;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int xx = x0 + warp_col + g + 8 * half;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = 2 * q + e;
+            if (y < H && xx < W && o < Cout) {
+              out[((static_cast<long long>(n) * H + y) * W + xx) * Cout + o] =
+                  activate(acc[i][2 * half + e] + bias[o], act, prelu[o]);
+            }
+            acc[i][2 * half + e] = 0.0f;
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kLoad == kScalar) cp_async_wait<0>();
+}
+
+// The weights (3, 3, Cin, Cout) float32 at element strides s0-s3 into the
+// B fragments of mma m16n8k16 for each chunk of 16 input channels and tap:
+// frags[(chunk * 9 + tap) * 32 + lane] = {hi(c, c + 1), hi(c + 8, c + 9),
+// lo(c, c + 1), lo(c + 8, c + 9)} at output channel lane / 4, c = 16 chunk
+// + 2 (lane % 4), the first of each pair in the low half; zeros past Cin
+// and Cout.
+__global__ void __launch_bounds__(256)
+split_hi_lo_fragments_kernel(const float* __restrict__ w, long long s0, long long s1,
+                             long long s2, long long s3, int Cin, int Cout, int n_chunks,
+                             uint4* __restrict__ frags) {
+  const int i = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n_chunks * 9 * 32) return;
+  const int lane = i % 32, tap = (i / 32) % 9, chunk = i / (32 * 9);
+  const int o = lane / 4, c = chunk * kKC + 2 * (lane % 4);
+  const float* t = w + (tap / 3) * s0 + (tap % 3) * s1 + o * s3;
+  auto at = [&](int ch) { return o < Cout && ch < Cin ? t[ch * s2] : 0.0f; };
+  uint32_t h[2], l[2];
+  split2(at(c), at(c + 1), h[0], l[0]);
+  split2(at(c + 8), at(c + 9), h[1], l[1]);
+  frags[i] = make_uint4(h[0], h[1], l[0], l[1]);
+}
+
+}  // namespace narrow
+
 using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -500,6 +901,39 @@ bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
                    strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A float32 tensor map of rank 4 with zero fill outside the tensor and no
+// swizzle; dims and box innermost first, strides in bytes of dims 1..3.
+bool encode_f32(CUtensorMap* map, const void* ptr, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
+                   strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kPasses, int kLoad>
+int launch_narrow(const CUtensorMap& map, const narrow::XView& x, const uint4* frags,
+                  const float* bias, const float* prelu, float* out, int N, int H, int W,
+                  int Cin, int Cout, int act, int n_chunks, int c_fast, cudaStream_t stream) {
+  auto kernel = narrow::conv3x3_k3_narrow_kernel<kPasses, kLoad>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         narrow::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (W + narrow::kTW - 1) / narrow::kTW,
+            tiles_y = (H + narrow::kTH - 1) / narrow::kTH;
+  const int n_tiles = N * tiles_x * tiles_y;
+  const unsigned grid = static_cast<unsigned>(n_tiles < sms ? n_tiles : sms);
+  kernel<<<grid, narrow::kThreads, narrow::kSmemBytes, stream>>>(
+      map, x, frags, bias, prelu, out, H, W, Cin, Cout, act, tiles_x, tiles_y, n_tiles, n_chunks,
+      c_fast);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BN, int kPasses, bool kF32, int KC, int MT>
@@ -588,6 +1022,64 @@ int conv3x3_k3(const void* x_hi, const void* x_lo, const void* w_hi, const void*
   return split ? K3_F32(64, 64) : K3_LAUNCH(64, 1, false, 64, 1);
 #undef K3_F32
 #undef K3_LAUNCH
+}
+
+// K3's narrow variant on ``stream``: float32 x (N, H, W, Cin) at element
+// strides (sn, sh, sw, sc), any layout, read in place; the weights (3, 3,
+// Cin, Cout) float32 at element strides (w0, w1, w2, w3), Cout 1 to 8;
+// ``passes`` 1 to 3 as conv3x3_k3 takes them; out (N, H, W, Cout) float32
+// contiguous. ``frags`` is scratch of ceil(Cin / 16) * 9 * 512 bytes,
+// 16-byte aligned, for the weights' split (split_hi_lo_fragments_kernel,
+// launched first). Returns cudaGetLastError() after each launch.
+int conv3x3_k3_narrow(const float* x, long long sn, long long sh, long long sw, long long sc,
+                      const float* w, long long w0, long long w1, long long w2, long long w3,
+                      void* frags, const float* bias, const float* prelu, float* out, int N,
+                      int H, int W, int Cin, int Cout, int act, int passes, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || Cout > narrow::kMaxCout || passes < 1 ||
+      passes > 3 || reinterpret_cast<uintptr_t>(frags) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_chunks = (Cin + narrow::kKC - 1) / narrow::kKC;
+  const int work = n_chunks * 9 * 32;
+  auto* f = static_cast<uint4*>(frags);
+  narrow::split_hi_lo_fragments_kernel<<<(work + 255) / 256, 256, 0, s>>>(
+      w, w0, w1, w2, w3, Cin, Cout, n_chunks, f);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // TMA where W or C is contiguous and the other strides and the base are
+  // 16-byte multiples (its global strides must be)
+  const bool aligned = sh % 4 == 0 && sn % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool rows = aligned && sw == 1 && W % 4 == 0 && (sc % 4 == 0 || Cin == 1);
+  const bool channels = !rows && aligned && sc == 1 && Cin % 4 == 0 && sw % 4 == 0;
+  CUtensorMap map{};
+  if (rows || channels) {
+    if (encoder() == nullptr) return kErrNoEncoder;
+    const cuuint64_t b = 4;   // bytes a float
+    const cuuint64_t n = static_cast<cuuint64_t>(N), h = static_cast<cuuint64_t>(H),
+                     w_ = static_cast<cuuint64_t>(W), c = static_cast<cuuint64_t>(Cin);
+    const cuuint64_t row_dims[4] = {w_, h, c, n}, pix_dims[4] = {c, w_, h, n};
+    const cuuint64_t row_strides[3] = {sh * b, (Cin == 1 ? h * w_ : sc) * b, sn * b};
+    const cuuint64_t pix_strides[3] = {sw * b, sh * b, sn * b};
+    const cuuint32_t row_box[4] = {narrow::kRowW, narrow::kHaloH, narrow::kKC, 1};
+    const cuuint32_t pix_box[4] = {narrow::kKC, narrow::kHaloW, narrow::kHaloH, 1};
+    const bool ok = rows ? encode_f32(&map, x, row_dims, row_strides, row_box)
+                         : encode_f32(&map, x, pix_dims, pix_strides, pix_box);
+    if (!ok) return kErrEncode;
+  }
+  const narrow::XView view{x, sn, sh, sw, sc};
+  const int c_fast = sc == 1 ? 1 : 0;
+#define K3_NARROW(LOAD_)                                                                      \
+  (passes == 1   ? launch_narrow<1, LOAD_>(map, view, f, bias, prelu, out, N, H, W, Cin,      \
+                                           Cout, act, n_chunks, c_fast, s)                    \
+   : passes == 2 ? launch_narrow<2, LOAD_>(map, view, f, bias, prelu, out, N, H, W, Cin,      \
+                                           Cout, act, n_chunks, c_fast, s)                    \
+                 : launch_narrow<3, LOAD_>(map, view, f, bias, prelu, out, N, H, W, Cin,      \
+                                           Cout, act, n_chunks, c_fast, s))
+  if (rows) return K3_NARROW(narrow::kRows);
+  if (channels) return K3_NARROW(narrow::kChannels);
+  return K3_NARROW(narrow::kScalar);
+#undef K3_NARROW
 }
 
 // The f32 operand split (split_hi_lo_kernel) on ``stream``; returns

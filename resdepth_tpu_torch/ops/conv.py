@@ -17,11 +17,21 @@ precisions on f32 operands, with a float32 result: 1 pass ``x_hi w_hi``
 Two implementations of that one function:
 
   * ``conv3x3_bias_act`` on a CUDA tensor launches kernel K3
-    (``csrc/conv.cu``), an implicit GEMM with ``wgmma`` fed by TMA. It
-    hands the kernel bf16 operands (``kernel_operands``): Cin padded with
-    zeros to a multiple of 16 and the weights re-laid as (9, Cout, Cin_p);
-    for float32 the split kernel of the same source writes the hi halves and
-    the lo halves the call's passes read.
+    (``csrc/conv.cu``), one of its two variants as ``k3_variant`` routes
+    the call, by dtype and Cout alone:
+      - "wide" (bfloat16, and float32 with Cout > 8): an implicit GEMM
+        with ``wgmma`` fed by TMA. It takes bf16 operands
+        (``kernel_operands``): Cin padded with zeros to a multiple of 16
+        and the weights re-laid as (9, Cout, Cin_p); for float32 the split
+        kernel of the same source writes the hi halves and the lo halves
+        the call's passes read.
+      - "narrow" (float32 with Cout <= 8: the composed top's convs, the
+        last conv in training, the narrow models' convs): reads x in
+        place at its strides (the NHWC views the model hands it, of K3's
+        own NHWC output in every serving mode or of NCHW memory, or any
+        other layout), splits it in registers and runs ``mma.sync``
+        m16n8k16 over 8 output channels; one small kernel a call splits
+        the weights into its fragments.
   * ``conv3x3_bias_act_plain``: ``F.conv2d`` on permuted tensors (for
     float32 over the channel-concatenated split operands of its passes,
     ``ops.passes.pass_operands``, whose products are exact in float32),
@@ -31,10 +41,11 @@ Two implementations of that one function:
 The UNet's float32 and bfloat16 paths run their convs through ``F.conv2d``,
 as the JAX UNet runs them through XLA; its serving modes run every 3x3 conv
 that has a pass count through ``conv3x3_bias_act`` (``models/unet.py``).
-``LAUNCHES`` counts kernel launches: ``k3`` the conv (any dtype), ``k3_p1``,
-``k3_p2`` and ``k3_p3`` its float32 launches by pass count, ``k3_split`` the
-float32 operand split (two a float32 call: x and the weights, each writing
-only the halves the passes read).
+``LAUNCHES`` counts kernel launches: ``k3`` the conv (any dtype, either
+variant), ``k3_p1``, ``k3_p2`` and ``k3_p3`` its float32 launches by pass
+count, ``k3_narrow`` those of the narrow variant, ``k3_split`` the float32
+operand splits (two a wide float32 call: x and the weights, each writing
+only the halves the passes read; one a narrow call: the weights).
 """
 
 from __future__ import annotations
@@ -47,14 +58,19 @@ import torch.nn.functional as F
 
 from resdepth_tpu_torch.ops import build, passes as pass_ops
 
-LAUNCHES = {"k3": 0, "k3_p1": 0, "k3_p2": 0, "k3_p3": 0, "k3_split": 0}
+LAUNCHES = {"k3": 0, "k3_p1": 0, "k3_p2": 0, "k3_p3": 0, "k3_split": 0, "k3_narrow": 0}
 
 LRELU_SLOPE = 0.01
 _ACT_CODES = {"relu": 1, "lrelu": 2, "prelu": 3}   # any other name: identity
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CIN_ALIGN = 16     # TMA's 16-byte strides and wgmma's K step of 16
+NARROW_COUT = 8    # the narrow variant's mma N: float32 calls up to this Cout
 
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# conv3x3_k3_narrow: x and its 4 strides, the weights and theirs, scratch,
+# bias, slopes, out, N H W Cin Cout act passes, the stream
+NARROW_ARGTYPES = ([_PTR] + [_LONG] * 4 + [_PTR] + [_LONG] * 4 + [_PTR] * 4 + [_INT] * 7
+                   + [_PTR])
 
 
 @functools.cache
@@ -63,11 +79,17 @@ def _library() -> ctypes.CDLL:
     lib = build.load("conv")
     lib.conv3x3_k3.argtypes = [_PTR] * 7 + [_INT] * 8 + [_PTR]
     lib.conv3x3_k3.restype = ctypes.c_int
+    lib.conv3x3_k3_narrow.argtypes = NARROW_ARGTYPES
+    lib.conv3x3_k3_narrow.restype = ctypes.c_int
     lib.conv_split_hi_lo.argtypes = [_PTR, _PTR, _PTR, _LONG, _INT, _INT, _PTR]
     lib.conv_split_hi_lo.restype = ctypes.c_int
     lib.conv_error_string.argtypes = [ctypes.c_int]
     lib.conv_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _epilogue_vectors(x, kernel, bias, act_param):
@@ -98,6 +120,31 @@ def split_hi_lo_plain(t: torch.Tensor, cols_p: int | None = None):
     plain version of the split kernel."""
     pad = (cols_p or t.shape[-1]) - t.shape[-1]
     return tuple(F.pad(v.to(torch.bfloat16), (0, pad)) for v in pass_ops.split(t))
+
+
+def narrow_fragments_plain(kernel: torch.Tensor) -> torch.Tensor:
+    """The narrow variant's weight operands, the plain version of
+    ``csrc/conv.cu::split_hi_lo_fragments_kernel``: the weights (3, 3, Cin,
+    Cout <= 8) split into bf16 hi and lo and laid out as the B fragments of
+    ``mma.sync`` m16n8k16, int32 (ceil(Cin / 16), 9, 32, 4). For chunk,
+    tap and lane, at output channel ``o = lane // 4`` and input channel
+    ``c = 16 chunk + 2 (lane % 4)``: hi of (c, c + 1), hi of (c + 8, c + 9),
+    lo of (c, c + 1), lo of (c + 8, c + 9), each pair of bf16 bits with the
+    first in the low half; zeros past Cin and Cout."""
+    c_in, c_out = kernel.shape[2], kernel.shape[3]
+    n_chunks = -(-c_in // CIN_ALIGN)
+    w = F.pad(kernel.float().reshape(9, c_in, c_out),
+              (0, NARROW_COUT - c_out, 0, n_chunks * CIN_ALIGN - c_in))
+    lane = torch.arange(32)
+    o = lane // 4
+    c = torch.arange(n_chunks)[:, None] * CIN_ALIGN + 2 * (lane % 4)
+
+    def pair(half, offset):       # -> (n_chunks, 9, 32) int32
+        bits = [half[:, c + offset + e, o].view(torch.int16).int() for e in (0, 1)]
+        return ((bits[0] & 0xFFFF) | (bits[1] << 16)).transpose(0, 1)
+
+    hi, lo = split_hi_lo_plain(w)
+    return torch.stack([pair(hi, 0), pair(hi, 8), pair(lo, 0), pair(lo, 8)], dim=-1)
 
 
 def pass_count(x, passes) -> int:
@@ -147,7 +194,7 @@ def _split(t: torch.Tensor, cols_p: int, with_lo: bool = True):
     code = lib.conv_split_hi_lo(src.data_ptr(), hi.data_ptr(),
                                 lo.data_ptr() if with_lo else None,
                                 src.numel() // src.shape[-1], src.shape[-1], cols_p,
-                                torch.cuda.current_stream(t.device).cuda_stream)
+                                _stream(t))
     if code != 0:
         raise RuntimeError(f"K3's split kernel failed to launch: "
                            f"{lib.conv_error_string(code).decode()}")
@@ -194,17 +241,30 @@ def _check_cuda_args(x, kernel) -> None:
         raise ValueError("K3 needs non-empty images and channels")
 
 
+def k3_variant(dtype, c_out: int) -> str:
+    """The K3 kernel a call on the card launches: "narrow" for float32 with
+    at most ``NARROW_COUT`` output channels, "wide" for any other."""
+    return "narrow" if dtype == torch.float32 and c_out <= NARROW_COUT else "wide"
+
+
 def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu",
                      passes=None):
     """Same-padded 3x3 conv + bias + activation (contract in the module
     docstring). A CPU tensor runs the plain version; a CUDA tensor launches
-    K3 or raises."""
+    K3's variant for its dtype and Cout (``k3_variant``) or raises."""
     if x.device.type == "cpu":
         return conv3x3_bias_act_plain(x, kernel, bias, act_param, act_fn=act_fn,
                                       passes=passes)
     n_passes = pass_count(x, passes)
     _check_cuda_args(x, kernel)
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
+    launch = _launch_narrow if k3_variant(x.dtype, kernel.shape[3]) == "narrow" else _launch_wide
+    return launch(x, kernel, b, a, act_fn, n_passes)
+
+
+def _launch_wide(x, kernel, b, a, act_fn, n_passes):
+    """K3's wide variant on checked arguments (``conv3x3_bias_act``; any
+    dtype and Cout), with ``b`` and ``a`` the epilogue vectors."""
     x_hi, x_lo, w_hi, w_lo = kernel_operands(x, kernel, n_passes)
     n, h, w, c_in_p = x_hi.shape
     c_out = kernel.shape[3]
@@ -214,12 +274,35 @@ def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu",
         x_hi.data_ptr(), None if x_lo is None else x_lo.data_ptr(), w_hi.data_ptr(),
         None if w_lo is None else w_lo.data_ptr(),
         b.data_ptr(), a.data_ptr(), out.data_ptr(), n, h, w, c_in_p, c_out,
-        _ACT_CODES.get(act_fn, 0), _DTYPE_CODES[x.dtype], n_passes,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _ACT_CODES.get(act_fn, 0), _DTYPE_CODES[x.dtype], n_passes, _stream(x))
     if code != 0:
         raise RuntimeError(f"conv kernel K3 failed to launch: "
                            f"{lib.conv_error_string(code).decode()}")
     LAUNCHES["k3"] += 1
     if x.dtype == torch.float32:
         LAUNCHES[f"k3_p{n_passes}"] += 1
+    return out
+
+
+def _launch_narrow(x, kernel, b, a, act_fn, n_passes):
+    """K3's narrow variant on checked float32 arguments with Cout <=
+    ``NARROW_COUT``: x and the weights handed over at their strides, as they
+    lie; scratch for the weights' fragments (``narrow_fragments_plain``,
+    512 bytes a tap and chunk of 16 input channels) and the contiguous
+    output allocated here."""
+    n, h, w, c_in = x.shape
+    c_out = kernel.shape[3]
+    weights = kernel.to(device=x.device, dtype=torch.float32)
+    frags = torch.empty(-(-c_in // CIN_ALIGN) * 9 * 512, dtype=torch.uint8, device=x.device)
+    out = torch.empty((n, h, w, c_out), dtype=torch.float32, device=x.device)
+    lib = _library()
+    code = lib.conv3x3_k3_narrow(
+        x.data_ptr(), *x.stride(), weights.data_ptr(), *weights.stride(), frags.data_ptr(),
+        b.data_ptr(), a.data_ptr(), out.data_ptr(), n, h, w, c_in, c_out,
+        _ACT_CODES.get(act_fn, 0), n_passes, _stream(x))
+    if code != 0:
+        raise RuntimeError(f"conv kernel K3 failed to launch (narrow variant): "
+                           f"{lib.conv_error_string(code).decode()}")
+    for key in ("k3", f"k3_p{n_passes}", "k3_narrow", "k3_split"):
+        LAUNCHES[key] += 1
     return out

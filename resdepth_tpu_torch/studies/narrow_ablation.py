@@ -1,0 +1,151 @@
+"""Which part bounds kernel K3's narrow variant: the kernel timed on the
+card with parts of it cut out of a copy of ``csrc/conv.cu``.
+
+    python -m resdepth_tpu_torch.studies.narrow_ablation [--json OUT.json]
+
+Beside the kernel as it is ("whole"), copies of ``csrc/conv.cu`` whose
+narrow kernel lacks its products ("no_mma": the ``mma`` lines), its
+products and their A-fragment loads ("no_mma_ldm": and the ``ldmatrix``
+lines), its split into the bf16 buffers ("no_split"), or all of them
+("loads_only": what is left is the kernel's loads, its weights' loads and
+its epilogue). Each is built with the package's nvcc flags, and timed with
+CUDA events (10 launches after 3) at the composed top's two convs at
+batch 128 (256² 64->1 and 128² 64->4), with x as NHWC memory (what the
+served model hands the kernel) and as the NHWC view of NCHW memory, at 1,
+2 and 3 passes, beside the byte bound (x, weights, bias and slopes read
+once, the output written once, at 3.35 TB/s). A cut kernel computes
+nothing useful: only its time is read. Needs the card (nvcc, sm_90a);
+the libraries go to ``build/resdepth_tpu_torch/ablation/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from resdepth_tpu_torch.ops import build, conv
+
+SHAPES = ((128, 256, 256, 64, 1), (128, 128, 128, 64, 4))   # N, H, W, Cin, Cout
+LAYOUTS = ("nhwc", "nchw")
+PEAK_BYTES = 3.35e12
+
+_MMA = re.compile(r"^\s*(if constexpr \([^)]*\) )?mma_16816\(acc\[i\].*$", re.M)
+_LDMATRIX = re.compile(r"^\s*(if constexpr \([^)]*\) )?ldmatrix_x4\(a.*$", re.M)
+_SPLIT = re.compile(r"split_chunk<kLoad, \(kPasses >= 2\)>\([^;]*;", re.S)
+# each cut, as the patterns it removes
+CUTS = {"whole": (), "no_mma": (_MMA,), "no_mma_ldm": (_MMA, _LDMATRIX),
+        "no_split": (_SPLIT,), "loads_only": (_MMA, _LDMATRIX, _SPLIT)}
+
+
+def cut_sources(source: str) -> dict:
+    """``{name: source}`` for each of ``CUTS``; raises when a pattern no
+    longer finds its lines in ``source``."""
+    out = {}
+    for name, patterns in CUTS.items():
+        text = source
+        for pattern in patterns:
+            text, n = pattern.subn("", text)
+            if n == 0:
+                raise ValueError(f"{name}: {pattern.pattern!r} finds nothing in conv.cu")
+        out[name] = text
+    return out
+
+
+def _build(name: str, text: str) -> str:
+    directory = os.path.join(build.BUILD_DIR, "ablation")
+    os.makedirs(directory, exist_ok=True)
+    source, target = os.path.join(directory, f"{name}.cu"), os.path.join(directory,
+                                                                         f"lib{name}.so")
+    with open(source, "w") as f:
+        f.write(text)
+    result = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", target, source],
+                            capture_output=True, text=True)
+    if result.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the {name} cut:\n{result.stderr}")
+    return target
+
+
+def _ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run() -> list:
+    """Build every cut (one nvcc each, at once) and time them; one row a
+    shape, layout and pass count."""
+    with open(os.path.join(build.CSRC, "conv.cu")) as f:
+        sources = cut_sources(f.read())
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = dict(zip(sources, pool.map(lambda kv: _build(*kv), sources.items())))
+    libs = {}
+    for name, path in paths.items():
+        fn = ctypes.CDLL(path).conv3x3_k3_narrow
+        fn.argtypes, fn.restype = conv.NARROW_ARGTYPES, ctypes.c_int
+        libs[name] = fn
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for n, h, w, c_in, c_out in SHAPES:
+        x_nhwc = torch.randn((n, h, w, c_in), generator=generator, device="cuda")
+        kernel = torch.randn((3, 3, c_in, c_out), generator=generator, device="cuda")
+        zeros = torch.zeros(c_out, device="cuda")
+        frags = torch.empty(-(-c_in // conv.CIN_ALIGN) * 9 * 512, dtype=torch.uint8,
+                            device="cuda")
+        out = torch.empty((n, h, w, c_out), device="cuda")
+        n_bytes = (x_nhwc.numel() + 9 * c_in * c_out + out.numel()) * 4 + 8 * c_out
+        for layout in LAYOUTS:
+            x = (x_nhwc if layout == "nhwc"
+                 else x_nhwc.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
+            for passes in (1, 2, 3):
+                row = {"shape": [n, h, w, c_in, c_out], "layout": layout, "passes": passes,
+                       "bound_ms": n_bytes / PEAK_BYTES * 1e3}
+                for name, fn in libs.items():
+                    def call(fn=fn, name=name):
+                        code = fn(x.data_ptr(), *x.stride(), kernel.data_ptr(),
+                                  *kernel.stride(), frags.data_ptr(), zeros.data_ptr(),
+                                  zeros.data_ptr(), out.data_ptr(), n, h, w, c_in, c_out, 0,
+                                  passes, torch.cuda.current_stream().cuda_stream)
+                        if code != 0:
+                            raise RuntimeError(f"the {name} cut failed to launch: {code}")
+
+                    row[name] = _ms(call)
+                rows.append(row)
+                print(f"{n}x{h}x{w} {c_in}->{c_out} {layout} {passes}p: bound "
+                      f"{row['bound_ms']:.3f} ms; " + ", ".join(
+                          f"{k} {row[k]:.3f}" for k in CUTS), flush=True)
+        del x_nhwc, x, out
+    return rows
+
+
+def main(argv: list | None = None) -> list:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--json", help="write the rows here")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("narrow_ablation: the cuts run on the card only")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(card.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
+    rows = run()
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=1)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

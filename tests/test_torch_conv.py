@@ -19,7 +19,17 @@ multiple of 16, weights re-laid as (9, Cout, Cin_p), the float32 hi/lo
 split) are held against JAX too, through the kernel's GEMM written out in
 float64 here, at channel counts that need the padding (Cin 1, 2, 3, 4 and
 5, Cout 7 and 64: the first convs of the channel modes among them).
+
+K3's narrow variant (float32 with Cout <= 8) is held the same way: its
+routing, its wrapper on meta tensors (x handed over where it lies, no split
+of x), and its operands (x split as the kernel splits it, gathered at the
+strides the wrapper hands over; the weights as mma B fragments,
+``narrow_fragments_plain``) through its GEMM, against the JAX kernel at 3
+passes and against the float64 sum of the JAX kernel's split products at 1
+and 2 passes, which the JAX kernel does not take.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -191,7 +201,7 @@ def test_device_tensor_never_runs_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(conv, "conv3x3_bias_act_plain", plain)
     x = torch.empty((2, 16, 16, 4), device="meta")
-    k = torch.empty((3, 3, 4, 8), device="meta")
+    k = torch.empty((3, 3, 4, 16), device="meta")     # Cout 16: the wide variant
     with pytest.raises(ValueError, match="CUDA"):
         conv.conv3x3_bias_act(x, k)
 
@@ -216,8 +226,8 @@ def test_device_tensor_never_runs_the_plain_version(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: FakeStream())
     before = conv.LAUNCHES["k3"]
     out = conv.conv3x3_bias_act(x, k, act_fn="prelu")
-    assert out.shape == (2, 16, 16, 8) and conv.LAUNCHES["k3"] == before + 1
-    assert calls[0][7:14] == (2, 16, 16, 16, 8, 3, 0)  # N H W Cin_p Cout act dtype
+    assert out.shape == (2, 16, 16, 16) and conv.LAUNCHES["k3"] == before + 1
+    assert calls[0][7:14] == (2, 16, 16, 16, 16, 3, 0)  # N H W Cin_p Cout act dtype
     lib.code = 1
     with pytest.raises(RuntimeError, match="K3 failed to launch"):
         conv.conv3x3_bias_act(x, k)
@@ -228,3 +238,227 @@ def test_kernel_source_is_built_by_name():
     """K3's library is csrc/conv.cu, hashed with the nvcc flags."""
     path = build.library_path("conv")
     assert path.startswith(build.BUILD_DIR) and "libconv_" in path
+
+
+# ------------------------- K3's narrow variant ------------------------------ #
+# Float32 calls with Cout <= 8 go to the narrow kernel (``k3_variant``): it
+# reads x at the strides it is handed, splits it in registers and takes the
+# weights as mma B fragments (``narrow_fragments_plain``).
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_out", [1, 4, 8, 9, 64])
+def test_k3_variant_routes_by_dtype_and_cout(dtype, c_out):
+    want = "narrow" if dtype == torch.float32 and c_out <= 8 else "wide"
+    assert conv.k3_variant(dtype, c_out) == want
+
+
+class _FakeLibrary:
+    """K3's library for meta tensors: records each entry's arguments and
+    returns ``code``."""
+
+    def __init__(self):
+        self.calls, self.code = [], 0
+
+    def conv3x3_k3(self, *args):
+        self.calls.append(("wide", args))
+        return self.code
+
+    def conv3x3_k3_narrow(self, *args):
+        self.calls.append(("narrow", args))
+        return self.code
+
+    def conv_error_string(self, code):
+        return b"invalid argument"
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    class FakeStream:
+        cuda_stream = 0
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(conv, "_check_cuda_args", lambda x, k: None)
+    monkeypatch.setattr(conv, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: FakeStream())
+    return lib
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("c_out", [1, 4])
+def test_narrow_call_reads_x_where_it_lies(fake_library, monkeypatch, c_out, passes):
+    """A float32 call with Cout <= 8 on ``nchw.permute(0, 2, 3, 1)`` hands the
+    narrow entry the NCHW tensor's own base pointer and strides (no copy),
+    splits no x, counts ``k3``, ``k3_p{n}``, ``k3_narrow`` and the weights'
+    split, and raises on a launch error without counting (meta tensors
+    stand in for CUDA ones; a view at an offset gives a base pointer that a
+    copy would not have)."""
+    def no_split(*args, **kwargs):
+        raise AssertionError("the narrow path split x")
+
+    monkeypatch.setattr(conv, "_split", no_split)
+    nchw = torch.empty((2, 6, 16, 24), device="meta")[:, 1:]
+    x = nchw.permute(0, 2, 3, 1)
+    k = torch.empty((3, 3, 5, c_out), device="meta")
+    before = dict(conv.LAUNCHES)
+    out = conv.conv3x3_bias_act(x, k, act_fn="lrelu", passes=passes)
+    assert out.shape == (2, 16, 24, c_out) and out.is_contiguous()
+    (entry, args), = fake_library.calls
+    assert entry == "narrow" and args[0] == nchw.data_ptr() != 0
+    assert args[1:5] == (6 * 16 * 24, 24, 1, 16 * 24)        # N H W C strides of NCHW
+    assert args[14:21] == (2, 16, 24, 5, c_out, 2, passes)   # N H W Cin Cout act passes
+    gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
+    assert {key: n for key, n in gained.items() if n} == {
+        "k3": 1, f"k3_p{passes}": 1, "k3_narrow": 1, "k3_split": 1}
+    fake_library.code = 1
+    counted = dict(conv.LAUNCHES)
+    with pytest.raises(RuntimeError, match="K3 failed to launch"):
+        conv.conv3x3_bias_act(x, k, passes=passes)
+    assert conv.LAUNCHES == counted
+
+
+@pytest.mark.parametrize("dtype,c_out", [(torch.float32, 9), (torch.float32, 64),
+                                         (torch.bfloat16, 1), (torch.bfloat16, 8)])
+def test_other_calls_reach_the_wide_kernel(fake_library, dtype, c_out):
+    """Cout above 8 in float32, and bfloat16 at any Cout, launch the wide
+    kernel, ``conv3x3_k3``, and nothing of the narrow variant."""
+    x = torch.empty((2, 16, 16, 4), device="meta", dtype=dtype)
+    k = torch.empty((3, 3, 4, c_out), device="meta")
+    before = dict(conv.LAUNCHES)
+    conv.conv3x3_bias_act(x, k)
+    assert [entry for entry, _ in fake_library.calls] == ["wide"]
+    assert fake_library.calls[0][1][11] == c_out
+    assert conv.LAUNCHES["k3"] == before["k3"] + 1
+    assert conv.LAUNCHES["k3_narrow"] == before["k3_narrow"]
+
+
+def _bf16_bits(bits):
+    """int32 16-bit patterns -> the float32 values of those bf16 numbers."""
+    signed = (bits & 0xFFFF) - ((bits & 0x8000) << 1)
+    return signed.to(torch.int16).view(torch.bfloat16).float()
+
+
+def _fragments_as_weights(frags):
+    """mma m16n8k16's B operand read back from ``narrow_fragments_plain``:
+    (hi, lo), each (9, 16 chunks, 8) float64. Lane l holds column l // 4,
+    rows 2 (l % 4) and + 1 in its first register, + 8 and + 9 in its
+    second, the lower row in the low half."""
+    n_chunks = frags.shape[0]
+    lane = torch.arange(32)
+    o, q = lane // 4, lane % 4
+    halves = []
+    for first in (0, 2):
+        w = torch.zeros(n_chunks, 9, 16, 8, dtype=torch.float64)
+        for reg, rows in ((first, 2 * q), (first + 1, 2 * q + 8)):
+            bits = frags[..., reg]
+            w[:, :, rows, o] = _bf16_bits(bits).double()
+            w[:, :, rows + 1, o] = _bf16_bits(bits >> 16).double()
+        halves.append(w.transpose(0, 1).reshape(9, n_chunks * 16, 8))
+    return halves
+
+
+def _narrow_emulation(x, kernel, passes):
+    """K3's narrow variant in float64 on its operands: x gathered from its
+    storage at the strides the wrapper hands the kernel (``x.stride()``),
+    zeros outside the image and past Cin, split as the kernel splits it
+    (``pass_ops.split``); the weights as B fragments, read back; each tap's
+    window times the tap's weights, the passes' products summed. Returns
+    (N, H, W, 8)."""
+    from resdepth_tpu_torch.ops import passes as pass_ops
+
+    n, h, w, c_in = x.shape
+    w_hi, w_lo = _fragments_as_weights(conv.narrow_fragments_plain(kernel))
+    c_p = w_hi.shape[1]
+    flat = torch.as_strided(x, (x.untyped_storage().nbytes() // 4,), (1,), 0)
+    ni, yi, xi, ci = torch.meshgrid(torch.arange(n), torch.arange(-1, h + 1),
+                                    torch.arange(-1, w + 1), torch.arange(c_p), indexing="ij")
+    inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w) & (ci < c_in)
+    sn, sh, sw, sc = x.stride()
+    at = x.storage_offset() + ni * sn + yi * sh + xi * sw + ci * sc
+    xp = torch.where(inside, flat[torch.where(inside, at, 0)], torch.zeros(()))
+    x_hi, x_lo = (t.double() for t in pass_ops.split(xp))
+    pairs = {1: [(x_hi, w_hi)], 2: [(x_hi, w_hi), (x_lo, w_hi)],
+             3: [(x_hi, w_hi), (x_hi, w_lo), (x_lo, w_hi)]}[passes]
+    acc = torch.zeros(n, h, w, 8, dtype=torch.float64)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        for xs, ws in pairs:
+            acc += xs[:, dy:dy + h, dx:dx + w] @ ws[tap]
+    return acc
+
+
+def _float64_passes(x, k, b, act, ap, passes):
+    """The JAX kernel's split (``pallas_conv.py::_conv_kernel``: bf16 hi of
+    the value, bf16 lo of the rest) with only ``passes`` of its products,
+    summed in float64, then bias and activation: the reference for 1 and 2
+    passes, which the JAX kernel does not take."""
+    def halves(v):
+        hi = torch.from_numpy(v).to(torch.bfloat16).double()
+        return hi, (torch.from_numpy(v).double() - hi).float().to(torch.bfloat16).double()
+
+    (x_hi, x_lo), (w_hi, w_lo) = halves(x), halves(k)
+    pairs = {1: [(x_hi, w_hi)], 2: [(x_hi, w_hi), (x_lo, w_hi)]}[passes]
+    n, h, w, _ = x.shape
+    acc = torch.zeros(n, h, w, k.shape[3], dtype=torch.float64)
+    for xs, ws in pairs:
+        xp = F.pad(xs, (0, 0, 1, 1, 1, 1))
+        for dy in range(3):
+            for dx in range(3):
+                acc += xp[:, dy:dy + h, dx:dx + w] @ ws[dy, dx]
+    slope = torch.from_numpy(ap).double() if ap is not None else None
+    return conv._activate(acc + torch.from_numpy(b).double(), act, slope).numpy()
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("c_out,act", [(1, "none"), (4, "prelu"), (8, "lrelu")])
+def test_narrow_operands_match_jax_kernel(c_out, act, passes, layout):
+    """The narrow variant's operands (x split where it lies, in either
+    layout; the weights' B fragments) through its GEMM give the JAX kernel's
+    result (interpret mode) within ``_f32_bar`` at 3 passes, and the JAX
+    kernel's split products at 1 and 2 passes summed in float64 (the JAX
+    kernel runs 3 only) within the same bar. Cin 20: a full chunk of 16 and
+    a ragged one."""
+    x, k, b, ap = _inputs((2, 16, 24, 20, c_out), act, seed=11 + passes)
+    xt = torch.from_numpy(x)
+    if layout == "nchw":
+        xt = xt.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert xt.is_contiguous() == (layout == "nhwc")
+    bias, slope = conv._epilogue_vectors(xt, torch.from_numpy(k), torch.from_numpy(b),
+                                         None if ap is None else torch.from_numpy(ap))
+    acc = _narrow_emulation(xt, torch.from_numpy(k), passes)[..., :c_out].float()
+    got = conv._activate(acc + bias, act, slope).numpy()
+    want = (_jax(x, k, b, ap, act) if passes == 3
+            else _float64_passes(x, k, b, act, ap, passes))
+    np.testing.assert_allclose(got, want, rtol=0, atol=_f32_bar(want, 20))
+    if passes < 3:     # fewer passes are another function
+        assert np.abs(want - _jax(x, k, b, ap, act)).max() > _f32_bar(want, 20)
+
+
+@pytest.mark.parametrize("c_out", [1, 5, 8])
+def test_narrow_fragments_hold_the_split_weights(c_out):
+    """Every weight's hi and lo sit once in the fragments, at the lane and
+    register that mma reads for its row (input channel) and column (output
+    channel); the padding past Cin and Cout is zero."""
+    k = torch.from_numpy(np.random.default_rng(4).normal(size=(3, 3, 21, c_out))
+                         .astype(np.float32))
+    w_hi, w_lo = _fragments_as_weights(conv.narrow_fragments_plain(k))
+    hi, lo = conv.split_hi_lo_plain(k.reshape(9, 21, c_out))
+    assert torch.equal(w_hi[:, :21, :c_out], hi.double())
+    assert torch.equal(w_lo[:, :21, :c_out], lo.double())
+    assert not w_hi[:, 21:].any() and not w_hi[..., c_out:].any()
+    assert not w_lo[:, 21:].any() and not w_lo[..., c_out:].any()
+
+
+@pytest.mark.parametrize("name", ["whole", "no_mma", "no_mma_ldm", "no_split", "loads_only"])
+def test_narrow_ablation_cuts_find_their_lines(name):
+    """``studies/narrow_ablation.py`` cuts parts of the narrow kernel out of
+    a copy of ``csrc/conv.cu`` by pattern: each cut still finds its lines
+    (else it raises) and gives a source of its own."""
+    from resdepth_tpu_torch.studies import narrow_ablation
+
+    with open(os.path.join(build.CSRC, "conv.cu")) as f:
+        source = f.read()
+    cuts = narrow_ablation.cut_sources(source)
+    assert (cuts[name] == source) == (name == "whole")
+    assert len(cuts[name]) <= len(source) and len(set(cuts.values())) == len(cuts)
+    assert "conv3x3_k3_narrow_kernel" in cuts[name]

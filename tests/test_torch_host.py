@@ -124,7 +124,8 @@ def test_import_guard_sees_every_port_module():
                  "resdepth_tpu_torch/graft_entry.py",
                  "resdepth_tpu_torch/data/pipeline.py",
                  "resdepth_tpu_torch/train/trainer.py",
-                 "resdepth_tpu_torch/studies/golden_spread.py"):
+                 "resdepth_tpu_torch/studies/golden_spread.py",
+                 "resdepth_tpu_torch/studies/narrow_ablation.py"):
         assert path in PORT_FILES
 
 

@@ -348,12 +348,18 @@ def test_operands_hold_only_the_halves_read(n_passes):
 
 def test_cuda_launches_count_by_passes(monkeypatch):
     """On a device tensor the wrapper hands the pass count to the kernel
-    library and counts the launch under it (meta tensors stand in)."""
+    library and counts the launch under it (meta tensors stand in): float32
+    at Cout 8 on K3's narrow variant, which splits the weights in one
+    counted launch of its own and x in registers, bfloat16 on the wide one."""
     calls = []
 
     class FakeLibrary:
         def conv3x3_k3(self, *args):
-            calls.append(args)
+            calls.append(args[13:15])             # dtype code, passes
+            return 0
+
+        def conv3x3_k3_narrow(self, *args):
+            calls.append((0, args[20]))           # float32 only; passes
             return 0
 
     class FakeStream:
@@ -368,9 +374,10 @@ def test_cuda_launches_count_by_passes(monkeypatch):
     for n_passes in (1, 2, 2, 3):
         conv.conv3x3_bias_act(x, k, passes=n_passes)
     conv.conv3x3_bias_act(x.to(torch.bfloat16), k)
-    assert [c[13:15] for c in calls] == [(0, 1), (0, 2), (0, 2), (0, 3), (1, 1)]
+    assert calls == [(0, 1), (0, 2), (0, 2), (0, 3), (1, 1)]
     gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
-    assert gained == {"k3": 5, "k3_p1": 1, "k3_p2": 2, "k3_p3": 1, "k3_split": 0}
+    assert gained == {"k3": 5, "k3_p1": 1, "k3_p2": 2, "k3_p3": 1, "k3_split": 4,
+                      "k3_narrow": 4}
 
 
 def test_mode_served_on_cpu_launches_nothing(make_geotiff):

@@ -99,3 +99,24 @@ def test_chip_smoke_reads_steps_from_a_trace(tmp_path):
                      "host_ms": 0.1}
     assert second == {"name": "train#1", "busy_ms": 0.05, "span_ms": 0.05,
                       "gap_ms": 0.02, "host_ms": 0.1}
+
+
+@pytest.mark.parametrize("name,k3", [
+    ("void (anonymous namespace)::conv3x3_k3_kernel<64, 3, true, 64, 1>(x)", 1),
+    ("void (anonymous namespace)::narrow::conv3x3_k3_narrow_kernel<3, 2>(x)", 1),
+    ("void (anonymous namespace)::narrow::split_hi_lo_fragments_kernel(float const*)", 0),
+    ("void (anonymous namespace)::split_hi_lo_kernel(float const*)", 0)])
+def test_chip_smoke_counts_k3_kernels_of_both_variants(tmp_path, name, k3):
+    """``chip_smoke.trace_steps`` counts a launch of K3's wide or narrow
+    kernel as one K3 kernel, and its split kernels as none (the profile
+    phase holds that count to K3's launch counter)."""
+    import chip_smoke
+
+    events = [{"cat": "user_annotation", "name": "train#0", "ts": 0, "dur": 100},
+              {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 10, "dur": 1,
+               "args": {"correlation": 1}},
+              {"cat": "kernel", "name": name, "ts": 20, "dur": 5,
+               "args": {"correlation": 1}}]
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert chip_smoke.trace_steps(str(path))["k3"] == k3

@@ -381,7 +381,11 @@ def test_k3_launches_a_step(monkeypatch, policy):
 
     class FakeLibrary:
         def conv3x3_k3(self, *args):
-            calls.append(args)
+            calls.append(args[13:15])             # dtype code, passes
+            return 0
+
+        def conv3x3_k3_narrow(self, *args):       # float32, Cout <= 8
+            calls.append((0, args[20]))
             return 0
 
     class FakeStream:
@@ -402,7 +406,7 @@ def test_k3_launches_a_step(monkeypatch, policy):
         "bfloat16" if policy in BF16_COMPUTE else policy, config.depth)
     assert {p: n for p, n in gained.items() if n} == want
     assert len(calls) == sum(want.values()) == conv.LAUNCHES["k3"] - before["k3"]
-    assert [c[14] for c in calls] == [c[14] for c in calls if c[13] == 0]   # f32 only
+    assert all(dtype == 0 for dtype, _ in calls)   # f32 only
 
 
 # ----------------------------- the train CLI ------------------------------ #
@@ -493,6 +497,18 @@ def test_k3_time_by_passes_from_kernel_names():
              "void (anonymous namespace)::split_hi_lo_kernel(float const*)": 0.25,
              "cudnn::winograd_nonfused::winogradForwardData4x4": 7.0}
     assert chip_smoke.k3_ms_by_passes(names) == {1: 2.5, 3: 1.5, "split": 0.25}
+
+
+def test_k3_time_by_passes_reads_the_narrow_kernel():
+    """``chip_smoke.k3_ms_by_passes`` adds K3's narrow kernel to its pass
+    count (the first template argument) and its weights' split to the
+    split kernels' time."""
+    names = {"void (anonymous namespace)::narrow::conv3x3_k3_narrow_kernel<3, 2>(x)": 1.0,
+             "void (anonymous namespace)::narrow::conv3x3_k3_narrow_kernel<1, 0>(x)": 0.5,
+             "void (anonymous namespace)::conv3x3_k3_kernel<64, 3, true, 16, 1>(x)": 1.5,
+             "void (anonymous namespace)::narrow::split_hi_lo_fragments_kernel(x)": 0.125,
+             "void (anonymous namespace)::split_hi_lo_kernel(float const*)": 0.25}
+    assert chip_smoke.k3_ms_by_passes(names) == {1: 0.5, 3: 2.5, "split": 0.375}
 
 
 def test_precision_study_trains_at_a_precision(tmp_path):
