@@ -55,10 +55,12 @@ found:
      ``F.conv2d`` (``library_ms``), the split of x and, at 3 passes, cuDNN
      with TF32 on, each beside K3's bound (its passes' operations); K3's
      time in one forward of each mode; then K3's narrow variant (float32,
-     Cout <= 8: ``phase_conv_narrow``) at the top's two convs and at ragged
+     Cout <= 8: ``phase_conv_variant``) at the top's two convs and at ragged
      narrow shapes, in two layouts, bitwise across two launches, timed
      beside the wide kernel on the same calls, and the layouts the served
-     flagship hands it;
+     flagship hands it; then the narrow_k variant (float32, Cin <= 4, 8 <
+     Cout <= 64) at encoder0, the last conv's dx in training, the channel
+     modes' first convs and ragged shapes, the same way;
   7. train: the flagship trained on a seeded 2048x2048 scene by the train
      CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
      float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
@@ -137,9 +139,9 @@ scene and the CLI's outputs go to ``build/chip_smoke/`` and are removed at
 the end of a passing run. The last three lines of standard output are the
 kernels' JSON record (K3 once per float32 pass count, with its launches on
 the mode paths and the train steps and its times and bound over one
-forward of each mode at that pass count, once for bfloat16, and its narrow
-variant alone with its launches and its share of those times), the card's
-name and power limit
+forward of each mode at that pass count, once for bfloat16, and each of its
+narrow variants alone with its launches and its share of those times), the
+card's name and power limit
 as ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -177,8 +179,10 @@ KERNELS = {
 KERNEL_SOURCE = "resdepth_tpu_torch/csrc/stitch.cu"
 K3 = ("conv3x3_k3", "resdepth_tpu_torch/csrc/conv.cu",
       "resdepth_tpu/ops/pallas_conv.py:101")
-# K3's device kernels, by name (the wide and the narrow variant): one a launch
-K3_KERNEL_NAMES = ("conv3x3_k3_kernel", "conv3x3_k3_narrow_kernel")
+# K3's device kernels, by name (the wide, the narrow and the narrow_k
+# variant): one a launch
+K3_KERNEL_NAMES = ("conv3x3_k3_kernel", "conv3x3_k3_narrow_kernel",
+                   "conv3x3_k3_narrow_k_kernel")
 
 # Phase 6: K3 at batch 128 at the 3x3 convs the served flagship hands it
 # in the serving modes (``mode_k3_convs``), in float32 at each pass count
@@ -199,6 +203,17 @@ CONV_RAGGED = ((1, 17, 23, 5, 7, "prelu"), (3, 40, 9, 16, 72, "lrelu"),
 NARROW_RAGGED = ((2, 17, 23, 3, 1, "prelu"), (3, 40, 9, 5, 3, "lrelu"),
                  (1, 17, 23, 80, 7, "none"), (2, 40, 9, 80, 1, "prelu"))
 NARROW_LAYOUTS = ("nchw", "nhwc")
+# Phase 6, K3's narrow_k variant (float32, Cin <= 4, 8 < Cout <= 64):
+# encoder0 as the served flagship hands it (``k3_cases``: batch 128, 256²,
+# 3->64), and beside it (N, H, W, Cin, Cout, activation) the last conv's
+# dx in training (batch 20, 256², 1->64, no activation), the channel
+# modes' first convs (Cin 1, 2 and 4 -> 64 at batch 128) and ragged shapes:
+# images off the variant's 16x32 block, Cout 24 and 40 (16-byte stores) and
+# 13 (4-byte stores). In both of ``NARROW_LAYOUTS``.
+NARROW_K_CASES = ((20, 256, 256, 1, 64, "none"), (128, 256, 256, 1, 64, "relu"),
+                  (128, 256, 256, 2, 64, "relu"), (128, 256, 256, 4, 64, "relu"),
+                  (3, 37, 45, 3, 24, "prelu"), (3, 37, 45, 1, 40, "lrelu"),
+                  (2, 19, 21, 2, 13, "relu"))
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # memory bytes/s and bf16 tensor-core FLOP/s, for the kernels' bounds.
@@ -1072,15 +1087,16 @@ def k3_ms_by_passes(names: dict) -> dict:
     """K3's device time (``device_breakdown``'s per-kernel ms) by its pass
     count, the second template argument of ``conv3x3_k3_kernel<BN,
     kPasses, kF32, KC, MT>`` (f32 launches only) and the first of
-    ``conv3x3_k3_narrow_kernel<kPasses, kLoad>``, and its split kernels'
-    (``split_hi_lo_kernel`` and the narrow variant's
-    ``split_hi_lo_fragments_kernel``)."""
+    ``conv3x3_k3_narrow_kernel<kPasses, kLoad>`` and
+    ``conv3x3_k3_narrow_k_kernel<kPasses, kKSteps>``, and its split kernels'
+    (``split_hi_lo_kernel`` and the narrow variants'
+    ``split_hi_lo_fragments_kernel`` and ``split_hi_lo_k_fragments_kernel``)."""
     import re
 
     out = {}
     for name, ms in names.items():
         match = (re.search(r"conv3x3_k3_kernel<\s*\d+,\s*(\d+),\s*true", name)
-                 or re.search(r"conv3x3_k3_narrow_kernel<\s*(\d+)", name))
+                 or re.search(r"conv3x3_k3_narrow(?:_k)?_kernel<\s*(\d+)", name))
         if match:
             key = int(match.group(1))
         elif "split_hi_lo" in name:
@@ -1133,7 +1149,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
     served = serving_model(base, device, dtype)
     reference = run(served, dtype).cpu().numpy()
     breakdowns = {"float32": device_breakdown(lambda: run(served, dtype))}
-    result, launches = {}, {1: 0, 2: 0, 3: 0, "narrow": 0}
+    result, launches = {}, {1: 0, 2: 0, 3: 0, "narrow": 0, "narrow_k": 0}
     for mode in SERVING_PRECISION_MODES:
         dtype = predict.select_compute_dtype(mode, device)
         served = serving_model(base, device, dtype)
@@ -1151,6 +1167,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
         for p, c in counts.items():
             launches[p] += c
         launches["narrow"] += conv.LAUNCHES["k3_narrow"]
+        launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
         out = canvas.cpu().numpy()
         if not np.isfinite(out).all():
             raise AssertionError(f"{mode}: non-finite refined scene")
@@ -1480,7 +1497,7 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
     base.load_state_dict(weights.load_state_dict(model_path, config))
     n_batches = geometry["batches"]
     result, scenes = {}, {}
-    launches = {"k1": 0, "k2": 0, 3: 0, "narrow": 0}
+    launches = {"k1": 0, "k2": 0, 3: 0, "narrow": 0, "narrow_k": 0}
 
     def timed(fn):
         fn()
@@ -1532,6 +1549,7 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
         launches[kernel] += n_batches
         launches[3] += k3
         launches["narrow"] += conv.LAUNCHES["k3_narrow"]
+        launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
         stream_s, stream_walls, stream_peak = timed(streamed)
         if use_pallas:
             held = hold_streamed(name, got, resident, geometry)
@@ -1696,9 +1714,9 @@ def phase_conv() -> dict:
     "float32_p2" and "bfloat16": its times and bound summed over the
     shapes, each float32 shape weighted by its launches at that pass count
     in one forward of each mode (``k3_cases``; bfloat16, on no path, each
-    shape once), and per mode the K3 time of one forward; and "narrow":
-    ``phase_conv_narrow``'s rows, and the narrow variant's share of the
-    float32 records (the shapes it takes)."""
+    shape once), and per mode the K3 time of one forward; and "narrow" and
+    "narrow_k": ``phase_conv_variant``'s rows for each, and each variant's
+    share of the float32 records (the shapes it takes)."""
     from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES
     from resdepth_tpu_torch.ops import build, conv
 
@@ -1755,8 +1773,8 @@ def phase_conv() -> dict:
             rows.append(row)
             del x
         # a float32 call on the wide variant splits x and the weights, on the
-        # narrow one the weights alone; bfloat16 splits nothing
-        want_splits = (sum(1 if conv.k3_variant(dtype, c[4]) == "narrow" else 2
+        # narrow ones the weights alone; bfloat16 splits nothing
+        want_splits = (sum(2 if conv.k3_variant(dtype, c[3], c[4]) == "wide" else 1
                            for c in cases) if dtype == torch.float32 else 0)
         if launches != len(cases) or splits != want_splits:
             raise AssertionError(f"K3 launched {launches} times and its split "
@@ -1794,18 +1812,21 @@ def phase_conv() -> dict:
                 f"{m} {t:.3f} ms" for m, t in result[name]["forward_ms"].items() if t)
                if passes else ""))
     torch.cuda.empty_cache()
-    # the narrow variant's share of the float32 rows above (the shapes it
+    # each narrow variant's share of the float32 rows above (the shapes it
     # takes, by their launches a forward of each mode), and its own cases
-    narrow = phase_conv_narrow(generator)
-    timed = [r for v in result.values() if v["passes"] for r in v["rows"]
-             if "ms" in r and conv.k3_variant(torch.float32, r["key"][2]) == "narrow"]
-    result["narrow"] = {
-        **narrow, **{key: sum(r["weight"] * r[key] for r in timed)
-                     for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-        "max_abs_err": max(r["err"] for r in timed + narrow["rows"]),
-        "bound_by": ("operations" if sum(r["weight"] * r["bound_ms"] for r in timed
-                                         if r["bound_by"] == "operations")
-                     >= sum(r["weight"] * r["bound_ms"] for r in timed) / 2 else "bytes")}
+    layouts = served_layouts()
+    for variant in ("narrow", "narrow_k"):
+        own = phase_conv_variant(generator, variant, layouts)
+        timed = [r for v in list(result.values()) if v.get("passes") for r in v["rows"]
+                 if "ms" in r and conv.k3_variant(torch.float32, *r["key"][1:3]) == variant]
+        result[variant] = {
+            **own, **{key: sum(r["weight"] * r[key] for r in timed)
+                      for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "max_abs_err": max(r["err"] for r in timed + own["rows"]),
+            "bound_by": ("operations" if sum(r["weight"] * r["bound_ms"] for r in timed
+                                             if r["bound_by"] == "operations")
+                         >= sum(r["weight"] * r["bound_ms"] for r in timed) / 2
+                         else "bytes")}
     return result
 
 
@@ -1860,10 +1881,11 @@ def layout_of(x) -> str:
     return "nhwc" if x.is_contiguous() else "other"
 
 
-def top_layouts() -> dict:
-    """The layout (``layout_of``) of x at each narrow K3 call of one
-    forward of the served flagship (seeded random weights, 2 tiles) in
-    each serving mode, as ``{mode: [(H, Cin, Cout, layout), ...]}``."""
+def served_layouts() -> dict:
+    """The layout (``layout_of``) of x at each K3 call of one forward of
+    the served flagship (seeded random weights, 2 tiles) that goes to a
+    narrow variant, in each serving mode, as ``{mode: [(variant, H, Cin,
+    Cout, layout), ...]}``."""
     from unittest import mock
 
     from resdepth_tpu_torch.infer.tiled import serving_model
@@ -1879,8 +1901,9 @@ def top_layouts() -> dict:
         calls = found.setdefault(mode, [])
 
         def record(x, kernel, *args, **kwargs):
-            if conv.k3_variant(x.dtype, kernel.shape[3]) == "narrow":
-                calls.append((x.shape[1], x.shape[3], kernel.shape[3], layout_of(x)))
+            variant = conv.k3_variant(x.dtype, x.shape[3], kernel.shape[3])
+            if variant != "wide":
+                calls.append((variant, x.shape[1], x.shape[3], kernel.shape[3], layout_of(x)))
             return conv.conv3x3_bias_act(x, kernel, *args, **kwargs)
 
         served = serving_model(base, device, mode)
@@ -1889,24 +1912,31 @@ def top_layouts() -> dict:
     return found
 
 
-def phase_conv_narrow(generator) -> dict:
-    """K3's narrow variant at the composed top's convs (batch 128) and
-    ``NARROW_RAGGED``, in both of ``NARROW_LAYOUTS``, at 1, 2 and 3 passes:
-    two counted calls through ``conv3x3_bias_act`` (counters zeroed just
-    before, read just after: 2 narrow launches and 2 splits, the weights')
-    bitwise equal, each within 1e-4 of the largest output of the plain
-    version. At batch 128, times in turns (CUDA events): the narrow kernel,
-    the wide kernel on the same call (``conv._launch_wide``), the plain
-    version, ``F.conv2d`` in float32 with TF32 off (``library_ms``) and on
-    bf16 copies of the operands, and the wide path's copy (``.contiguous()``)
-    and split of x; the bound (``conv_bound``). Returns the rows."""
+def phase_conv_variant(generator, variant: str, layouts: dict) -> dict:
+    """One of K3's narrow variants: "narrow" (float32, Cout <= 8) at the
+    composed top's convs (batch 128) and ``NARROW_RAGGED``, or "narrow_k"
+    (float32, Cin <= 4, 8 < Cout <= 64) at encoder0 (batch 128) and
+    ``NARROW_K_CASES``; the served flagship's shapes are those of
+    ``k3_cases`` that ``k3_variant`` routes to it. Each in both of
+    ``NARROW_LAYOUTS``, at 1, 2 and 3 passes: two counted calls through
+    ``conv3x3_bias_act`` (counters zeroed just before, read just after: 2
+    launches of the variant and 2 splits, the weights') bitwise equal, each
+    within 1e-4 of the largest output of the plain version. At batch 20 and
+    above, times in turns (CUDA events): the variant's kernel, the wide
+    kernel on the same call (``conv._launch_wide``, Cin padded to 16 and x
+    split as the wide path does), the plain version, ``F.conv2d`` in
+    float32 with TF32 off (``library_ms``) and on bf16 copies of the
+    operands, and the wide path's copy (``.contiguous()``) and split of x;
+    the bound (``conv_bound``). ``layouts`` (``served_layouts``) is logged
+    beside the rows. Returns the rows and the variant's served layouts."""
     from resdepth_tpu_torch.ops import conv
 
     device = torch.device("cuda", 0)
-    top = [(CONV_BATCH, h, h, c_in, c_out, act) for h, c_in, c_out, act in k3_cases()
-           if conv.k3_variant(torch.float32, c_out) == "narrow"]
+    served = [(CONV_BATCH, h, h, c_in, c_out, act) for h, c_in, c_out, act in k3_cases()
+              if conv.k3_variant(torch.float32, c_in, c_out) == variant]
+    cases = served + list(NARROW_RAGGED if variant == "narrow" else NARROW_K_CASES)
     rows = []
-    for n, h, w, c_in, c_out, act in top + list(NARROW_RAGGED):
+    for n, h, w, c_in, c_out, act in cases:
         for layout in NARROW_LAYOUTS:
             for passes in CONV_PASSES:
                 x, kernel, bias, slope = _conv_inputs(generator, device, torch.float32,
@@ -1923,16 +1953,16 @@ def phase_conv_narrow(generator) -> dict:
                 err = float((got - want).abs().max())
                 bar = 1e-4 * float(want.abs().max())
                 shape = f"{n}x{h}x{w} {c_in}->{c_out} {act} {layout} {passes}p"
-                expected = {"k3": 2, f"k3_p{passes}": 2, "k3_narrow": 2, "k3_split": 2}
+                expected = {"k3": 2, f"k3_p{passes}": 2, f"k3_{variant}": 2, "k3_split": 2}
                 if not (np.isfinite(err) and err <= bar and torch.equal(got, again)
                         and counted == expected):
                     raise AssertionError(
-                        f"K3 narrow {shape}: max |diff| {err} (bar {bar}), bitwise across "
-                        f"two launches {torch.equal(got, again)}, launches {counted}")
+                        f"K3 {variant} {shape}: max |diff| {err} (bar {bar}), bitwise "
+                        f"across two launches {torch.equal(got, again)}, launches {counted}")
                 row = {"shape": shape, "key": (h, c_in, c_out, act), "passes": passes,
                        "layout": layout, "err": err, "bar": bar}
                 del got, again, want
-                if n == CONV_BATCH:
+                if n >= TRAIN_BATCH:
                     b, a = conv._epilogue_vectors(x, kernel, bias, slope)
                     x_bf16, k_bf16 = x.to(torch.bfloat16), kernel.to(torch.bfloat16)
                     c_in_p = -(-c_in // conv.CIN_ALIGN) * conv.CIN_ALIGN
@@ -1950,21 +1980,22 @@ def phase_conv_narrow(generator) -> dict:
                     del x_bf16, k_bf16
                 rows.append(row)
                 del x
-    torch.cuda.empty_cache()
-    layouts = top_layouts()
-    log("conv", "K3 narrow variant (float32, Cout <= 8), two counted launches a case, "
-        "bitwise equal, against the plain version; at batch 128 CUDA events in turns "
-        "(5 launches each): " + "; ".join(
+        torch.cuda.empty_cache()
+    mine = {m: sorted({c[1:] for c in calls if c[0] == variant})
+            for m, calls in layouts.items()}
+    log("conv", f"K3 {variant} variant, two counted launches a case, bitwise equal, "
+        "against the plain version; at batch 20 and above CUDA events in turns (5 "
+        "launches each): " + "; ".join(
             f"{r['shape']}: max |diff| {r['err']:.3g} (bar {r['bar']:.3g})"
-            + (f", narrow {r['ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.0f} % of "
+            + (f", {variant} {r['ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.0f} % of "
                f"bound {r['bound_ms']:.3f}, {r['bound_by']}), wide {r['wide_ms']:.3f}, "
                f"plain {r['plain_ms']:.3f}, library f32 {r['library_ms']:.3f}, bf16 "
                f"{r['bf16_library_ms']:.3f}, the wide path's copy and split of x "
                f"{r['copy_split_ms']:.3f}" if "ms" in r else "")
             for r in rows)
-        + "; the layouts of x at the narrow calls of one served flagship forward: "
-        + "; ".join(f"{m} {sorted(set(c))}" for m, c in layouts.items()))
-    return {"rows": rows, "layouts": layouts}
+        + f"; the layouts of x at the {variant} calls of one served flagship forward: "
+        + "; ".join(f"{m} {c}" for m, c in mine.items()))
+    return {"rows": rows, "layouts": mine}
 
 
 @contextlib.contextmanager
@@ -2148,7 +2179,7 @@ def phase_train_precisions(scene: dict) -> dict:
     batches = [(ds.positions[i:i + TRAIN_BATCH], ds.pair_indices[i:i + TRAIN_BATCH],
                 np.zeros((TRAIN_BATCH, 4), np.int32), np.ones(TRAIN_BATCH, np.float32))
                for i in range(0, TRAIN_BATCH * (TRAIN_STEPS + 1), TRAIN_BATCH)]
-    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0, "narrow": 0}
+    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0, "narrow": 0, "narrow_k": 0}
     for policy, (train_precision, compute_dtype) in TRAIN_POLICIES.items():
         kwargs, dtype = select_train_precision(train_precision, compute_dtype, device)
         model = init_unet(config, torch.Generator().manual_seed(SEED), device)
@@ -2177,6 +2208,7 @@ def phase_train_precisions(scene: dict) -> dict:
         for p, c in counts.items():
             launches[p] += c
         launches["narrow"] += conv.LAUNCHES["k3_narrow"]
+        launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
         metrics = [float(m) for m in metrics]
         if not all(np.isfinite(metrics)):
             raise AssertionError(f"{policy}: train metrics {metrics}")
@@ -2480,7 +2512,8 @@ def phase_profile(work: str, scene: dict) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
     return {"launches": {3: traced["k3"]["k3_p3"] + twin["k3"]["k3_p3"],
-                         "narrow": traced["k3"]["k3_narrow"] + twin["k3"]["k3_narrow"]},
+                         "narrow": traced["k3"]["k3_narrow"] + twin["k3"]["k3_narrow"],
+                         "narrow_k": traced["k3"]["k3_narrow_k"] + twin["k3"]["k3_narrow_k"]},
             "steps": {name: runs[name]["trace"]["steps"] for name in ("balanced16", "high")}}
 
 
@@ -2563,6 +2596,7 @@ def phase_channel_modes(work: str) -> dict:
             counts = ({p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)
                        if conv.LAUNCHES[f"k3_p{p}"]}, stitch.LAUNCHES["k2"])
             k3_launches["narrow"] += conv.LAUNCHES["k3_narrow"]
+            k3_launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
             want = ({p: n * n_batches for p, n in Counter(
                 c[4] for c in mode_k3_convs(name, config)).items()}
                     if name != "float32" else {}, n_batches)
@@ -2631,12 +2665,13 @@ def _zero_counters() -> None:
 
 def _read_counters() -> dict:
     """The launches since ``_zero_counters``: K3 by float32 pass count
-    (1, 2, 3), its narrow variant ("narrow"), and "k1", "k2"."""
+    (1, 2, 3), its narrow variants ("narrow", "narrow_k"), and "k1", "k2"."""
     from resdepth_tpu_torch.ops import conv, stitch
 
     counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3) if conv.LAUNCHES[f"k3_p{p}"]}
-    if conv.LAUNCHES["k3_narrow"]:
-        counts["narrow"] = conv.LAUNCHES["k3_narrow"]
+    for variant in ("narrow", "narrow_k"):
+        if conv.LAUNCHES[f"k3_{variant}"]:
+            counts[variant] = conv.LAUNCHES[f"k3_{variant}"]
     counts.update(stitch.LAUNCHES)
     return counts
 
@@ -2947,7 +2982,8 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         trainer.train()
-        k3, narrow = conv.LAUNCHES["k3"], conv.LAUNCHES["k3_narrow"]
+        k3 = conv.LAUNCHES["k3"]
+        narrow = {v: conv.LAUNCHES[f"k3_{v}"] for v in ("narrow", "narrow_k")}
         metrics = [float(m) for _, _, m in events]
         if not np.isfinite(metrics).all():
             raise AssertionError(f"{tag}: train metrics {metrics}")
@@ -2973,10 +3009,11 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
                 f"train-banded {tag}: {b['uploads']} uploads for {b['windows']} "
                 f"windows, a window left resident: {b['resident_after'] is not None}, "
                 f"K3 launched {b['k3']} times in {b['steps']} steps (expected {want_k3})")
-        narrow[0] += b["narrow"]
+        for v, c in b["narrow"].items():
+            narrow[v] += c
         return b["k3"]
 
-    result, lines, launches, narrow = {}, [], 0, [0]
+    result, lines, launches, narrow = {}, [], 0, {"narrow": 0, "narrow_k": 0}
     for policy in BANDED_POLICIES:
         for budget_name, budget in BANDED_BUDGETS.items():
             tag = f"{policy}-{budget_name}"
@@ -3050,11 +3087,12 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
                              f"{trainer.val_history}, wrote "
                              f"{os.listdir(os.path.join(run_dir, 'checkpoints'))}")
     launches += cli_k3
-    narrow[0] += conv.LAUNCHES["k3_narrow"]
+    for v in narrow:
+        narrow[v] += conv.LAUNCHES[f"k3_{v}"]
     log("train-banded", f"train CLI, balanced16, tpu.max_device_pixels {budget:,}, 1 "
         f"epoch: CLI wall {wall:.1f} s; {' | '.join(banded_lines)}; val MAE "
         f"{trainer.val_history[0][1]:.4f} m; K3 launches {cli_k3}; wrote Model_best.npz")
-    return {"runs": result, "launches": {3: launches, "narrow": narrow[0]}}
+    return {"runs": result, "launches": {3: launches, **narrow}}
 
 
 def _share_decisions(model, card: dict | None = None):
@@ -3373,7 +3411,8 @@ def phase_dp_nccl_1(work: str, scene: dict) -> dict:
         f"{served['world']['wall']:.2f} s in the world, raster bitwise, K2 "
         f"{served['world']['k2']} launches")
     return {"launches": {"k2": served["world"]["k2"], 3: world["k3"]["k3_p3"],
-                         "narrow": world["k3"]["k3_narrow"]}}
+                         "narrow": world["k3"]["k3_narrow"],
+                         "narrow_k": world["k3"]["k3_narrow_k"]}}
 
 
 def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> dict:
@@ -3468,7 +3507,8 @@ def dp_serve(plan: dict, device, group) -> dict:
             if launches is None:
                 launches = {**stitch.LAUNCHES, "k3_p3": conv.LAUNCHES["k3_p3"],
                             "k3": conv.LAUNCHES["k3"],
-                            "k3_narrow": conv.LAUNCHES["k3_narrow"]}
+                            "k3_narrow": conv.LAUNCHES["k3_narrow"],
+                            "k3_narrow_k": conv.LAUNCHES["k3_narrow_k"]}
         out[name] = {"scene": None if got is None else torch.from_numpy(got),
                      "launches": launches, "walls": walls}
 
@@ -3671,7 +3711,8 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
         return ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
                          for k, v in gaps.items())
 
-    lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0, "narrow": 0}
+    lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0, "narrow": 0,
+                                         "narrow_k": 0}
     for policy in DP_POLICIES:
         gaps, floor, failure = _hold_dp_training(policy, ranks, alone[policy],
                                                  control[policy], start)
@@ -3684,6 +3725,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
                                  f"{want_k3} at 3 passes")
         launches[3] += sum(c["k3_p3"] for c in k3)
         launches["narrow"] += sum(c["k3_narrow"] for c in k3)
+        launches["narrow_k"] += sum(c["k3_narrow_k"] for c in k3)
         step_ms = [float(np.mean(r["train"][policy]["step_ms"][DP_WARMUP:])) for r in ranks]
         lines.append(
             f"train {policy}: metric {ranks[0]['train'][policy]['metrics'][-1]:.6f} m after "
@@ -3718,6 +3760,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
         launches[kernel] += sum(c[kernel] for c in counts)
         launches[3] += sum(c["k3_p3"] for c in counts)
         launches["narrow"] += sum(c["k3_narrow"] for c in counts)
+        launches["narrow_k"] += sum(c["k3_narrow_k"] for c in counts)
         lines.append(f"{name}: {diff:.2f} ulps from the resident K2 scene (bar {bar}), "
                      f"launches a rank {counts[0]}, scene s a rank (counted run, then one "
                      "more) " + "; ".join(", ".join(f"{w:.3f}" for w in r["walls"])
@@ -3826,7 +3869,7 @@ def phase_dryrun() -> dict:
     want_k3 = {"train": k3_launches_a_step("default", 3)[1],
                "train-2d": k3_launches_a_step("default", 3)[1],
                "banded": 2 * k3_launches_a_step("default", 2)[1]}
-    launches = {"k1": 0, "k2": 0, 1: 0, "narrow": 0}
+    launches = {"k1": 0, "k2": 0, 1: 0, "narrow": 0, "narrow_k": 0}
     for n, share in ((1, False), (DRYRUN_RANKS, True)):
         begin = time.perf_counter()
         ranks = graft_entry.dryrun_multichip(n, share_cards=share, rank_argv=argv,
@@ -3836,11 +3879,11 @@ def phase_dryrun() -> dict:
         for name in graft_entry.legs(n):
             counts = [r["legs"][name]["launches"] for r in ranks]
             for rank, c in enumerate(counts):
-                # "k3" counts every K3 launch, "k3_narrow" those of its narrow
-                # variant and "k3_split" its split kernels
+                # "k3" counts every K3 launch, "k3_narrow" and "k3_narrow_k"
+                # those of its narrow variants and "k3_split" its split kernels
                 other = {k: v for k, v in c.items()
                          if v and k not in ("k1", "k2", "k3_p1", "k3", "k3_split",
-                                            "k3_narrow")}
+                                            "k3_narrow", "k3_narrow_k")}
                 if name in want_k3:
                     ok = (c["k3_p1"] == c["k3"] == want_k3[name]
                           and not c["k1"] and not c["k2"])
@@ -3855,6 +3898,7 @@ def phase_dryrun() -> dict:
             launches["k2"] += sum(c["k2"] for c in counts)
             launches[1] += sum(c["k3_p1"] for c in counts)
             launches["narrow"] += sum(c["k3_narrow"] for c in counts)
+            launches["narrow_k"] += sum(c["k3_narrow_k"] for c in counts)
             lines.append(f"{name} {max(r['legs'][name]['seconds'] for r in ranks):.2f} s, "
                          "launches a rank " + ", ".join(
                              "/".join(str(c[k]) for c in counts) + f" {k}"
@@ -3991,8 +4035,9 @@ def main(argv: list | None = None) -> int:
     # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
     # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
     # times each shape's once.
-    # Then K3's narrow variant alone (float32, Cout <= 8), with its launches
-    # on those paths and its share of those times and bounds.
+    # Then K3's narrow variants alone (float32, Cout <= 8; float32, Cin <= 4
+    # and 8 < Cout <= 64), each with its launches on those paths and its
+    # share of those times and bounds.
     name, source, replaces = K3
     k3_phases = (modes, train_precisions, streaming, banded, channel_modes, profile,
                  dp_nccl, dp_ranks, dryrun, studies, smoke)
@@ -4003,12 +4048,14 @@ def main(argv: list | None = None) -> int:
          "launches": (sum(phase["launches"].get(r["passes"], 0) for phase in k3_phases)
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
-        for key, r in convs.items() if key != "narrow"]
-    record["kernels"].append(
-        {"name": f"{name}_narrow (float32, Cout <= 8)", "route": "cuda", "source": source,
-         "replaces": replaces,
-         "launches": sum(phase["launches"].get("narrow", 0) for phase in k3_phases),
-         **{f: convs["narrow"][f] for f in fields}})
+        for key, r in convs.items() if key not in ("narrow", "narrow_k")]
+    record["kernels"] += [
+        {"name": label, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": sum(phase["launches"].get(variant, 0) for phase in k3_phases),
+         **{f: convs[variant][f] for f in fields}}
+        for variant, label in (
+            ("narrow", f"{name}_narrow (float32, Cout <= 8)"),
+            ("narrow_k", "conv3x3_bias_act_narrow_k (float32, Cin <= 4, 8 < Cout <= 64)"))]
     print(json.dumps(record))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,9 +38,11 @@
 // activation run on the accumulators in registers; stores are masked at
 // the ragged pixel and Cout edges.
 //
-// This wide kernel takes bfloat16 calls and float32 calls with Cout > 8;
-// float32 calls with Cout <= 8 go to the narrow variant further down
-// (ops/conv.py::k3_variant routes them). Its wrapper hands it bf16
+// This wide kernel takes bfloat16 calls and the float32 calls that neither
+// variant further down takes: float32 calls with Cout <= 8 go to the
+// narrow variant, those with Cin <= 4 and Cout 9 to 64 (the first convs,
+// the last conv's dx) to the narrow_k variant (ops/conv.py::k3_variant
+// routes them by dtype, Cin and Cout). Its wrapper hands it bf16
 // operands: x as it is, or
 // padded with zero channels to a multiple of 16 (TMA needs 16-byte strides,
 // wgmma takes K in steps of 16); the weights re-laid once a call as
@@ -53,17 +55,21 @@
 // are 0.31 TFLOP against 0.5-2 GB of activations, so bf16 is bound by the
 // tensor cores' 989 TFLOP/s (0.31 ms) except the first layer (Cin 3) and
 // the top's (Cout 1 and 4), which are bound by their bytes (the first
-// writes about 1 GB, 0.34 ms; the top's go to the narrow variant in f32);
-// f32 does 1 to 3 passes (up to 0.94 ms). This design reaches the tensor cores, with the loads
+// writes about 1 GB, 0.34 ms; in f32 it goes to the narrow_k variant, the
+// top's to the narrow one); f32 does 1 to 3 passes (up to 0.94 ms). This
+// design reaches the tensor cores, with the loads
 // overlapped by the ring, and runs at 40-50 % of the bound in bf16 and
 // 50-60 % in f32 at Cin >= 128 (PERF.md). What it leaves: each tap reloads
 // its window from L2 (9 A tiles a chunk; at 128 px x 128 Cout that was
 // 32 KB of loads a 2.1 MFLOP step, some 6 TB/s across the card, which is
 // why bf16 takes 256 px), a CTA's epilogue does not overlap the next
-// tile's loads (one tile a CTA, not persistent), narrow layers pay that
-// fixed cost on little work, and the f32 split costs a pass over x.
-// Loading each chunk's halo once, a persistent grid and a split fused into
-// the load are the next steps.
+// tile's loads (one tile a CTA, not persistent), and the f32 split costs a
+// pass over x. Narrow layers paid that fixed cost on little work (the
+// bf16 first conv still does); in f32 they now take the narrow variant
+// (Cout <= 8) and the narrow_k one (Cin <= 4: taps x channels packed into
+// K, the output stored from registers by a persistent grid). Loading each
+// chunk's halo once, a persistent grid and a split fused into the load are
+// the wide kernel's next steps.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -869,6 +875,266 @@ split_hi_lo_fragments_kernel(const float* __restrict__ w, long long s0, long lon
 
 }  // namespace narrow
 
+// ---------------------------------------------------------------------------
+// The narrow_k variant: float32 x with Cin 1 to 4 and Cout 9 to 64 (the
+// flagship's encoder0, 256^2 3->64; the dx of the last conv in training,
+// 1->64; the channel modes' first convs, 1/2/4->64). Its products are the
+// other variants', passes and all. At 3 passes encoder0 at batch 128 is
+// 0.1 TFLOP (K packed to 32) against 2.25 GB, 96 % of them the float32
+// output: a store kernel with a little arithmetic, bound by its bytes
+// (0.67 ms at 3.35 TB/s). The wide kernel padded each tap's Cin to 16 (144
+// K for 27 products), ran one 128-px tile a CTA and stored from the wgmma
+// layout, and split x in a launch of its own; this design:
+//
+//   * packs taps x channels into K: GEMM row m is an output pixel, column
+//     k = tap Cin + c, K = 9 Cin padded to the next multiple of 16 (16 for
+//     Cin 1, 32 for 2 and 3, 48 for 4): one to three k16 steps of
+//     mma.sync m16n8k16 (bf16 in, f32 accumulate) over up to 8 n8 tiles.
+//   * reads x once, as float32, where it lies (base pointer and four
+//     element strides: NHWC memory, the NHWC view of NCHW memory, any
+//     other): a block's halo (18 x 34 pixels x Cin) comes into shared
+//     memory by predicated 4-byte cp.async, zeros outside the image, one
+//     block ahead in a 2-stage ring. The input is 4 % of the bytes.
+//   * builds each A fragment from the staged halo, not from 9 tap-shifted
+//     loads: a thread's k columns are fixed, so it keeps their halo offsets
+//     in registers and gathers 8 floats a k step, splitting them in
+//     registers (hi = bf16(v), lo = bf16(v - hi)): no split launch for x.
+//   * holds the weights for the whole run: one small kernel a call lays out
+//     the K x 64 hi and lo halves as mma B fragments (at most 12 KB), and
+//     each CTA copies them into shared memory once. (Held in each thread's
+//     registers instead, they took the kernel past 128 registers, to one
+//     CTA an SM, and it ran slower from 2 passes on.)
+//   * is persistent (as many CTAs an SM as fit, two at 128 registers, each
+//     walking 16 x 32-pixel blocks blockIdx.x, + gridDim.x, ...), and the
+//     store is the kernel: a quad swaps halves of its accumulators (two
+//     shuffles) so that each thread writes 16 contiguous bytes, a quad 64
+//     bytes of a pixel's channels (a warp 8 pixels), straight from
+//     registers; stores do not hold a warp, so a block's stores overlap the
+//     next block's gathers and products. Whole 32-byte sectors, each
+//     written once. Cout not a multiple of 4 takes 4-byte stores.
+//   * no atomics, and Cin is never split across CTAs: the same bits every run.
+//
+// What bounds it (PERF.md, studies/narrow_ablation.py --kernel narrow_k):
+// on an H100 SXM at 700 W, encoder0 at batch 128 runs at about three
+// quarters of its byte bound at every pass count; the kernel with its
+// products or its split cut out takes as long, with nothing but its stores
+// it comes within about 5 % of the bound, and so it does without its halo
+// loads: the 4-byte cp.async loads of the halo, 4 % of the bytes, cost the
+// rest (a ring of 3 stages did not help, so it is not their latency).
+namespace narrow_k {
+
+constexpr int kTH = 16, kTW = 32;              // output rows and columns a block
+constexpr int kHaloH = kTH + 2, kHaloW = kTW + 2;
+constexpr int kMaxCin = 4, kMaxCout = 64;
+constexpr int kNTiles = kMaxCout / 8;          // n8 tiles of the B fragments
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStrips = kTH * kTW / 16;        // 16-pixel row strips a block: 32
+constexpr int kStageFloats = kHaloH * kHaloW * kMaxCin;
+
+// A block's halo (output origin y0, x0 of image n) by 4-byte cp.async into a
+// stage laid out [halo row][halo column][Cin], zeros outside the image: a
+// thread a halo pixel, its Cin channels in turn (neighbouring threads on
+// neighbouring pixels: contiguous in NHWC memory at a stride of Cin, in
+// NCHW memory along a row).
+__device__ __forceinline__ void load_halo(uint32_t stage, const narrow::XView& x, int n, int y0,
+                                          int x0, int H, int W, int Cin, int tid) {
+  constexpr int kPx = kHaloH * kHaloW;
+  const float* img = x.p + n * x.sn;
+  for (int p = tid; p < kPx; p += kThreads) {
+    const int hy = p / kHaloW, hx = p % kHaloW;
+    const int y = y0 - 1 + hy, xx = x0 - 1 + hx;
+    const bool ok = y >= 0 && y < H && xx >= 0 && xx < W;
+    const float* src = ok ? img + y * x.sh + xx * x.sw : x.p;
+    for (int c = 0; c < Cin; ++c) {
+      narrow::cp_async4(stage + (p * Cin + c) * 4, ok ? src + c * x.sc : x.p, ok ? 4 : 0);
+    }
+  }
+}
+
+// A fragments of one k step from gathered values: v0 at pixel g, v1 at
+// pixel g + 8, each at the thread's k columns 2q, 2q + 1, 2q + 8, 2q + 9.
+__device__ __forceinline__ void split_a(const float (&v0)[4], const float (&v1)[4],
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  narrow::split2(v0[0], v0[1], hi[0], lo[0]);
+  narrow::split2(v1[0], v1[1], hi[1], lo[1]);
+  narrow::split2(v0[2], v0[3], hi[2], lo[2]);
+  narrow::split2(v1[2], v1[3], hi[3], lo[3]);
+}
+
+// grid: as many CTAs as fit on the SMs (at most one a block; two an SM
+// at most 128 registers a thread), block 256: warp w takes strips w, w + 8,
+// w + 16 and w + 24 of each block (strip s: row s / 2, columns 16 (s % 2)
+// .. + 15).
+// kKSteps k16 steps (K = 16 kKSteps).
+template <int kPasses, int kKSteps>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_k3_narrow_k_kernel(narrow::XView x, const uint4* __restrict__ frags,
+                           const float* __restrict__ bias, const float* __restrict__ prelu,
+                           float* __restrict__ out, int H, int W, int Cin, int Cout, int act,
+                           int tiles_x, int tiles_y, int n_tiles, int vec4) {
+  __shared__ __align__(16) float halo[2][kStageFloats];
+  __shared__ uint4 b_frags[kKSteps * kNTiles * 32];
+  __shared__ float epi_bias[kMaxCout], epi_slope[kMaxCout];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int n_out_tiles = (Cout + 7) / 8;
+  if (tid < kMaxCout) {
+    epi_bias[tid] = tid < Cout ? bias[tid] : 0.0f;
+    epi_slope[tid] = tid < Cout ? prelu[tid] : 0.0f;
+  }
+  // The weights' B fragments (split_hi_lo_k_fragments_kernel), for the run:
+  // a 16-byte load a k step and n8 tile from here, {hi, lo} of this lane's.
+  for (int i = tid; i < kKSteps * kNTiles * 32; i += kThreads) b_frags[i] = frags[i];
+  // This thread's k columns, 16 ks + 2q + {0, 1, 8, 9}, as halo offsets
+  // from a pixel's own (tap (dy, dx), channel c); bit 4 ks + i of ``valid``
+  // where k < 9 Cin (the rest of K is zeros).
+  const int rowp = kHaloW * Cin;
+  int off[kKSteps][4];
+  uint32_t valid = 0;
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 16 * ks + 2 * q + (i & 1) + 8 * (i >> 1);
+      const int tap = k / Cin, c = k - tap * Cin;
+      off[ks][i] = tap < 9 ? (tap / 3) * rowp + (tap % 3) * Cin + c : 0;
+      if (tap < 9) valid |= 1u << (4 * ks + i);
+    }
+  }
+
+  const int my_tiles = (n_tiles - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                       static_cast<int>(gridDim.x);
+  auto origin = [&](int i, int& n, int& y0, int& x0) {
+    int t = static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x);
+    x0 = (t % tiles_x) * kTW;
+    t /= tiles_x;
+    y0 = (t % tiles_y) * kTH;
+    n = t / tiles_y;
+  };
+  auto prefetch = [&](int i) {
+    if (i < my_tiles) {
+      int n, y0, x0;
+      origin(i, n, y0, x0);
+      load_halo(smem_u32(halo[i % 2]), x, n, y0, x0, H, W, Cin, tid);
+    }
+    narrow::cp_async_commit();
+  };
+
+  prefetch(0);
+  for (int i = 0; i < my_tiles; ++i) {
+    prefetch(i + 1);
+    narrow::cp_async_wait<1>();                // this thread's copies of block i
+    __syncthreads();                           // everyone's
+    int n, y0, x0;
+    origin(i, n, y0, x0);
+    const float* hs = halo[i % 2];
+    for (int s = warp; s < kStrips; s += kWarps) {
+      const int r = s / (kTW / 16), col0 = 16 * (s % (kTW / 16));
+      if (y0 + r >= H || x0 + col0 >= W) continue;    // the whole strip is outside
+      float acc[kNTiles][4];
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+      }
+      const int base0 = r * rowp + (col0 + g) * Cin, base1 = base0 + 8 * Cin;
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        float v0[4], v1[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = (valid >> (4 * ks + i)) & 1u;
+          v0[i] = ok ? hs[base0 + off[ks][i]] : 0.0f;
+          v1[i] = ok ? hs[base1 + off[ks][i]] : 0.0f;
+        }
+        uint32_t ah[4], al[4];
+        split_a(v0, v1, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < kNTiles; ++nt) {
+          if (nt < n_out_tiles) {
+            const uint4 f = b_frags[(ks * kNTiles + nt) * 32 + lane];
+            // the passes in the TPU kernel's order
+            narrow::mma_16816(acc[nt], ah, f.x, f.y);
+            if constexpr (kPasses == 3) narrow::mma_16816(acc[nt], ah, f.z, f.w);
+            if constexpr (kPasses >= 2) narrow::mma_16816(acc[nt], al, f.x, f.y);
+          }
+        }
+      }
+      // Accumulator layout of m16n8: lane holds pixels g (+ 8) of the strip
+      // and channels 8 nt + 2q (+ 1) as acc[nt][2 h + e].
+      const int y = y0 + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int xx = x0 + col0 + g + 8 * h;
+        const bool px_ok = xx < W;
+        float* row = out + ((static_cast<long long>(n) * H + y) * W + xx) * Cout;
+        auto value = [&](int nt, int e) {
+          const int c = 8 * nt + 2 * q + e;
+          return activate(acc[nt][2 * h + e] + epi_bias[c], act, epi_slope[c]);
+        };
+        if (vec4) {
+          // Tiles nt, nt + 1: an even lane writes channels 8 nt + 2q .. + 3
+          // (its own pair and its odd partner's), an odd lane 8 (nt + 1) +
+          // 2 (q - 1) .. + 3 (its even partner's pair and its own).
+          const bool odd = q & 1;
+#pragma unroll
+          for (int nt = 0; nt < kNTiles; nt += 2) {
+            const float v[2] = {value(nt, 0), value(nt, 1)};
+            const float w[2] = {value(nt + 1, 0), value(nt + 1, 1)};
+            const float r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : w[0], 1);
+            const float r1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : w[1], 1);
+            const int c = 8 * (nt + (odd ? 1 : 0)) + 4 * (q >> 1);
+            if (px_ok && c < Cout) {
+              *reinterpret_cast<float4*>(row + c) =
+                  odd ? make_float4(r0, r1, w[0], w[1]) : make_float4(v[0], v[1], r0, r1);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * nt + 2 * q + e;
+              if (px_ok && c < Cout) row[c] = value(nt, e);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                           // stage i % 2 is free again
+  }
+  narrow::cp_async_wait<0>();
+}
+
+// The weights (3, 3, Cin, Cout) float32 at element strides s0-s3 into the
+// B fragments of mma m16n8k16 over K = 16 k_steps (k = tap Cin + c) and
+// 64 output channels: frags[(ks * 8 + nt) * 32 + lane] = {hi(k, k + 1),
+// hi(k + 8, k + 9), lo(k, k + 1), lo(k + 8, k + 9)} at output channel
+// 8 nt + lane / 4, k = 16 ks + 2 (lane % 4), the first of each pair in the
+// low half; zeros past 9 Cin and Cout.
+__global__ void __launch_bounds__(256)
+split_hi_lo_k_fragments_kernel(const float* __restrict__ w, long long s0, long long s1,
+                               long long s2, long long s3, int Cin, int Cout, int k_steps,
+                               uint4* __restrict__ frags) {
+  const int i = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= k_steps * kNTiles * 32) return;
+  const int lane = i % 32, nt = (i / 32) % kNTiles, ks = i / (32 * kNTiles);
+  const int o = 8 * nt + lane / 4, k = 16 * ks + 2 * (lane % 4);
+  auto at = [&](int kk) {
+    if (o >= Cout || kk >= 9 * Cin) return 0.0f;
+    const int tap = kk / Cin, c = kk - tap * Cin;
+    return w[(tap / 3) * s0 + (tap % 3) * s1 + c * s2 + o * s3];
+  };
+  uint32_t h[2], l[2];
+  narrow::split2(at(k), at(k + 1), h[0], l[0]);
+  narrow::split2(at(k + 8), at(k + 9), h[1], l[1]);
+  frags[i] = make_uint4(h[0], h[1], l[0], l[1]);
+}
+
+}  // namespace narrow_k
+
 using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -933,6 +1199,30 @@ int launch_narrow(const CUtensorMap& map, const narrow::XView& x, const uint4* f
   kernel<<<grid, narrow::kThreads, narrow::kSmemBytes, stream>>>(
       map, x, frags, bias, prelu, out, H, W, Cin, Cout, act, tiles_x, tiles_y, n_tiles, n_chunks,
       c_fast);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kPasses, int kKSteps>
+int launch_narrow_k(const narrow::XView& x, const uint4* frags, const float* bias,
+                    const float* prelu, float* out, int N, int H, int W, int Cin, int Cout,
+                    int act, int vec4, cudaStream_t stream) {
+  auto kernel = narrow_k::conv3x3_k3_narrow_k_kernel<kPasses, kKSteps>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, narrow_k::kThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (W + narrow_k::kTW - 1) / narrow_k::kTW,
+            tiles_y = (H + narrow_k::kTH - 1) / narrow_k::kTH;
+  const long long n_tiles = static_cast<long long>(N) * tiles_x * tiles_y;
+  if (n_tiles > (1ll << 31) - 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(n_tiles < fit ? n_tiles : fit);
+  kernel<<<grid, narrow_k::kThreads, 0, stream>>>(x, frags, bias, prelu, out, H, W, Cin, Cout,
+                                                  act, tiles_x, tiles_y,
+                                                  static_cast<int>(n_tiles), vec4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1080,6 +1370,47 @@ int conv3x3_k3_narrow(const float* x, long long sn, long long sh, long long sw, 
   if (channels) return K3_NARROW(narrow::kChannels);
   return K3_NARROW(narrow::kScalar);
 #undef K3_NARROW
+}
+
+// K3's narrow_k variant on ``stream``: float32 x (N, H, W, Cin) at element
+// strides (sn, sh, sw, sc), any layout, read in place, Cin 1 to 4; the
+// weights (3, 3, Cin, Cout) float32 at element strides (w0, w1, w2, w3),
+// Cout 1 to 64; ``passes`` 1 to 3 as conv3x3_k3 takes them; out (N, H, W,
+// Cout) float32 contiguous. ``frags`` is scratch of ceil(9 Cin / 16) * 4096
+// bytes, 16-byte aligned, for the weights' split
+// (split_hi_lo_k_fragments_kernel, launched first). Returns
+// cudaGetLastError() after each launch.
+int conv3x3_k3_narrow_k(const float* x, long long sn, long long sh, long long sw, long long sc,
+                        const float* w, long long w0, long long w1, long long w2, long long w3,
+                        void* frags, const float* bias, const float* prelu, float* out, int N,
+                        int H, int W, int Cin, int Cout, int act, int passes, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || Cin < 1 || Cin > narrow_k::kMaxCin || Cout < 1 ||
+      Cout > narrow_k::kMaxCout || passes < 1 || passes > 3 ||
+      reinterpret_cast<uintptr_t>(frags) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int k_steps = (9 * Cin + 15) / 16;
+  const int work = k_steps * narrow_k::kNTiles * 32;
+  auto* f = static_cast<uint4*>(frags);
+  narrow_k::split_hi_lo_k_fragments_kernel<<<(work + 255) / 256, 256, 0, s>>>(
+      w, w0, w1, w2, w3, Cin, Cout, k_steps, f);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const narrow::XView view{x, sn, sh, sw, sc};
+  // 16-byte stores where every pixel's channels start 16-byte aligned
+  const int vec4 = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 ? 1 : 0;
+#define K3_NARROW_K(KS_)                                                                        \
+  (passes == 1   ? launch_narrow_k<1, KS_>(view, f, bias, prelu, out, N, H, W, Cin, Cout, act,  \
+                                           vec4, s)                                             \
+   : passes == 2 ? launch_narrow_k<2, KS_>(view, f, bias, prelu, out, N, H, W, Cin, Cout, act,  \
+                                           vec4, s)                                             \
+                 : launch_narrow_k<3, KS_>(view, f, bias, prelu, out, N, H, W, Cin, Cout, act,  \
+                                           vec4, s))
+  if (k_steps == 1) return K3_NARROW_K(1);
+  if (k_steps == 2) return K3_NARROW_K(2);
+  return K3_NARROW_K(3);
+#undef K3_NARROW_K
 }
 
 // The f32 operand split (split_hi_lo_kernel) on ``stream``; returns

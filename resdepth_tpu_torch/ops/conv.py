@@ -17,9 +17,10 @@ precisions on f32 operands, with a float32 result: 1 pass ``x_hi w_hi``
 Two implementations of that one function:
 
   * ``conv3x3_bias_act`` on a CUDA tensor launches kernel K3
-    (``csrc/conv.cu``), one of its two variants as ``k3_variant`` routes
-    the call, by dtype and Cout alone:
-      - "wide" (bfloat16, and float32 with Cout > 8): an implicit GEMM
+    (``csrc/conv.cu``), one of its three variants as ``k3_variant`` routes
+    the call, by dtype, Cin and Cout alone:
+      - "wide" (bfloat16, and float32 that neither variant below takes):
+        an implicit GEMM
         with ``wgmma`` fed by TMA. It takes bf16 operands
         (``kernel_operands``): Cin padded with zeros to a multiple of 16
         and the weights re-laid as (9, Cout, Cin_p); for float32 the split
@@ -32,6 +33,14 @@ Two implementations of that one function:
         other layout), splits it in registers and runs ``mma.sync``
         m16n8k16 over 8 output channels; one small kernel a call splits
         the weights into its fragments.
+      - "narrow_k" (float32 with Cin <= 4 and 8 < Cout <= 64: the first
+        convs, 3->64 and the channel modes' 1/2/4->64, and the last conv's
+        dx in training, 1->64): reads x in place at its strides as the
+        narrow variant does, packs taps x channels into K (9 Cin padded to
+        a multiple of 16, not 16 a tap), splits x in registers and runs
+        ``mma.sync`` m16n8k16 over up to 64 output channels on a persistent
+        grid that stores the output from registers; one small kernel a call
+        splits the weights into its fragments (``narrow_k_fragments_plain``).
   * ``conv3x3_bias_act_plain``: ``F.conv2d`` on permuted tensors (for
     float32 over the channel-concatenated split operands of its passes,
     ``ops.passes.pass_operands``, whose products are exact in float32),
@@ -41,11 +50,12 @@ Two implementations of that one function:
 The UNet's float32 and bfloat16 paths run their convs through ``F.conv2d``,
 as the JAX UNet runs them through XLA; its serving modes run every 3x3 conv
 that has a pass count through ``conv3x3_bias_act`` (``models/unet.py``).
-``LAUNCHES`` counts kernel launches: ``k3`` the conv (any dtype, either
+``LAUNCHES`` counts kernel launches: ``k3`` the conv (any dtype, any
 variant), ``k3_p1``, ``k3_p2`` and ``k3_p3`` its float32 launches by pass
-count, ``k3_narrow`` those of the narrow variant, ``k3_split`` the float32
-operand splits (two a wide float32 call: x and the weights, each writing
-only the halves the passes read; one a narrow call: the weights).
+count, ``k3_narrow`` and ``k3_narrow_k`` those of the two narrow variants,
+``k3_split`` the float32 operand splits (two a wide float32 call: x and the
+weights, each writing only the halves the passes read; one a narrow or
+narrow_k call: the weights).
 """
 
 from __future__ import annotations
@@ -58,17 +68,22 @@ import torch.nn.functional as F
 
 from resdepth_tpu_torch.ops import build, passes as pass_ops
 
-LAUNCHES = {"k3": 0, "k3_p1": 0, "k3_p2": 0, "k3_p3": 0, "k3_split": 0, "k3_narrow": 0}
+LAUNCHES = {"k3": 0, "k3_p1": 0, "k3_p2": 0, "k3_p3": 0, "k3_split": 0, "k3_narrow": 0,
+            "k3_narrow_k": 0}
 
 LRELU_SLOPE = 0.01
 _ACT_CODES = {"relu": 1, "lrelu": 2, "prelu": 3}   # any other name: identity
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CIN_ALIGN = 16     # TMA's 16-byte strides and wgmma's K step of 16
 NARROW_COUT = 8    # the narrow variant's mma N: float32 calls up to this Cout
+# the narrow_k variant: float32 calls with Cin up to NARROW_K_CIN (K = 9 Cin
+# packed) and Cout up to NARROW_K_COUT (8 n8 tiles), above NARROW_COUT
+NARROW_K_CIN, NARROW_K_COUT = 4, 64
 
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# conv3x3_k3_narrow: x and its 4 strides, the weights and theirs, scratch,
-# bias, slopes, out, N H W Cin Cout act passes, the stream
+# conv3x3_k3_narrow and conv3x3_k3_narrow_k: x and its 4 strides, the
+# weights and theirs, scratch, bias, slopes, out, N H W Cin Cout act
+# passes, the stream
 NARROW_ARGTYPES = ([_PTR] + [_LONG] * 4 + [_PTR] + [_LONG] * 4 + [_PTR] * 4 + [_INT] * 7
                    + [_PTR])
 
@@ -81,6 +96,8 @@ def _library() -> ctypes.CDLL:
     lib.conv3x3_k3.restype = ctypes.c_int
     lib.conv3x3_k3_narrow.argtypes = NARROW_ARGTYPES
     lib.conv3x3_k3_narrow.restype = ctypes.c_int
+    lib.conv3x3_k3_narrow_k.argtypes = NARROW_ARGTYPES
+    lib.conv3x3_k3_narrow_k.restype = ctypes.c_int
     lib.conv_split_hi_lo.argtypes = [_PTR, _PTR, _PTR, _LONG, _INT, _INT, _PTR]
     lib.conv_split_hi_lo.restype = ctypes.c_int
     lib.conv_error_string.argtypes = [ctypes.c_int]
@@ -142,6 +159,38 @@ def narrow_fragments_plain(kernel: torch.Tensor) -> torch.Tensor:
     def pair(half, offset):       # -> (n_chunks, 9, 32) int32
         bits = [half[:, c + offset + e, o].view(torch.int16).int() for e in (0, 1)]
         return ((bits[0] & 0xFFFF) | (bits[1] << 16)).transpose(0, 1)
+
+    hi, lo = split_hi_lo_plain(w)
+    return torch.stack([pair(hi, 0), pair(hi, 8), pair(lo, 0), pair(lo, 8)], dim=-1)
+
+
+def narrow_k_steps(c_in: int) -> int:
+    """The narrow_k variant's k16 steps: K = 9 Cin packed, padded to a
+    multiple of 16 (1 for Cin 1, 2 for Cin 2 and 3, 3 for Cin 4)."""
+    return -(-9 * c_in // 16)
+
+
+def narrow_k_fragments_plain(kernel: torch.Tensor) -> torch.Tensor:
+    """The narrow_k variant's weight operands, the plain version of
+    ``csrc/conv.cu::split_hi_lo_k_fragments_kernel``: the weights (3, 3,
+    Cin <= 4, Cout <= 64) as a (K = 9 Cin, Cout) matrix, row ``k = tap Cin +
+    c``, split into bf16 hi and lo and laid out as the B fragments of
+    ``mma.sync`` m16n8k16, int32 (``narrow_k_steps(Cin)``, 8, 32, 4). For k
+    step, n8 tile and lane, at output channel ``o = 8 tile + lane // 4``
+    and ``k = 16 step + 2 (lane % 4)``: hi of (k, k + 1), hi of (k + 8, k +
+    9), lo of (k, k + 1), lo of (k + 8, k + 9), each pair of bf16 bits with
+    the first in the low half; zeros past 9 Cin and Cout."""
+    c_in, c_out = kernel.shape[2], kernel.shape[3]
+    steps = narrow_k_steps(c_in)
+    w = F.pad(kernel.float().reshape(9 * c_in, c_out),
+              (0, NARROW_K_COUT - c_out, 0, 16 * steps - 9 * c_in))
+    lane = torch.arange(32)
+    o = torch.arange(NARROW_K_COUT // 8)[:, None] * 8 + lane // 4        # (8, 32)
+    k = torch.arange(steps)[:, None, None] * 16 + 2 * (lane % 4)         # (steps, 1, 32)
+
+    def pair(half, offset):       # -> (steps, 8, 32) int32
+        bits = [half[k + offset + e, o].view(torch.int16).int() for e in (0, 1)]
+        return (bits[0] & 0xFFFF) | (bits[1] << 16)
 
     hi, lo = split_hi_lo_plain(w)
     return torch.stack([pair(hi, 0), pair(hi, 8), pair(lo, 0), pair(lo, 8)], dim=-1)
@@ -241,25 +290,33 @@ def _check_cuda_args(x, kernel) -> None:
         raise ValueError("K3 needs non-empty images and channels")
 
 
-def k3_variant(dtype, c_out: int) -> str:
+def k3_variant(dtype, c_in: int, c_out: int) -> str:
     """The K3 kernel a call on the card launches: "narrow" for float32 with
-    at most ``NARROW_COUT`` output channels, "wide" for any other."""
-    return "narrow" if dtype == torch.float32 and c_out <= NARROW_COUT else "wide"
+    at most ``NARROW_COUT`` output channels, "narrow_k" for float32 with at
+    most ``NARROW_K_CIN`` input and ``NARROW_K_COUT`` output channels,
+    "wide" for any other."""
+    if dtype != torch.float32:
+        return "wide"
+    if c_out <= NARROW_COUT:
+        return "narrow"
+    return "narrow_k" if c_in <= NARROW_K_CIN and c_out <= NARROW_K_COUT else "wide"
 
 
 def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu",
                      passes=None):
     """Same-padded 3x3 conv + bias + activation (contract in the module
     docstring). A CPU tensor runs the plain version; a CUDA tensor launches
-    K3's variant for its dtype and Cout (``k3_variant``) or raises."""
+    K3's variant for its dtype, Cin and Cout (``k3_variant``) or raises."""
     if x.device.type == "cpu":
         return conv3x3_bias_act_plain(x, kernel, bias, act_param, act_fn=act_fn,
                                       passes=passes)
     n_passes = pass_count(x, passes)
     _check_cuda_args(x, kernel)
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
-    launch = _launch_narrow if k3_variant(x.dtype, kernel.shape[3]) == "narrow" else _launch_wide
-    return launch(x, kernel, b, a, act_fn, n_passes)
+    variant = k3_variant(x.dtype, x.shape[3], kernel.shape[3])
+    if variant == "wide":
+        return _launch_wide(x, kernel, b, a, act_fn, n_passes)
+    return _launch_in_place(variant, x, kernel, b, a, act_fn, n_passes)
 
 
 def _launch_wide(x, kernel, b, a, act_fn, n_passes):
@@ -284,25 +341,33 @@ def _launch_wide(x, kernel, b, a, act_fn, n_passes):
     return out
 
 
-def _launch_narrow(x, kernel, b, a, act_fn, n_passes):
-    """K3's narrow variant on checked float32 arguments with Cout <=
-    ``NARROW_COUT``: x and the weights handed over at their strides, as they
-    lie; scratch for the weights' fragments (``narrow_fragments_plain``,
-    512 bytes a tap and chunk of 16 input channels) and the contiguous
-    output allocated here."""
+def _fragment_bytes(variant: str, c_in: int) -> int:
+    """Scratch for a narrow or narrow_k call's weight fragments: 512 bytes
+    a tap and chunk of 16 input channels (``narrow_fragments_plain``), or
+    4096 a k16 step (``narrow_k_fragments_plain``)."""
+    if variant == "narrow":
+        return -(-c_in // CIN_ALIGN) * 9 * 512
+    return narrow_k_steps(c_in) * 4096
+
+
+def _launch_in_place(variant, x, kernel, b, a, act_fn, n_passes):
+    """K3's narrow or narrow_k variant (``variant``) on checked float32
+    arguments: x and the weights handed over at their strides, as they
+    lie; scratch for the weights' fragments and the contiguous output
+    allocated here."""
     n, h, w, c_in = x.shape
     c_out = kernel.shape[3]
     weights = kernel.to(device=x.device, dtype=torch.float32)
-    frags = torch.empty(-(-c_in // CIN_ALIGN) * 9 * 512, dtype=torch.uint8, device=x.device)
+    frags = torch.empty(_fragment_bytes(variant, c_in), dtype=torch.uint8, device=x.device)
     out = torch.empty((n, h, w, c_out), dtype=torch.float32, device=x.device)
     lib = _library()
-    code = lib.conv3x3_k3_narrow(
+    code = getattr(lib, f"conv3x3_k3_{variant}")(
         x.data_ptr(), *x.stride(), weights.data_ptr(), *weights.stride(), frags.data_ptr(),
         b.data_ptr(), a.data_ptr(), out.data_ptr(), n, h, w, c_in, c_out,
         _ACT_CODES.get(act_fn, 0), n_passes, _stream(x))
     if code != 0:
-        raise RuntimeError(f"conv kernel K3 failed to launch (narrow variant): "
+        raise RuntimeError(f"conv kernel K3 failed to launch ({variant} variant): "
                            f"{lib.conv_error_string(code).decode()}")
-    for key in ("k3", f"k3_p{n_passes}", "k3_narrow", "k3_split"):
+    for key in ("k3", f"k3_p{n_passes}", f"k3_{variant}", "k3_split"):
         LAUNCHES[key] += 1
     return out

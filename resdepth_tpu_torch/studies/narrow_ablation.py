@@ -1,21 +1,36 @@
-"""Which part bounds kernel K3's narrow variant: the kernel timed on the
+"""Which part bounds kernel K3's narrow variants: each kernel timed on the
 card with parts of it cut out of a copy of ``csrc/conv.cu``.
 
-    python -m resdepth_tpu_torch.studies.narrow_ablation [--json OUT.json]
+    python -m resdepth_tpu_torch.studies.narrow_ablation [--kernel narrow|narrow_k]
+        [--json OUT.json]
 
-Beside the kernel as it is ("whole"), copies of ``csrc/conv.cu`` whose
-narrow kernel lacks its products ("no_mma": the ``mma`` lines), its
-products and their A-fragment loads ("no_mma_ldm": and the ``ldmatrix``
-lines), its split into the bf16 buffers ("no_split"), or all of them
-("loads_only": what is left is the kernel's loads, its weights' loads and
-its epilogue). Each is built with the package's nvcc flags, and timed with
-CUDA events (10 launches after 3) at the composed top's two convs at
-batch 128 (256² 64->1 and 128² 64->4), with x as NHWC memory (what the
-served model hands the kernel) and as the NHWC view of NCHW memory, at 1,
-2 and 3 passes, beside the byte bound (x, weights, bias and slopes read
-once, the output written once, at 3.35 TB/s). A cut kernel computes
-nothing useful: only its time is read. Needs the card (nvcc, sm_90a);
-the libraries go to ``build/resdepth_tpu_torch/ablation/``.
+``--kernel narrow`` (the default): beside the kernel as it is ("whole"),
+copies of ``csrc/conv.cu`` whose narrow kernel lacks its products
+("no_mma": the ``mma`` lines), its products and their A-fragment loads
+("no_mma_ldm": and the ``ldmatrix`` lines), its split into the bf16 buffers
+("no_split"), or all of them ("loads_only": what is left is the kernel's
+loads, its weights' loads and its epilogue), at the composed top's two
+convs at batch 128 (256² 64->1 and 128² 64->4).
+
+``--kernel narrow_k``: the narrow_k kernel whole, without its products
+("no_mma": the compiler then drops the gathers and the split they feed,
+so what is left is the halo loads and the stores), without its split of
+the gathered values ("no_split"), without its halo loads ("no_loads":
+the gathers read whatever the stages hold), and with nothing but its stores
+("stores_only": no halo loads, gathers, split or products; the epilogue
+writes bias and activation of zeros), at encoder0's shape (batch 128,
+256², 3->64) and the last conv's dx in training (batch 20, 256², 1->64).
+
+Beside each row, one ``Tensor.fill_`` of the output: a plain write of the
+output's bytes.
+
+Each cut is built with the package's nvcc flags and timed with CUDA
+events (10 launches after 3), with x as NHWC memory (what the served model
+hands the kernel) and as the NHWC view of NCHW memory, at 1, 2 and 3
+passes, beside the byte bound (x, weights, bias and slopes read once, the
+output written once, at 3.35 TB/s). A cut kernel computes nothing useful:
+only its time is read. Needs the card (nvcc, sm_90a); the libraries go to
+``build/resdepth_tpu_torch/ablation/``.
 """
 
 from __future__ import annotations
@@ -32,23 +47,35 @@ import torch
 
 from resdepth_tpu_torch.ops import build, conv
 
-SHAPES = ((128, 256, 256, 64, 1), (128, 128, 128, 64, 4))   # N, H, W, Cin, Cout
 LAYOUTS = ("nhwc", "nchw")
 PEAK_BYTES = 3.35e12
 
 _MMA = re.compile(r"^\s*(if constexpr \([^)]*\) )?mma_16816\(acc\[i\].*$", re.M)
 _LDMATRIX = re.compile(r"^\s*(if constexpr \([^)]*\) )?ldmatrix_x4\(a.*$", re.M)
 _SPLIT = re.compile(r"split_chunk<kLoad, \(kPasses >= 2\)>\([^;]*;", re.S)
-# each cut, as the patterns it removes
-CUTS = {"whole": (), "no_mma": (_MMA,), "no_mma_ldm": (_MMA, _LDMATRIX),
-        "no_split": (_SPLIT,), "loads_only": (_MMA, _LDMATRIX, _SPLIT)}
+# the narrow_k kernel's products, split, gathers and halo loads
+_K_MMA = re.compile(r"^\s*(if constexpr \([^)]*\) )?narrow::mma_16816\(acc\[nt\].*$", re.M)
+_K_SPLIT = re.compile(r"^\s*split_a\(v0, v1, ah, al\);$", re.M)
+_K_GATHER = re.compile(r"^\s*v[01]\[i\] = ok \? hs\[.*$", re.M)
+_K_LOADS = re.compile(r"^\s*load_halo\(smem_u32.*$", re.M)
+# each kernel: its C entry, its shapes (N, H, W, Cin, Cout) and its cuts,
+# as the patterns each removes
+KERNELS = {
+    "narrow": ("conv3x3_k3_narrow", ((128, 256, 256, 64, 1), (128, 128, 128, 64, 4)),
+               {"whole": (), "no_mma": (_MMA,), "no_mma_ldm": (_MMA, _LDMATRIX),
+                "no_split": (_SPLIT,), "loads_only": (_MMA, _LDMATRIX, _SPLIT)}),
+    "narrow_k": ("conv3x3_k3_narrow_k", ((128, 256, 256, 3, 64), (20, 256, 256, 1, 64)),
+                 {"whole": (), "no_mma": (_K_MMA,), "no_split": (_K_SPLIT,),
+                  "no_loads": (_K_LOADS,),
+                  "stores_only": (_K_MMA, _K_SPLIT, _K_GATHER, _K_LOADS)}),
+}
 
 
-def cut_sources(source: str) -> dict:
-    """``{name: source}`` for each of ``CUTS``; raises when a pattern no
-    longer finds its lines in ``source``."""
+def cut_sources(source: str, kernel: str = "narrow") -> dict:
+    """``{name: source}`` for each cut of ``kernel`` (``KERNELS``); raises
+    when a pattern no longer finds its lines in ``source``."""
     out = {}
-    for name, patterns in CUTS.items():
+    for name, patterns in KERNELS[kernel][2].items():
         text = source
         for pattern in patterns:
             text, n = pattern.subn("", text)
@@ -85,25 +112,27 @@ def _ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def run() -> list:
-    """Build every cut (one nvcc each, at once) and time them; one row a
-    shape, layout and pass count."""
+def run(kernel_name: str = "narrow") -> list:
+    """Build every cut of ``kernel_name`` (one nvcc each, at once) and time
+    them; one row a shape, layout and pass count."""
+    entry, shapes, cuts = KERNELS[kernel_name]
     with open(os.path.join(build.CSRC, "conv.cu")) as f:
-        sources = cut_sources(f.read())
+        sources = cut_sources(f.read(), kernel_name)
     with ThreadPoolExecutor(len(sources)) as pool:
-        paths = dict(zip(sources, pool.map(lambda kv: _build(*kv), sources.items())))
+        paths = dict(zip(sources, pool.map(lambda kv: _build(f"{kernel_name}_{kv[0]}", kv[1]),
+                                           sources.items())))
     libs = {}
     for name, path in paths.items():
-        fn = ctypes.CDLL(path).conv3x3_k3_narrow
+        fn = getattr(ctypes.CDLL(path), entry)
         fn.argtypes, fn.restype = conv.NARROW_ARGTYPES, ctypes.c_int
         libs[name] = fn
     generator = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for n, h, w, c_in, c_out in SHAPES:
+    for n, h, w, c_in, c_out in shapes:
         x_nhwc = torch.randn((n, h, w, c_in), generator=generator, device="cuda")
         kernel = torch.randn((3, 3, c_in, c_out), generator=generator, device="cuda")
         zeros = torch.zeros(c_out, device="cuda")
-        frags = torch.empty(-(-c_in // conv.CIN_ALIGN) * 9 * 512, dtype=torch.uint8,
+        frags = torch.empty(conv._fragment_bytes(kernel_name, c_in), dtype=torch.uint8,
                             device="cuda")
         out = torch.empty((n, h, w, c_out), device="cuda")
         n_bytes = (x_nhwc.numel() + 9 * c_in * c_out + out.numel()) * 4 + 8 * c_out
@@ -123,16 +152,19 @@ def run() -> list:
                             raise RuntimeError(f"the {name} cut failed to launch: {code}")
 
                     row[name] = _ms(call)
+                row["fill"] = _ms(lambda: out.fill_(1.0))
                 rows.append(row)
-                print(f"{n}x{h}x{w} {c_in}->{c_out} {layout} {passes}p: bound "
+                print(f"{kernel_name} {n}x{h}x{w} {c_in}->{c_out} {layout} {passes}p: bound "
                       f"{row['bound_ms']:.3f} ms; " + ", ".join(
-                          f"{k} {row[k]:.3f}" for k in CUTS), flush=True)
+                          f"{k} {row[k]:.3f}" for k in (*cuts, "fill")), flush=True)
         del x_nhwc, x, out
     return rows
 
 
 def main(argv: list | None = None) -> list:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel", choices=tuple(KERNELS), default="narrow",
+                        help="the variant to cut (default narrow)")
     parser.add_argument("--json", help="write the rows here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -140,7 +172,7 @@ def main(argv: list | None = None) -> list:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(card.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
-    rows = run()
+    rows = run(args.kernel)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1)

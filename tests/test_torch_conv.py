@@ -27,6 +27,13 @@ strides the wrapper hands over; the weights as mma B fragments,
 ``narrow_fragments_plain``) through its GEMM, against the JAX kernel at 3
 passes and against the float64 sum of the JAX kernel's split products at 1
 and 2 passes, which the JAX kernel does not take.
+
+K3's narrow_k variant (float32 with Cin <= 4 and Cout 9 to 64) likewise:
+its routing, its wrapper on meta tensors (x and the weights handed over
+where they lie), its weights' B fragments over the packed K (``k = tap Cin
++ c``, ``narrow_k_fragments_plain``) against ``pass_ops.split``, and the
+plain version and its operands through its GEMM against the JAX kernel
+(3 passes) and the float64 split products (1 and 2 passes) at Cin 1-4.
 """
 
 import os
@@ -200,8 +207,8 @@ def test_device_tensor_never_runs_the_plain_version(monkeypatch):
         raise AssertionError("the plain version ran for a device tensor")
 
     monkeypatch.setattr(conv, "conv3x3_bias_act_plain", plain)
-    x = torch.empty((2, 16, 16, 4), device="meta")
-    k = torch.empty((3, 3, 4, 16), device="meta")     # Cout 16: the wide variant
+    x = torch.empty((2, 16, 16, 16), device="meta")
+    k = torch.empty((3, 3, 16, 16), device="meta")    # Cin 16, Cout 16: the wide variant
     with pytest.raises(ValueError, match="CUDA"):
         conv.conv3x3_bias_act(x, k)
 
@@ -246,10 +253,19 @@ def test_kernel_source_is_built_by_name():
 # weights as mma B fragments (``narrow_fragments_plain``).
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c_out", [1, 4, 8, 9, 64])
-def test_k3_variant_routes_by_dtype_and_cout(dtype, c_out):
-    want = "narrow" if dtype == torch.float32 and c_out <= 8 else "wide"
-    assert conv.k3_variant(dtype, c_out) == want
+@pytest.mark.parametrize("c_in", [1, 3, 4, 5, 16])
+@pytest.mark.parametrize("c_out", [1, 4, 8, 9, 64, 65])
+def test_k3_variant_routes_by_dtype_and_cout(dtype, c_in, c_out):
+    """float32 with Cout <= 8 goes to the narrow variant, float32 with Cin
+    <= 4 and Cout 9 to 64 to the narrow_k variant, every other call to the
+    wide kernel."""
+    if dtype != torch.float32:
+        want = "wide"
+    elif c_out <= 8:
+        want = "narrow"
+    else:
+        want = "narrow_k" if c_in <= 4 and c_out <= 64 else "wide"
+    assert conv.k3_variant(dtype, c_in, c_out) == want
 
 
 class _FakeLibrary:
@@ -265,6 +281,10 @@ class _FakeLibrary:
 
     def conv3x3_k3_narrow(self, *args):
         self.calls.append(("narrow", args))
+        return self.code
+
+    def conv3x3_k3_narrow_k(self, *args):
+        self.calls.append(("narrow_k", args))
         return self.code
 
     def conv_error_string(self, code):
@@ -319,16 +339,18 @@ def test_narrow_call_reads_x_where_it_lies(fake_library, monkeypatch, c_out, pas
 @pytest.mark.parametrize("dtype,c_out", [(torch.float32, 9), (torch.float32, 64),
                                          (torch.bfloat16, 1), (torch.bfloat16, 8)])
 def test_other_calls_reach_the_wide_kernel(fake_library, dtype, c_out):
-    """Cout above 8 in float32, and bfloat16 at any Cout, launch the wide
-    kernel, ``conv3x3_k3``, and nothing of the narrow variant."""
-    x = torch.empty((2, 16, 16, 4), device="meta", dtype=dtype)
-    k = torch.empty((3, 3, 4, c_out), device="meta")
+    """Cout above 8 in float32 at Cin above 4, and bfloat16 at any Cout,
+    launch the wide kernel, ``conv3x3_k3``, and nothing of the narrow
+    variants."""
+    x = torch.empty((2, 16, 16, 16), device="meta", dtype=dtype)
+    k = torch.empty((3, 3, 16, c_out), device="meta")
     before = dict(conv.LAUNCHES)
     conv.conv3x3_bias_act(x, k)
     assert [entry for entry, _ in fake_library.calls] == ["wide"]
     assert fake_library.calls[0][1][11] == c_out
     assert conv.LAUNCHES["k3"] == before["k3"] + 1
     assert conv.LAUNCHES["k3_narrow"] == before["k3_narrow"]
+    assert conv.LAUNCHES["k3_narrow_k"] == before["k3_narrow_k"]
 
 
 def _bf16_bits(bits):
@@ -356,6 +378,20 @@ def _fragments_as_weights(frags):
     return halves
 
 
+def _padded_from_storage(x, c_p):
+    """``x`` (N, H, W, Cin) gathered from its storage at its strides (what
+    the wrapper hands the kernel), one pixel of zeros around the image and
+    zero channels up to ``c_p``: (N, H + 2, W + 2, c_p)."""
+    n, h, w, c_in = x.shape
+    flat = torch.as_strided(x, (x.untyped_storage().nbytes() // 4,), (1,), 0)
+    ni, yi, xi, ci = torch.meshgrid(torch.arange(n), torch.arange(-1, h + 1),
+                                    torch.arange(-1, w + 1), torch.arange(c_p), indexing="ij")
+    inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w) & (ci < c_in)
+    sn, sh, sw, sc = x.stride()
+    at = x.storage_offset() + ni * sn + yi * sh + xi * sw + ci * sc
+    return torch.where(inside, flat[torch.where(inside, at, 0)], torch.zeros(()))
+
+
 def _narrow_emulation(x, kernel, passes):
     """K3's narrow variant in float64 on its operands: x gathered from its
     storage at the strides the wrapper hands the kernel (``x.stride()``),
@@ -367,15 +403,7 @@ def _narrow_emulation(x, kernel, passes):
 
     n, h, w, c_in = x.shape
     w_hi, w_lo = _fragments_as_weights(conv.narrow_fragments_plain(kernel))
-    c_p = w_hi.shape[1]
-    flat = torch.as_strided(x, (x.untyped_storage().nbytes() // 4,), (1,), 0)
-    ni, yi, xi, ci = torch.meshgrid(torch.arange(n), torch.arange(-1, h + 1),
-                                    torch.arange(-1, w + 1), torch.arange(c_p), indexing="ij")
-    inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w) & (ci < c_in)
-    sn, sh, sw, sc = x.stride()
-    at = x.storage_offset() + ni * sn + yi * sh + xi * sw + ci * sc
-    xp = torch.where(inside, flat[torch.where(inside, at, 0)], torch.zeros(()))
-    x_hi, x_lo = (t.double() for t in pass_ops.split(xp))
+    x_hi, x_lo = (t.double() for t in pass_ops.split(_padded_from_storage(x, w_hi.shape[1])))
     pairs = {1: [(x_hi, w_hi)], 2: [(x_hi, w_hi), (x_lo, w_hi)],
              3: [(x_hi, w_hi), (x_hi, w_lo), (x_lo, w_hi)]}[passes]
     acc = torch.zeros(n, h, w, 8, dtype=torch.float64)
@@ -462,3 +490,178 @@ def test_narrow_ablation_cuts_find_their_lines(name):
     assert (cuts[name] == source) == (name == "whole")
     assert len(cuts[name]) <= len(source) and len(set(cuts.values())) == len(cuts)
     assert "conv3x3_k3_narrow_kernel" in cuts[name]
+
+
+# ------------------------- K3's narrow_k variant ---------------------------- #
+# Float32 calls with Cin <= 4 and Cout 9 to 64 go to the narrow_k kernel
+# (``k3_variant``): it reads x at the strides it is handed, packs taps x
+# channels into K (column k = tap Cin + c, 9 Cin padded to a multiple of
+# 16), splits x in registers and takes the weights as mma B fragments over
+# 64 output channels (``narrow_k_fragments_plain``).
+
+@pytest.mark.parametrize("c_out", [9, 64])
+def test_narrow_k_calls_reach_the_narrow_k_kernel(fake_library, c_out):
+    """float32 at Cin 4 with Cout 9 and 64 (the cases that went to the
+    wide kernel before the narrow_k variant) launch ``conv3x3_k3_narrow_k``
+    alone, and count ``k3``, ``k3_p3``, ``k3_narrow_k`` and the weights'
+    split."""
+    x = torch.empty((2, 16, 16, 4), device="meta")
+    k = torch.empty((3, 3, 4, c_out), device="meta")
+    before = dict(conv.LAUNCHES)
+    conv.conv3x3_bias_act(x, k)
+    (entry, args), = fake_library.calls
+    assert entry == "narrow_k" and args[14:21] == (2, 16, 16, 4, c_out, 1, 3)
+    gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
+    assert {key: n for key, n in gained.items() if n} == {
+        "k3": 1, "k3_p3": 1, "k3_narrow_k": 1, "k3_split": 1}
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_narrow_k_call_reads_x_where_it_lies(fake_library, monkeypatch, layout, passes):
+    """A narrow_k call hands the kernel x's own base pointer and strides,
+    for NHWC memory (encoder0's input) and for the NHWC view of NCHW memory
+    (the last conv's dx reads its cotangent so), and the weights at their
+    own strides (the dx's flipped and transposed view): no copy, no split
+    of x; it counts ``k3``, ``k3_p{n}``, ``k3_narrow_k`` and the weights'
+    split, and raises on a launch error without counting (meta tensors
+    stand in for CUDA ones; a view at an offset gives a base pointer that a
+    copy would not have)."""
+    def no_split(*args, **kwargs):
+        raise AssertionError("the narrow_k path split x")
+
+    monkeypatch.setattr(conv, "_split", no_split)
+    if layout == "nchw":
+        memory = torch.empty((2, 4, 16, 24), device="meta")[:, 1:]
+        x = memory.permute(0, 2, 3, 1)
+        strides = (4 * 16 * 24, 24, 1, 16 * 24)
+    else:
+        memory = torch.empty((3, 16, 24, 3), device="meta")[1:]
+        x = memory
+        strides = (16 * 24 * 3, 24 * 3, 3, 1)
+    oihw = torch.empty((3, 40, 3, 3), device="meta")       # a conv 40 -> 3; its dx 3 -> 40
+    k = oihw.flip(2, 3).transpose(0, 1).permute(2, 3, 1, 0)
+    before = dict(conv.LAUNCHES)
+    out = conv.conv3x3_bias_act(x, k, act_fn="lrelu", passes=passes)
+    assert out.shape == (2, 16, 24, 40) and out.is_contiguous()
+    (entry, args), = fake_library.calls
+    assert entry == "narrow_k" and args[0] == memory.data_ptr() != 0
+    assert args[1:5] == strides and args[6:10] == k.stride()
+    assert args[14:21] == (2, 16, 24, 3, 40, 2, passes)     # N H W Cin Cout act passes
+    gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
+    assert {key: n for key, n in gained.items() if n} == {
+        "k3": 1, f"k3_p{passes}": 1, "k3_narrow_k": 1, "k3_split": 1}
+    fake_library.code = 1
+    counted = dict(conv.LAUNCHES)
+    with pytest.raises(RuntimeError, match="K3 failed to launch"):
+        conv.conv3x3_bias_act(x, k, passes=passes)
+    assert conv.LAUNCHES == counted
+
+
+def _k_fragments_as_weights(frags):
+    """mma m16n8k16's B operand read back from ``narrow_k_fragments_plain``:
+    (hi, lo), each (16 k steps, 64) float64. In k step s and n8 tile t,
+    lane l holds column 8 t + l // 4, rows 16 s + 2 (l % 4) and + 1 in its
+    first register, + 8 and + 9 in its second, the lower row in the low
+    half."""
+    steps = frags.shape[0]
+    halves = []
+    for first in (0, 2):
+        w = torch.zeros(steps, 16, 8, 8, dtype=torch.float64)   # step, row, tile, column
+        for lane in range(32):
+            o, q = lane // 4, lane % 4
+            for reg, row in ((first, 2 * q), (first + 1, 2 * q + 8)):
+                bits = frags[:, :, lane, reg]
+                w[:, row, :, o] = _bf16_bits(bits).double()
+                w[:, row + 1, :, o] = _bf16_bits(bits >> 16).double()
+        halves.append(w.reshape(steps * 16, 64))
+    return halves
+
+
+@pytest.mark.parametrize("c_out", [9, 24, 64])
+@pytest.mark.parametrize("c_in", [1, 2, 3, 4])
+def test_narrow_k_fragments_hold_the_split_weights(c_in, c_out):
+    """The fragments hold ``pass_ops.split`` of the packed weights, the
+    (9 Cin, Cout) matrix of row ``k = tap Cin + c``: every weight's hi and
+    lo once, at the lane and register mma reads for its row and column;
+    zeros past 9 Cin (up to the k16 steps) and Cout (up to 64)."""
+    from resdepth_tpu_torch.ops import passes as pass_ops
+
+    k = torch.from_numpy(np.random.default_rng(c_in).normal(size=(3, 3, c_in, c_out))
+                         .astype(np.float32))
+    frags = conv.narrow_k_fragments_plain(k)
+    steps = conv.narrow_k_steps(c_in)
+    assert frags.shape == (steps, 8, 32, 4) and frags.dtype == torch.int32
+    assert 16 * steps - 16 < 9 * c_in <= 16 * steps
+    w_hi, w_lo = _k_fragments_as_weights(frags)
+    hi, lo = pass_ops.split(k.reshape(9 * c_in, c_out))
+    assert torch.equal(w_hi[:9 * c_in, :c_out], hi.double())
+    assert torch.equal(w_lo[:9 * c_in, :c_out], lo.double())
+    for w in (w_hi, w_lo):
+        assert not w[9 * c_in:].any() and not w[:, c_out:].any()
+
+
+def _narrow_k_emulation(x, kernel, passes):
+    """K3's narrow_k variant in float64 on its operands: x gathered from its
+    storage at the strides the wrapper hands the kernel, zeros outside the
+    image; each pixel's row of A the 9 taps' windows with their channels
+    (column ``tap Cin + c``), zeros up to the k16 steps, split as the kernel
+    splits it; the weights as B fragments, read back; the passes' products
+    summed. Returns (N, H, W, 64)."""
+    from resdepth_tpu_torch.ops import passes as pass_ops
+
+    n, h, w, c_in = x.shape
+    w_hi, w_lo = _k_fragments_as_weights(conv.narrow_k_fragments_plain(kernel))
+    xp = _padded_from_storage(x, c_in)
+    a = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)], -1)
+    a = F.pad(a, (0, w_hi.shape[0] - 9 * c_in))
+    a_hi, a_lo = (t.double() for t in pass_ops.split(a))
+    pairs = {1: [(a_hi, w_hi)], 2: [(a_hi, w_hi), (a_lo, w_hi)],
+             3: [(a_hi, w_hi), (a_hi, w_lo), (a_lo, w_hi)]}[passes]
+    return sum(xs @ ws for xs, ws in pairs)
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("c_out,act", [(16, "relu"), (64, "prelu"), (24, "none")])
+@pytest.mark.parametrize("c_in", [1, 2, 3, 4])
+def test_narrow_k_matches_jax_kernel(c_in, c_out, act, passes):
+    """The narrow_k variant's shapes (Cin 1-4 -> 16, 64 and a ragged 24) on
+    a small image (2 x 12 x 20): the plain version, which the wrapper runs
+    on the CPU, and the variant's operands through its GEMM (x gathered
+    where it lies, NHWC memory and the NHWC view of NCHW memory; K packed;
+    the weights' B fragments) give the JAX kernel's result (interpret mode)
+    within ``_f32_bar`` at 3 passes, and the float64 sum of the JAX
+    kernel's split products at 1 and 2 passes (the JAX kernel runs 3 only)
+    within the same bar."""
+    x, k, b, ap = _inputs((2, 12, 20, c_in, c_out), act, seed=20 + c_in)
+    want = (_jax(x, k, b, ap, act, block_rows=4) if passes == 3
+            else _float64_passes(x, k, b, act, ap, passes))
+    bar = _f32_bar(want, c_in)
+    kt, bt = torch.from_numpy(k), torch.from_numpy(b)
+    at = None if ap is None else torch.from_numpy(ap)
+    plain = conv.conv3x3_bias_act(torch.from_numpy(x), kt, bt, at, act_fn=act, passes=passes)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=bar)
+    bias, slope = conv._epilogue_vectors(plain, kt, bt, at)
+    for xt in (torch.from_numpy(x), torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+               .permute(0, 2, 3, 1)):
+        acc = _narrow_k_emulation(xt, kt, passes)[..., :c_out].float()
+        got = conv._activate(acc + bias, act, slope).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=bar)
+
+
+@pytest.mark.parametrize("name", ["whole", "no_mma", "no_split", "no_loads", "stores_only"])
+def test_narrow_k_ablation_cuts_find_their_lines(name):
+    """``studies/narrow_ablation.py --kernel narrow_k`` cuts parts of the
+    narrow_k kernel out of a copy of ``csrc/conv.cu`` by pattern: each cut
+    still finds its lines (else it raises), gives a source of its own and
+    leaves the narrow kernel whole."""
+    from resdepth_tpu_torch.studies import narrow_ablation
+
+    with open(os.path.join(build.CSRC, "conv.cu")) as f:
+        source = f.read()
+    cuts = narrow_ablation.cut_sources(source, "narrow_k")
+    assert (cuts[name] == source) == (name == "whole")
+    assert len(cuts[name]) <= len(source) and len(set(cuts.values())) == len(cuts)
+    assert "conv3x3_k3_narrow_k_kernel" in cuts[name]
+    narrow = source[:source.index("namespace narrow_k {")]
+    assert cuts[name].startswith(narrow)

@@ -362,6 +362,10 @@ def test_cuda_launches_count_by_passes(monkeypatch):
             calls.append((0, args[20]))           # float32 only; passes
             return 0
 
+        def conv3x3_k3_narrow_k(self, *args):     # float32, Cin <= 4, Cout 9-64
+            calls.append((0, args[20]))
+            return 0
+
     class FakeStream:
         cuda_stream = 0
 
@@ -377,7 +381,7 @@ def test_cuda_launches_count_by_passes(monkeypatch):
     assert calls == [(0, 1), (0, 2), (0, 2), (0, 3), (1, 1)]
     gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
     assert gained == {"k3": 5, "k3_p1": 1, "k3_p2": 2, "k3_p3": 1, "k3_split": 4,
-                      "k3_narrow": 4}
+                      "k3_narrow": 4, "k3_narrow_k": 0}
 
 
 def test_mode_served_on_cpu_launches_nothing(make_geotiff):

@@ -388,6 +388,10 @@ def test_k3_launches_a_step(monkeypatch, policy):
             calls.append((0, args[20]))
             return 0
 
+        def conv3x3_k3_narrow_k(self, *args):     # float32, Cin <= 4, Cout 9-64
+            calls.append((0, args[20]))
+            return 0
+
     class FakeStream:
         cuda_stream = 0
 
@@ -509,6 +513,17 @@ def test_k3_time_by_passes_reads_the_narrow_kernel():
              "void (anonymous namespace)::narrow::split_hi_lo_fragments_kernel(x)": 0.125,
              "void (anonymous namespace)::split_hi_lo_kernel(float const*)": 0.25}
     assert chip_smoke.k3_ms_by_passes(names) == {1: 0.5, 3: 2.5, "split": 0.375}
+
+
+def test_k3_time_by_passes_reads_the_narrow_k_kernel():
+    """``chip_smoke.k3_ms_by_passes`` adds K3's narrow_k kernel to its pass
+    count (the first template argument) and its weights' split to the
+    split kernels' time."""
+    names = {"void (anonymous namespace)::narrow_k::conv3x3_k3_narrow_k_kernel<3, 2>(x)": 1.0,
+             "void (anonymous namespace)::narrow_k::conv3x3_k3_narrow_k_kernel<1, 1>(x)": 0.5,
+             "void (anonymous namespace)::narrow::conv3x3_k3_narrow_kernel<3, 2>(x)": 0.25,
+             "void (anonymous namespace)::narrow_k::split_hi_lo_k_fragments_kernel(x)": 0.125}
+    assert chip_smoke.k3_ms_by_passes(names) == {1: 0.5, 3: 1.25, "split": 0.125}
 
 
 def test_precision_study_trains_at_a_precision(tmp_path):
