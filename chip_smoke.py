@@ -46,21 +46,22 @@ found:
      (``CROP_SHARES``) that every other compute dtype served on the card
      in its place misses; "modes-cli": one CLI run at ``compute_dtype:
      "balanced16"`` that writes its rasters;
-  6. conv: kernel K3 (its wide variant ``wgmma`` fed by TMA; the SASS of
-     its library must hold HGMMA and UTMALDG) at batch 128 at every 3x3
-     conv the served flagship hands it in the modes (``mode_k3_convs``,
-     traced: one a block and the composed top's two) and at ragged shapes,
-     in float32 at 3, 1 and 2 bf16 passes and in bfloat16, against the
-     plain version on cuDNN, TF32 off; times of K3, the plain version, one
-     ``F.conv2d`` (``library_ms``), the split of x and, at 3 passes, cuDNN
+  6. conv: kernel K3 (the SASS of its library must hold HGMMA and
+     UTMALDG) at batch 128 at every 3x3 conv the served flagship hands it
+     in the modes (``mode_k3_convs``, traced: one a block and the composed
+     top's two) and at ragged shapes, in float32 at 3, 1 and 2 bf16 passes
+     and in bfloat16 (each call on the kernel ``k3_variant`` routes it to),
+     against the plain version on cuDNN, TF32 off; times of K3, the plain
+     version, one ``F.conv2d`` (``library_ms``) and, at 3 passes, cuDNN
      with TF32 on, each beside K3's bound (its passes' operations); K3's
-     time in one forward of each mode; then K3's narrow variant (float32,
-     Cout <= 8: ``phase_conv_variant``) at the top's two convs and at ragged
-     narrow shapes, in two layouts, bitwise across two launches, timed
-     beside the wide kernel on the same calls, and the layouts the served
-     flagship hands it; then the narrow_k variant (float32, Cin <= 4, 8 <
-     Cout <= 64) at encoder0, the last conv's dx in training, the channel
-     modes' first convs and ragged shapes, the same way;
+     time in one forward of each mode; then each float32 kernel alone
+     (``phase_conv_variant``), in two layouts, bitwise across two launches:
+     wide_f32 (the trunk) at the trunk's convs and ragged shapes; narrow
+     (Cout <= 8) at the top's two convs and ragged narrow shapes; narrow_k
+     (Cin <= 4, 8 < Cout <= 64) at encoder0, the last conv's dx in
+     training, the channel modes' first convs and ragged shapes; the
+     narrow ones timed beside wide_f32 on the same calls; and the layouts
+     the served flagship hands each;
   7. train: the flagship trained on a seeded 2048x2048 scene by the train
      CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
      float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
@@ -179,10 +180,13 @@ KERNELS = {
 KERNEL_SOURCE = "resdepth_tpu_torch/csrc/stitch.cu"
 K3 = ("conv3x3_k3", "resdepth_tpu_torch/csrc/conv.cu",
       "resdepth_tpu/ops/pallas_conv.py:101")
-# K3's device kernels, by name (the wide, the narrow and the narrow_k
-# variant): one a launch
-K3_KERNEL_NAMES = ("conv3x3_k3_kernel", "conv3x3_k3_narrow_kernel",
-                   "conv3x3_k3_narrow_k_kernel")
+# K3's device kernels, by name (the wide, wide_f32, narrow and narrow_k
+# kernels): one a launch
+K3_KERNEL_NAMES = ("conv3x3_k3_kernel", "conv3x3_k3_wide_f32_kernel",
+                   "conv3x3_k3_narrow_kernel", "conv3x3_k3_narrow_k_kernel")
+# K3's float32 kernels, as ``conv.k3_variant`` names them, each counted in
+# ``conv.LAUNCHES["k3_<variant>"]``
+K3_F32_VARIANTS = ("wide_f32", "narrow", "narrow_k")
 
 # Phase 6: K3 at batch 128 at the 3x3 convs the served flagship hands it
 # in the serving modes (``mode_k3_convs``), in float32 at each pass count
@@ -203,6 +207,16 @@ CONV_RAGGED = ((1, 17, 23, 5, 7, "prelu"), (3, 40, 9, 16, 72, "lrelu"),
 NARROW_RAGGED = ((2, 17, 23, 3, 1, "prelu"), (3, 40, 9, 5, 3, "lrelu"),
                  (1, 17, 23, 80, 7, "none"), (2, 40, 9, 80, 1, "prelu"))
 NARROW_LAYOUTS = ("nchw", "nhwc")
+# Phase 6, K3's wide_f32 kernel (float32, every call the narrow variants
+# do not take): the trunk's convs as the served flagship hands them
+# (``k3_cases``, batch 128) and ragged shapes (N, H, W, Cin, Cout,
+# activation): Cin 5 (no TMA: 20-byte pixels) and 80 (a chunk of 64 and a
+# ragged one), W 23 and 9 (off the 16-wide tile), Cout 9, 40 and 72 (off
+# BN), 8 x 8 images two a tile at an odd batch, W 6 (8 x 16 tiles), batch
+# 1. In both of ``NARROW_LAYOUTS``.
+WIDE_F32_RAGGED = ((1, 17, 23, 5, 9, "prelu"), (2, 20, 150, 80, 40, "none"),
+                   (3, 40, 9, 16, 72, "lrelu"), (3, 8, 8, 512, 512, "relu"),
+                   (2, 12, 6, 64, 96, "lrelu"), (1, 16, 16, 24, 130, "none"))
 # Phase 6, K3's narrow_k variant (float32, Cin <= 4, 8 < Cout <= 64):
 # encoder0 as the served flagship hands it (``k3_cases``: batch 128, 256²,
 # 3->64), and beside it (N, H, W, Cin, Cout, activation) the last conv's
@@ -1084,18 +1098,18 @@ def device_breakdown(fn) -> dict:
 
 
 def k3_ms_by_passes(names: dict) -> dict:
-    """K3's device time (``device_breakdown``'s per-kernel ms) by its pass
-    count, the second template argument of ``conv3x3_k3_kernel<BN,
-    kPasses, kF32, KC, MT>`` (f32 launches only) and the first of
+    """K3's float32 device time (``device_breakdown``'s per-kernel ms) by
+    its pass count, the second template argument of
+    ``conv3x3_k3_wide_f32_kernel<BN, kPasses>`` and the first of
     ``conv3x3_k3_narrow_kernel<kPasses, kLoad>`` and
-    ``conv3x3_k3_narrow_k_kernel<kPasses, kKSteps>``, and its split kernels'
-    (``split_hi_lo_kernel`` and the narrow variants'
-    ``split_hi_lo_fragments_kernel`` and ``split_hi_lo_k_fragments_kernel``)."""
+    ``conv3x3_k3_narrow_k_kernel<kPasses, kKSteps>``, and its weights' split
+    kernels' (``split_hi_lo_weights_kernel``, ``split_hi_lo_fragments_kernel``
+    and ``split_hi_lo_k_fragments_kernel``)."""
     import re
 
     out = {}
     for name, ms in names.items():
-        match = (re.search(r"conv3x3_k3_kernel<\s*\d+,\s*(\d+),\s*true", name)
+        match = (re.search(r"conv3x3_k3_wide_f32_kernel<\s*\d+,\s*(\d+)", name)
                  or re.search(r"conv3x3_k3_narrow(?:_k)?_kernel<\s*(\d+)", name))
         if match:
             key = int(match.group(1))
@@ -1149,7 +1163,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
     served = serving_model(base, device, dtype)
     reference = run(served, dtype).cpu().numpy()
     breakdowns = {"float32": device_breakdown(lambda: run(served, dtype))}
-    result, launches = {}, {1: 0, 2: 0, 3: 0, "narrow": 0, "narrow_k": 0}
+    result, launches = {}, {1: 0, 2: 0, 3: 0, **{v: 0 for v in K3_F32_VARIANTS}}
     for mode in SERVING_PRECISION_MODES:
         dtype = predict.select_compute_dtype(mode, device)
         served = serving_model(base, device, dtype)
@@ -1166,8 +1180,8 @@ def phase_modes(scene: dict, model_path: str) -> dict:
                                  f"{want} by pass count ({n_batches} batches)")
         for p, c in counts.items():
             launches[p] += c
-        launches["narrow"] += conv.LAUNCHES["k3_narrow"]
-        launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
+        for variant in K3_F32_VARIANTS:
+            launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
         out = canvas.cpu().numpy()
         if not np.isfinite(out).all():
             raise AssertionError(f"{mode}: non-finite refined scene")
@@ -1191,6 +1205,10 @@ def phase_modes(scene: dict, model_path: str) -> dict:
             "launches": want, "mean_dev_cm": float(dev_cm.mean()),
             "p99_dev_cm": float(np.percentile(dev_cm, 99))}
         breakdowns[mode] = device_breakdown(lambda: run(served, dtype))
+        x_split = [n for n in breakdowns[mode].get("names", {})
+                   if n.startswith("split_hi_lo_kernel") or "::split_hi_lo_kernel" in n]
+        if x_split:
+            raise AssertionError(f"{mode}: a split launch of x ran: {x_split}")
         del served, canvas
     torch.cuda.empty_cache()
     log("modes", f"predict_linear_blend(compute_dtype=mode) on the card, rasters "
@@ -1497,7 +1515,7 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
     base.load_state_dict(weights.load_state_dict(model_path, config))
     n_batches = geometry["batches"]
     result, scenes = {}, {}
-    launches = {"k1": 0, "k2": 0, 3: 0, "narrow": 0, "narrow_k": 0}
+    launches = {"k1": 0, "k2": 0, 3: 0, **{v: 0 for v in K3_F32_VARIANTS}}
 
     def timed(fn):
         fn()
@@ -1548,8 +1566,8 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
                                  f"and {want_k3} K3 at 3 passes")
         launches[kernel] += n_batches
         launches[3] += k3
-        launches["narrow"] += conv.LAUNCHES["k3_narrow"]
-        launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
+        for variant in K3_F32_VARIANTS:
+            launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
         stream_s, stream_walls, stream_peak = timed(streamed)
         if use_pallas:
             held = hold_streamed(name, got, resident, geometry)
@@ -1703,20 +1721,21 @@ def phase_conv() -> dict:
     """K3 against the plain version at every 3x3 conv the serving modes
     hand it (``k3_cases``: the served flagship's own shapes, batch 128) and
     at ragged ones: float32 at 3, 1 and 2 bf16 passes, and bfloat16, each
-    call on the variant ``k3_variant`` routes it to; the SASS of the built
+    call on the kernel ``k3_variant`` routes it to; the SASS of the built
     library holds wgmma and TMA loads. The launch
     counters are zeroed before each case's one call through
-    ``conv3x3_bias_act`` and read after it; the timing launches come later
-    and are not counted. Times, from CUDA events in turns: K3, the plain
-    version, ``F.conv2d`` in ``x.dtype`` with TF32 off (``library_ms``), for
-    float32 the split of x alone and, at 3 passes, cuDNN with TF32 on.
+    ``conv3x3_bias_act`` and read after it (a float32 call splits its
+    weights in one launch, x in none); the timing launches come later and
+    are not counted. Times, from CUDA events in turns: K3, the plain
+    version, ``F.conv2d`` in ``x.dtype`` with TF32 off (``library_ms``) and,
+    at 3 passes, cuDNN with TF32 on.
     Returns a record per variant, "float32" (3 passes), "float32_p1",
     "float32_p2" and "bfloat16": its times and bound summed over the
     shapes, each float32 shape weighted by its launches at that pass count
     in one forward of each mode (``k3_cases``; bfloat16, on no path, each
-    shape once), and per mode the K3 time of one forward; and "narrow" and
-    "narrow_k": ``phase_conv_variant``'s rows for each, and each variant's
-    share of the float32 records (the shapes it takes)."""
+    shape once), and per mode the K3 time of one forward; and "wide_f32",
+    "narrow" and "narrow_k": ``phase_conv_variant``'s rows for each, and
+    each kernel's share of the float32 records (the shapes it takes)."""
     from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES
     from resdepth_tpu_torch.ops import build, conv
 
@@ -1772,10 +1791,8 @@ def phase_conv() -> dict:
                 row["weight"] = weights[row["key"]][passes] if passes else 1
             rows.append(row)
             del x
-        # a float32 call on the wide variant splits x and the weights, on the
-        # narrow ones the weights alone; bfloat16 splits nothing
-        want_splits = (sum(2 if conv.k3_variant(dtype, c[3], c[4]) == "wide" else 1
-                           for c in cases) if dtype == torch.float32 else 0)
+        # a float32 call splits its weights (x on chip); bfloat16 nothing
+        want_splits = len(cases) if dtype == torch.float32 else 0
         if launches != len(cases) or splits != want_splits:
             raise AssertionError(f"K3 launched {launches} times and its split "
                                  f"{splits} for {len(cases)} calls in {name}")
@@ -1801,7 +1818,6 @@ def phase_conv() -> dict:
                    f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ({r['bound_by']}, "
                    f"{100 * r['bound_ms'] / r['ms']:.0f} %), launches a forward of each "
                    f"mode {r['weight']}" if "ms" in r else "")
-                + (f", split of x {r['split_ms']:.3f}" if "split_ms" in r else "")
                 + (f", TF32 cuDNN {r['tf32_ms']:.3f}" if "tf32_ms" in r else "")
                 for r in rows)
             + f"; launches {launches}, split launches {splits}; summed over the shapes "
@@ -1812,10 +1828,10 @@ def phase_conv() -> dict:
                 f"{m} {t:.3f} ms" for m, t in result[name]["forward_ms"].items() if t)
                if passes else ""))
     torch.cuda.empty_cache()
-    # each narrow variant's share of the float32 rows above (the shapes it
+    # each float32 kernel's share of the float32 rows above (the shapes it
     # takes, by their launches a forward of each mode), and its own cases
     layouts = served_layouts()
-    for variant in ("narrow", "narrow_k"):
+    for variant in K3_F32_VARIANTS:
         own = phase_conv_variant(generator, variant, layouts)
         timed = [r for v in list(result.values()) if v.get("passes") for r in v["rows"]
                  if "ms" in r and conv.k3_variant(torch.float32, *r["key"][1:3]) == variant]
@@ -1837,9 +1853,6 @@ def _conv_times(conv, x, kernel, bias, slope, act, c_out, passes) -> dict:
               "plain": lambda: conv.conv3x3_bias_act_plain(x, kernel, bias, slope,
                                                            act_fn=act, passes=passes),
               "library": lambda: _library_conv(x, kernel, bias)}
-    if passes:
-        c_in_p = -(-x.shape[3] // conv.CIN_ALIGN) * conv.CIN_ALIGN
-        timers["split"] = lambda: conv._split(x, c_in_p, with_lo=passes >= 2)
     if passes == 3:
         def tf32():
             torch.backends.cudnn.allow_tf32 = True
@@ -1884,7 +1897,7 @@ def layout_of(x) -> str:
 def served_layouts() -> dict:
     """The layout (``layout_of``) of x at each K3 call of one forward of
     the served flagship (seeded random weights, 2 tiles) that goes to a
-    narrow variant, in each serving mode, as ``{mode: [(variant, H, Cin,
+    float32 kernel, in each serving mode, as ``{mode: [(variant, H, Cin,
     Cout, layout), ...]}``."""
     from unittest import mock
 
@@ -1913,28 +1926,29 @@ def served_layouts() -> dict:
 
 
 def phase_conv_variant(generator, variant: str, layouts: dict) -> dict:
-    """One of K3's narrow variants: "narrow" (float32, Cout <= 8) at the
-    composed top's convs (batch 128) and ``NARROW_RAGGED``, or "narrow_k"
-    (float32, Cin <= 4, 8 < Cout <= 64) at encoder0 (batch 128) and
-    ``NARROW_K_CASES``; the served flagship's shapes are those of
-    ``k3_cases`` that ``k3_variant`` routes to it. Each in both of
+    """One of K3's float32 kernels: "wide_f32" (every call the narrow ones
+    do not take) at the trunk's convs (batch 128) and ``WIDE_F32_RAGGED``,
+    "narrow" (Cout <= 8) at the composed top's convs (batch 128) and
+    ``NARROW_RAGGED``, or "narrow_k" (Cin <= 4, 8 < Cout <= 64) at encoder0
+    (batch 128) and ``NARROW_K_CASES``; the served flagship's shapes are
+    those of ``k3_cases`` that ``k3_variant`` routes to it. Each in both of
     ``NARROW_LAYOUTS``, at 1, 2 and 3 passes: two counted calls through
     ``conv3x3_bias_act`` (counters zeroed just before, read just after: 2
-    launches of the variant and 2 splits, the weights') bitwise equal, each
+    launches of the kernel and 2 splits, the weights') bitwise equal, each
     within 1e-4 of the largest output of the plain version. At batch 20 and
-    above, times in turns (CUDA events): the variant's kernel, the wide
-    kernel on the same call (``conv._launch_wide``, Cin padded to 16 and x
-    split as the wide path does), the plain version, ``F.conv2d`` in
-    float32 with TF32 off (``library_ms``) and on bf16 copies of the
-    operands, and the wide path's copy (``.contiguous()``) and split of x;
-    the bound (``conv_bound``). ``layouts`` (``served_layouts``) is logged
-    beside the rows. Returns the rows and the variant's served layouts."""
+    above, times in turns (CUDA events): the kernel, for the narrow ones
+    the wide_f32 kernel on the same call (``wide_ms``), the plain version,
+    ``F.conv2d`` in float32 with TF32 off (``library_ms``) and on bf16
+    copies of the operands; the bound (``conv_bound``). ``layouts``
+    (``served_layouts``) is logged beside the rows. Returns the rows and
+    the kernel's served layouts."""
     from resdepth_tpu_torch.ops import conv
 
     device = torch.device("cuda", 0)
     served = [(CONV_BATCH, h, h, c_in, c_out, act) for h, c_in, c_out, act in k3_cases()
               if conv.k3_variant(torch.float32, c_in, c_out) == variant]
-    cases = served + list(NARROW_RAGGED if variant == "narrow" else NARROW_K_CASES)
+    cases = served + list({"wide_f32": WIDE_F32_RAGGED, "narrow": NARROW_RAGGED,
+                           "narrow_k": NARROW_K_CASES}[variant])
     rows = []
     for n, h, w, c_in, c_out, act in cases:
         for layout in NARROW_LAYOUTS:
@@ -1965,17 +1979,18 @@ def phase_conv_variant(generator, variant: str, layouts: dict) -> dict:
                 if n >= TRAIN_BATCH:
                     b, a = conv._epilogue_vectors(x, kernel, bias, slope)
                     x_bf16, k_bf16 = x.to(torch.bfloat16), kernel.to(torch.bfloat16)
-                    c_in_p = -(-c_in // conv.CIN_ALIGN) * conv.CIN_ALIGN
-                    row.update(_in_turns({
+                    timers = {
                         "ms": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope,
                                                             act_fn=act, passes=passes),
-                        "wide_ms": lambda: conv._launch_wide(x, kernel, b, a, act, passes),
+                        "wide_ms": lambda: conv._launch_in_place("wide_f32", x, kernel, b, a,
+                                                                 act, passes),
                         "plain_ms": lambda: conv.conv3x3_bias_act_plain(
                             x, kernel, bias, slope, act_fn=act, passes=passes),
                         "library_ms": lambda: _library_conv(x, kernel, bias),
-                        "bf16_library_ms": lambda: _library_conv(x_bf16, k_bf16, bias),
-                        "copy_split_ms": lambda: conv._split(x, c_in_p,
-                                                             with_lo=passes >= 2)}))
+                        "bf16_library_ms": lambda: _library_conv(x_bf16, k_bf16, bias)}
+                    if variant == "wide_f32":
+                        del timers["wide_ms"]
+                    row.update(_in_turns(timers))
                     row["bound_ms"], row["bound_by"] = conv_bound(x, c_out, passes)
                     del x_bf16, k_bf16
                 rows.append(row)
@@ -1988,10 +2003,10 @@ def phase_conv_variant(generator, variant: str, layouts: dict) -> dict:
         "launches each): " + "; ".join(
             f"{r['shape']}: max |diff| {r['err']:.3g} (bar {r['bar']:.3g})"
             + (f", {variant} {r['ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.0f} % of "
-               f"bound {r['bound_ms']:.3f}, {r['bound_by']}), wide {r['wide_ms']:.3f}, "
-               f"plain {r['plain_ms']:.3f}, library f32 {r['library_ms']:.3f}, bf16 "
-               f"{r['bf16_library_ms']:.3f}, the wide path's copy and split of x "
-               f"{r['copy_split_ms']:.3f}" if "ms" in r else "")
+               f"bound {r['bound_ms']:.3f}, {r['bound_by']})"
+               + (f", wide_f32 {r['wide_ms']:.3f}" if "wide_ms" in r else "")
+               + f", plain {r['plain_ms']:.3f}, library f32 {r['library_ms']:.3f}, bf16 "
+               f"{r['bf16_library_ms']:.3f}" if "ms" in r else "")
             for r in rows)
         + f"; the layouts of x at the {variant} calls of one served flagship forward: "
         + "; ".join(f"{m} {c}" for m, c in mine.items()))
@@ -2136,8 +2151,8 @@ def _train_dataset(scene: dict, size: int, tile: int, n_samples: int):
 
 @contextlib.contextmanager
 def _recorded_k3_calls():
-    """Record each K3 call ``(x shape, kernel shape, passes)`` while the
-    block runs (the wrapper is called through)."""
+    """Record each K3 call ``(x shape, kernel shape, passes, x's layout)``
+    (``layout_of``) while the block runs (the wrapper is called through)."""
     from unittest import mock
 
     from resdepth_tpu_torch.ops import conv
@@ -2145,7 +2160,7 @@ def _recorded_k3_calls():
     calls, k3 = [], conv.conv3x3_bias_act
 
     def record(x, kernel, *args, passes=None, **kwargs):
-        calls.append((tuple(x.shape), tuple(kernel.shape), passes))
+        calls.append((tuple(x.shape), tuple(kernel.shape), passes, layout_of(x)))
         return k3(x, kernel, *args, passes=passes, **kwargs)
 
     with mock.patch.object(conv, "conv3x3_bias_act", record):
@@ -2179,7 +2194,7 @@ def phase_train_precisions(scene: dict) -> dict:
     batches = [(ds.positions[i:i + TRAIN_BATCH], ds.pair_indices[i:i + TRAIN_BATCH],
                 np.zeros((TRAIN_BATCH, 4), np.int32), np.ones(TRAIN_BATCH, np.float32))
                for i in range(0, TRAIN_BATCH * (TRAIN_STEPS + 1), TRAIN_BATCH)]
-    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0, "narrow": 0, "narrow_k": 0}
+    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0, **{v: 0 for v in K3_F32_VARIANTS}}
     for policy, (train_precision, compute_dtype) in TRAIN_POLICIES.items():
         kwargs, dtype = select_train_precision(train_precision, compute_dtype, device)
         model = init_unet(config, torch.Generator().manual_seed(SEED), device)
@@ -2207,8 +2222,8 @@ def phase_train_precisions(scene: dict) -> dict:
                                  f"{TRAIN_STEPS} steps, expected {want} by pass count")
         for p, c in counts.items():
             launches[p] += c
-        launches["narrow"] += conv.LAUNCHES["k3_narrow"]
-        launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
+        for variant in K3_F32_VARIANTS:
+            launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
         metrics = [float(m) for m in metrics]
         if not all(np.isfinite(metrics)):
             raise AssertionError(f"{policy}: train metrics {metrics}")
@@ -2217,8 +2232,7 @@ def phase_train_precisions(scene: dict) -> dict:
         with _recorded_k3_calls() as calls:
             breakdown = device_breakdown(lambda: step(state, rasters, *batches[-1],
                                                       draws))
-        for x_shape, k_shape, passes in calls:
-            key = (x_shape, k_shape, passes)
+        for key in calls:
             shapes.setdefault(key, {}).setdefault(policy, 0)
             shapes[key][policy] += 1
         step_ms = float(np.mean(steady))
@@ -2255,9 +2269,10 @@ def phase_train_precisions(scene: dict) -> dict:
 
 def _train_k3_checks(shapes: dict, phase: str = "train-precisions") -> list:
     """K3 against its plain version (``conv3x3_bias_act_plain``) at each
-    call shape the train steps recorded (``(x shape, kernel shape,
-    passes)``, with their calls a step by policy), activation none and no
-    bias as the training convs call it: within 1e-4 of the largest output,
+    call the train steps recorded (``(x shape, kernel shape, passes, x's
+    layout)``, with their calls a step by policy; x made in that layout),
+    activation none and no bias as the training convs call it: within 1e-4
+    of the largest output,
     and CUDA-event times of K3, the plain version and ``F.conv2d`` (TF32
     off), in turns, beside K3's bound. The launches here are not counted."""
     from resdepth_tpu_torch.ops import conv
@@ -2265,8 +2280,10 @@ def _train_k3_checks(shapes: dict, phase: str = "train-precisions") -> list:
     device = torch.device("cuda", 0)
     generator = torch.Generator(device=device).manual_seed(SEED + 1)
     rows = []
-    for (x_shape, k_shape, passes), calls in shapes.items():
+    for (x_shape, k_shape, passes, layout), calls in shapes.items():
         x = torch.randn(x_shape, generator=generator, device=device)
+        if layout in NARROW_LAYOUTS:
+            x = as_layout(x, layout)
         kernel = torch.randn(k_shape, generator=generator, device=device) / (
             3.0 * k_shape[2] ** 0.5)
         zeros = torch.zeros(k_shape[3], device=device)
@@ -2274,7 +2291,8 @@ def _train_k3_checks(shapes: dict, phase: str = "train-precisions") -> list:
         want = conv.conv3x3_bias_act_plain(x, kernel, act_fn="none", passes=passes)
         err = float((got - want).abs().max())
         bar = 1e-4 * float(want.abs().max())
-        shape = f"{x_shape[0]}x{x_shape[1]}x{x_shape[2]} {k_shape[2]}->{k_shape[3]} p{passes}"
+        shape = (f"{x_shape[0]}x{x_shape[1]}x{x_shape[2]} {k_shape[2]}->{k_shape[3]} p{passes} "
+                 f"{layout}")
         if not (np.isfinite(err) and err <= bar):
             raise AssertionError(f"K3 at the train step's {shape}: max |diff| {err} "
                                  f"above {bar}")
@@ -2294,7 +2312,7 @@ def _train_k3_checks(shapes: dict, phase: str = "train-precisions") -> list:
                      "bound_ms": bound, "bound_by": bound_by})
         del x, kernel, got, want
     torch.cuda.empty_cache()
-    batches = sorted({x_shape[0] for x_shape, _, _ in shapes})
+    batches = sorted({x_shape[0] for x_shape, *_ in shapes})
     log(phase, f"K3 at the train steps' call shapes (forward and dx, batch "
         f"{', '.join(map(str, batches))}) against its plain version, CUDA events (5 "
         "launches, 2 turns): "
@@ -2512,8 +2530,8 @@ def phase_profile(work: str, scene: dict) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
     return {"launches": {3: traced["k3"]["k3_p3"] + twin["k3"]["k3_p3"],
-                         "narrow": traced["k3"]["k3_narrow"] + twin["k3"]["k3_narrow"],
-                         "narrow_k": traced["k3"]["k3_narrow_k"] + twin["k3"]["k3_narrow_k"]},
+                         **{v: traced["k3"][f"k3_{v}"] + twin["k3"][f"k3_{v}"]
+                            for v in K3_F32_VARIANTS}},
             "steps": {name: runs[name]["trace"]["steps"] for name in ("balanced16", "high")}}
 
 
@@ -2595,8 +2613,8 @@ def phase_channel_modes(work: str) -> dict:
             scenes[name] = scene_run()
             counts = ({p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)
                        if conv.LAUNCHES[f"k3_p{p}"]}, stitch.LAUNCHES["k2"])
-            k3_launches["narrow"] += conv.LAUNCHES["k3_narrow"]
-            k3_launches["narrow_k"] += conv.LAUNCHES["k3_narrow_k"]
+            for variant in K3_F32_VARIANTS:
+                k3_launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
             want = ({p: n * n_batches for p, n in Counter(
                 c[4] for c in mode_k3_convs(name, config)).items()}
                     if name != "float32" else {}, n_batches)
@@ -2665,11 +2683,11 @@ def _zero_counters() -> None:
 
 def _read_counters() -> dict:
     """The launches since ``_zero_counters``: K3 by float32 pass count
-    (1, 2, 3), its narrow variants ("narrow", "narrow_k"), and "k1", "k2"."""
+    (1, 2, 3), its float32 kernels (``K3_F32_VARIANTS``), and "k1", "k2"."""
     from resdepth_tpu_torch.ops import conv, stitch
 
     counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3) if conv.LAUNCHES[f"k3_p{p}"]}
-    for variant in ("narrow", "narrow_k"):
+    for variant in K3_F32_VARIANTS:
         if conv.LAUNCHES[f"k3_{variant}"]:
             counts[variant] = conv.LAUNCHES[f"k3_{variant}"]
     counts.update(stitch.LAUNCHES)
@@ -2983,7 +3001,7 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
         trainer.train()
         k3 = conv.LAUNCHES["k3"]
-        narrow = {v: conv.LAUNCHES[f"k3_{v}"] for v in ("narrow", "narrow_k")}
+        narrow = {v: conv.LAUNCHES[f"k3_{v}"] for v in K3_F32_VARIANTS}
         metrics = [float(m) for _, _, m in events]
         if not np.isfinite(metrics).all():
             raise AssertionError(f"{tag}: train metrics {metrics}")
@@ -3013,7 +3031,7 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
             narrow[v] += c
         return b["k3"]
 
-    result, lines, launches, narrow = {}, [], 0, {"narrow": 0, "narrow_k": 0}
+    result, lines, launches, narrow = {}, [], 0, {v: 0 for v in K3_F32_VARIANTS}
     for policy in BANDED_POLICIES:
         for budget_name, budget in BANDED_BUDGETS.items():
             tag = f"{policy}-{budget_name}"
@@ -3411,8 +3429,7 @@ def phase_dp_nccl_1(work: str, scene: dict) -> dict:
         f"{served['world']['wall']:.2f} s in the world, raster bitwise, K2 "
         f"{served['world']['k2']} launches")
     return {"launches": {"k2": served["world"]["k2"], 3: world["k3"]["k3_p3"],
-                         "narrow": world["k3"]["k3_narrow"],
-                         "narrow_k": world["k3"]["k3_narrow_k"]}}
+                         **{v: world["k3"][f"k3_{v}"] for v in K3_F32_VARIANTS}}}
 
 
 def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> dict:
@@ -3507,8 +3524,7 @@ def dp_serve(plan: dict, device, group) -> dict:
             if launches is None:
                 launches = {**stitch.LAUNCHES, "k3_p3": conv.LAUNCHES["k3_p3"],
                             "k3": conv.LAUNCHES["k3"],
-                            "k3_narrow": conv.LAUNCHES["k3_narrow"],
-                            "k3_narrow_k": conv.LAUNCHES["k3_narrow_k"]}
+                            **{f"k3_{v}": conv.LAUNCHES[f"k3_{v}"] for v in K3_F32_VARIANTS}}
         out[name] = {"scene": None if got is None else torch.from_numpy(got),
                      "launches": launches, "walls": walls}
 
@@ -3711,8 +3727,8 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
         return ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
                          for k, v in gaps.items())
 
-    lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0, "narrow": 0,
-                                         "narrow_k": 0}
+    lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0,
+                                         **{v: 0 for v in K3_F32_VARIANTS}}
     for policy in DP_POLICIES:
         gaps, floor, failure = _hold_dp_training(policy, ranks, alone[policy],
                                                  control[policy], start)
@@ -3724,8 +3740,8 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
             raise AssertionError(f"dp-2-on-1 {policy}: K3 launches a rank {k3}, expected "
                                  f"{want_k3} at 3 passes")
         launches[3] += sum(c["k3_p3"] for c in k3)
-        launches["narrow"] += sum(c["k3_narrow"] for c in k3)
-        launches["narrow_k"] += sum(c["k3_narrow_k"] for c in k3)
+        for variant in K3_F32_VARIANTS:
+            launches[variant] += sum(c[f"k3_{variant}"] for c in k3)
         step_ms = [float(np.mean(r["train"][policy]["step_ms"][DP_WARMUP:])) for r in ranks]
         lines.append(
             f"train {policy}: metric {ranks[0]['train'][policy]['metrics'][-1]:.6f} m after "
@@ -3736,8 +3752,9 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
             f"{', '.join(f'{t:.2f}' for t in step_ms)} (one process at batch 20 "
             f"{float(np.mean(alone[policy]['step_ms'][DP_WARMUP:])):.2f})")
     shapes = {}
-    for x_shape, k_shape, passes in ranks[0]["train"]["balanced16"]["calls"]:
-        shapes.setdefault((x_shape, k_shape, passes), {"balanced16": 0})["balanced16"] += 1
+    for x_shape, k_shape, passes, layout in ranks[0]["train"]["balanced16"]["calls"]:
+        shapes.setdefault((tuple(x_shape), tuple(k_shape), passes, layout),
+                          {"balanced16": 0})["balanced16"] += 1
     _train_k3_checks(shapes, "dp-2-on-1")
 
     bar = k1_ulps(4)
@@ -3759,8 +3776,8 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
                             f"{n_steps} {kernel}, {want_k3} K3)")
         launches[kernel] += sum(c[kernel] for c in counts)
         launches[3] += sum(c["k3_p3"] for c in counts)
-        launches["narrow"] += sum(c["k3_narrow"] for c in counts)
-        launches["narrow_k"] += sum(c["k3_narrow_k"] for c in counts)
+        for variant in K3_F32_VARIANTS:
+            launches[variant] += sum(c[f"k3_{variant}"] for c in counts)
         lines.append(f"{name}: {diff:.2f} ulps from the resident K2 scene (bar {bar}), "
                      f"launches a rank {counts[0]}, scene s a rank (counted run, then one "
                      "more) " + "; ".join(", ".join(f"{w:.3f}" for w in r["walls"])
@@ -3869,7 +3886,7 @@ def phase_dryrun() -> dict:
     want_k3 = {"train": k3_launches_a_step("default", 3)[1],
                "train-2d": k3_launches_a_step("default", 3)[1],
                "banded": 2 * k3_launches_a_step("default", 2)[1]}
-    launches = {"k1": 0, "k2": 0, 1: 0, "narrow": 0, "narrow_k": 0}
+    launches = {"k1": 0, "k2": 0, 1: 0, **{v: 0 for v in K3_F32_VARIANTS}}
     for n, share in ((1, False), (DRYRUN_RANKS, True)):
         begin = time.perf_counter()
         ranks = graft_entry.dryrun_multichip(n, share_cards=share, rank_argv=argv,
@@ -3879,11 +3896,11 @@ def phase_dryrun() -> dict:
         for name in graft_entry.legs(n):
             counts = [r["legs"][name]["launches"] for r in ranks]
             for rank, c in enumerate(counts):
-                # "k3" counts every K3 launch, "k3_narrow" and "k3_narrow_k"
-                # those of its narrow variants and "k3_split" its split kernels
+                # "k3" counts every K3 launch, "k3_<variant>" those of its
+                # float32 kernels and "k3_split" their weights' splits
                 other = {k: v for k, v in c.items()
                          if v and k not in ("k1", "k2", "k3_p1", "k3", "k3_split",
-                                            "k3_narrow", "k3_narrow_k")}
+                                            *(f"k3_{v}" for v in K3_F32_VARIANTS))}
                 if name in want_k3:
                     ok = (c["k3_p1"] == c["k3"] == want_k3[name]
                           and not c["k1"] and not c["k2"])
@@ -3897,8 +3914,8 @@ def phase_dryrun() -> dict:
             launches["k1"] += sum(c["k1"] for c in counts)
             launches["k2"] += sum(c["k2"] for c in counts)
             launches[1] += sum(c["k3_p1"] for c in counts)
-            launches["narrow"] += sum(c["k3_narrow"] for c in counts)
-            launches["narrow_k"] += sum(c["k3_narrow_k"] for c in counts)
+            for variant in K3_F32_VARIANTS:
+                launches[variant] += sum(c[f"k3_{variant}"] for c in counts)
             lines.append(f"{name} {max(r['legs'][name]['seconds'] for r in ranks):.2f} s, "
                          "launches a rank " + ", ".join(
                              "/".join(str(c[k]) for c in counts) + f" {k}"
@@ -4035,9 +4052,9 @@ def main(argv: list | None = None) -> int:
     # forward of each mode at that pass count (phase 6); bfloat16 K3 is on
     # no path (the bf16 trunks run cuDNN): its launches are phase 6's, its
     # times each shape's once.
-    # Then K3's narrow variants alone (float32, Cout <= 8; float32, Cin <= 4
-    # and 8 < Cout <= 64), each with its launches on those paths and its
-    # share of those times and bounds.
+    # Then K3's float32 kernels alone (wide_f32: the trunk; narrow: Cout <=
+    # 8; narrow_k: Cin <= 4 and 8 < Cout <= 64), each with its launches on
+    # those paths and its share of those times and bounds.
     name, source, replaces = K3
     k3_phases = (modes, train_precisions, streaming, banded, channel_modes, profile,
                  dp_nccl, dp_ranks, dryrun, studies, smoke)
@@ -4048,12 +4065,13 @@ def main(argv: list | None = None) -> int:
          "launches": (sum(phase["launches"].get(r["passes"], 0) for phase in k3_phases)
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
-        for key, r in convs.items() if key not in ("narrow", "narrow_k")]
+        for key, r in convs.items() if key not in K3_F32_VARIANTS]
     record["kernels"] += [
         {"name": label, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"].get(variant, 0) for phase in k3_phases),
          **{f: convs[variant][f] for f in fields}}
         for variant, label in (
+            ("wide_f32", f"{name}_wide_f32 (float32, Cout > 8 outside narrow_k's range)"),
             ("narrow", f"{name}_narrow (float32, Cout <= 8)"),
             ("narrow_k", "conv3x3_bias_act_narrow_k (float32, Cin <= 4, 8 < Cout <= 64)"))]
     print(json.dumps(record))

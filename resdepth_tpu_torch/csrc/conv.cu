@@ -14,62 +14,55 @@
 // f32 (three bf16 passes). f32 inputs may also ask for fewer passes, the
 // TPU's other MXU precisions on f32 operands (the serving modes): 1 pass,
 // x_hi*w_hi (Precision.DEFAULT), or 2 passes, x_hi*w_hi + x_lo*w_hi
-// ((HIGH, DEFAULT): the activation split, the weights single-rounded); a
-// stage then holds only the tiles its passes read. The TPU kernel cuts the padded input into three
-// row-shifted views so that its BlockSpecs hand each grid program a halo
-// window in VMEM; here TMA fetches each tap's window itself.
+// ((HIGH, DEFAULT): the activation split, the weights single-rounded). The
+// TPU kernel cuts the padded input into three row-shifted views so that its
+// BlockSpecs hand each grid program a halo window in VMEM.
 //
-// The GEMM: M = the output pixels of one image, N = Cout, K = 9 taps x Cin.
-// A CTA computes 128 MT pixels (a rectangle of output rows, 128 or 256
-// wide and 1-16 rows high, never across images) x BN output channels (64
-// or 128); MT is 2 for bf16 at BN 128, else 1. Two consumer warpgroups
-// each run wgmma m64nBNk16 on MT x 64 of the pixels, their accumulators
-// in registers; one producer thread (warp 8) keeps a ring of 3-6 stages
-// full with TMA loads (cp.async.bulk.tensor, mbarrier completion).
-// A stage holds, for one tap (dy, dx) and one chunk of KC input channels
-// (64, or all of a narrow layer's 16 or 32), the A tile (the input window
-// shifted by the tap, 128 MT px x KC bf16, from a 4-D tensor map (C, W, H, N)
-// at (c0, x0+dx-1, y0+dy-1, n)) and the B tile (the tap's weights, BN x KC
-// bf16), and for f32 the lo tiles its passes read beside the hi ones. TMA fills zeros
-// outside the tensor, negative coordinates included: that is the conv's
-// same padding and the Cin / Cout tails, with no padded copy of x and no
-// bounds check in the loads. The tiles arrive in the swizzle of their row
-// width (128, 64 or 32 bytes), which the wgmma descriptors name. Bias and
-// activation run on the accumulators in registers; stores are masked at
-// the ragged pixel and Cout edges.
+// Four kernels, each a design for its shapes; ops/conv.py::k3_variant
+// routes a call by dtype, Cin and Cout alone:
 //
-// This wide kernel takes bfloat16 calls and the float32 calls that neither
-// variant further down takes: float32 calls with Cout <= 8 go to the
-// narrow variant, those with Cin <= 4 and Cout 9 to 64 (the first convs,
-// the last conv's dx) to the narrow_k variant (ops/conv.py::k3_variant
-// routes them by dtype, Cin and Cout). Its wrapper hands it bf16
-// operands: x as it is, or
-// padded with zero channels to a multiple of 16 (TMA needs 16-byte strides,
-// wgmma takes K in steps of 16); the weights re-laid once a call as
-// (9, Cout, Cin_p), K-major. For f32 the split kernel below writes x_hi,
-// and x_lo from 2 passes (bf16, NHWC, Cin padded), and the weights' hi,
-// and lo at 3 passes, the same way: one extra read of x and write of 1 or
-// 2 bf16 copies, not yet fused into the load.
+//   * wide (conv3x3_k3_kernel, below): bfloat16. x padded with zero
+//     channels to a multiple of 16, the weights re-laid (9, Cout, Cin_p)
+//     once a call, both bf16; one bf16 pass, a bf16 output.
+//   * narrow (float32, Cout <= 8): the composed top's convs.
+//   * narrow_k (float32, Cin <= 4 and Cout 9 to 64): the first convs and
+//     the last conv's dx in training.
+//   * wide_f32 (every other float32 call): the trunk.
+//
+// Every float32 kernel reads x where it lies, as float32, and splits it on
+// chip; each sums its products in the same order (chunks of input
+// channels, then taps, then the passes in the TPU kernel's order) and with
+// no atomics, so a call gives the same bits every run. Each one's design
+// and what bounds it stand before its code.
+//
+// The wide kernel. The GEMM: M = the output pixels of one image, N = Cout,
+// K = 9 taps x Cin. A CTA computes 128 MT pixels (a rectangle of output
+// rows, 128 or 256 wide and 1-16 rows high, never across images) x BN
+// output channels (64 or 128); MT is 2 at BN 128, else 1. Two consumer
+// warpgroups each run wgmma m64nBNk16 on MT x 64 of the pixels, their
+// accumulators in registers; one producer thread (warp 8) keeps a ring of
+// 3-6 stages full with TMA loads (cp.async.bulk.tensor, mbarrier
+// completion). A stage holds, for one tap (dy, dx) and one chunk of KC
+// input channels (64, or all of a narrow layer's 16 or 32), the A tile
+// (the input window shifted by the tap, 128 MT px x KC bf16, from a 4-D
+// tensor map (C, W, H, N) at (c0, x0+dx-1, y0+dy-1, n)) and the B tile (the
+// tap's weights, BN x KC bf16). TMA fills zeros outside the tensor,
+// negative coordinates included: that is the conv's same padding and the
+// Cin / Cout tails, with no padded copy of x and no bounds check in the
+// loads. The tiles arrive in the swizzle of their row width (128, 64 or 32
+// bytes), which the wgmma descriptors name. Bias and activation run on the
+// accumulators in registers; stores are masked at the ragged pixel and
+// Cout edges.
 //
 // What bounds it: at the flagship UNet's convs (batch 128) most 3x3 convs
-// are 0.31 TFLOP against 0.5-2 GB of activations, so bf16 is bound by the
-// tensor cores' 989 TFLOP/s (0.31 ms) except the first layer (Cin 3) and
-// the top's (Cout 1 and 4), which are bound by their bytes (the first
-// writes about 1 GB, 0.34 ms; in f32 it goes to the narrow_k variant, the
-// top's to the narrow one); f32 does 1 to 3 passes (up to 0.94 ms). This
-// design reaches the tensor cores, with the loads
-// overlapped by the ring, and runs at 40-50 % of the bound in bf16 and
-// 50-60 % in f32 at Cin >= 128 (PERF.md). What it leaves: each tap reloads
-// its window from L2 (9 A tiles a chunk; at 128 px x 128 Cout that was
-// 32 KB of loads a 2.1 MFLOP step, some 6 TB/s across the card, which is
-// why bf16 takes 256 px), a CTA's epilogue does not overlap the next
-// tile's loads (one tile a CTA, not persistent), and the f32 split costs a
-// pass over x. Narrow layers paid that fixed cost on little work (the
-// bf16 first conv still does); in f32 they now take the narrow variant
-// (Cout <= 8) and the narrow_k one (Cin <= 4: taps x channels packed into
-// K, the output stored from registers by a persistent grid). Loading each
-// chunk's halo once, a persistent grid and a split fused into the load are
-// the wide kernel's next steps.
+// are 0.31 TFLOP against 0.25-1 GB of bf16 activations, so it is bound by
+// the tensor cores' 989 TFLOP/s (0.31 ms) except the first layer (Cin 3),
+// which is bound by its bytes (it writes about 1 GB). This design reaches
+// the tensor cores, with the loads overlapped by the ring, and runs at
+// 40-50 % of the bound (PERF.md). What it leaves: each tap reloads its
+// window from L2 (9 A tiles a chunk, which is why it takes 256 px), and a
+// CTA's epilogue does not overlap the next tile's loads (one tile a CTA).
+// The bf16 trunk serves on cuDNN, so this kernel is on no main path.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,21 +82,18 @@ enum Act { kIdentity = 0, kRelu = 1, kLrelu = 2, kPrelu = 3 };
 constexpr int kErrNoEncoder = 10001;         // cuTensorMapEncodeTiled not found
 constexpr int kErrEncode = 10002;            // cuTensorMapEncodeTiled refused a map
 
-// BN output channels a CTA, kPasses bf16 product passes (1, 2 or 3) and
-// kF32 the f32 path (f32 output; bf16 takes 1 pass), KC input channels a stage
-// (16, 32 or 64: rows of 32, 64 or 128 bytes, under the swizzle of that
-// width; 16 and 32 serve layers with few input channels, such as the
-// first, whose stages would otherwise be mostly TMA's zero fill), and MT
-// m64 tiles a consumer warpgroup: 128 MT output pixels a CTA.
-template <int BN, int kPasses, int KC, int MT>
+// BN output channels a CTA, KC input channels a stage (16, 32 or 64: rows
+// of 32, 64 or 128 bytes, under the swizzle of that width; 16 and 32 serve
+// layers with few input channels, such as the first, whose stages would
+// otherwise be mostly TMA's zero fill), and MT m64 tiles a consumer
+// warpgroup: 128 MT output pixels a CTA.
+template <int BN, int KC, int MT>
 struct Config {
   static constexpr int kBM = 128 * MT;
   static constexpr int kRowBytes = KC * 2;
-  static constexpr int kATiles = kPasses >= 2 ? 2 : 1;  // x_hi, and x_lo from 2 passes
-  static constexpr int kBTiles = kPasses == 3 ? 2 : 1;  // w_hi, and w_lo at 3 passes
   static constexpr int kATileBytes = kBM * kRowBytes;   // 16 KB at KC 64, MT 1
   static constexpr int kBTileBytes = BN * kRowBytes;
-  static constexpr int kStageBytes = kATiles * kATileBytes + kBTiles * kBTileBytes;
+  static constexpr int kStageBytes = kATileBytes + kBTileBytes;
   static constexpr int kStages = kStageBytes > 49152 ? 3 : (kStageBytes >= 24576 ? 4 : 6);
   // stages, then the full and empty barriers, plus slack to align to 1 KB
   static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
@@ -144,6 +134,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// An arrival by the threads where ``pred`` holds, as one predicated
+// instruction: no branch around it in a warpgroup's wgmma pipeline.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+               :: "r"(bar), "r"(static_cast<uint32_t>(pred)) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -265,11 +263,7 @@ __device__ __forceinline__ float activate(float v, int act, float slope) {
   return v;
 }
 
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
@@ -278,17 +272,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
 // multiply, the first thread of warp 8 loads. The Cout block varies
 // fastest, so the CTAs that share an input window run together and find it
 // in L2.
-template <int BN, int kPasses, bool kF32, int KC, int MT>
+template <int BN, int KC, int MT>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
-                  __grid_constant__ const CUtensorMap x_lo,
-                  __grid_constant__ const CUtensorMap w_hi,
-                  __grid_constant__ const CUtensorMap w_lo,
+conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_map,
+                  __grid_constant__ const CUtensorMap w_map,
                   const float* __restrict__ bias, const float* __restrict__ prelu,
-                  typename std::conditional<kF32, float, __nv_bfloat16>::type* __restrict__ out,
-                  int H, int W, int Cout, int n_chunks, int last_ksteps, int tile_w_log2,
-                  int tile_h, int tiles_x, int tiles_y, int n_cb, int act) {
-  using Cfg = Config<BN, kPasses, KC, MT>;
+                  __nv_bfloat16* __restrict__ out, int H, int W, int Cout, int n_chunks,
+                  int last_ksteps, int tile_w_log2, int tile_h, int tiles_x, int tiles_y,
+                  int n_cb, int act) {
+  using Cfg = Config<BN, KC, MT>;
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle needs 1 KB-aligned tiles.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -332,16 +324,9 @@ conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
         mbar_wait(empty(stage), phase ^ 1u);
         mbar_expect_tx(full(stage), Cfg::kStageBytes);
         const uint32_t a = base + stage * Cfg::kStageBytes;
-        const uint32_t b = a + Cfg::kATiles * Cfg::kATileBytes;
-        tma_load_4d(a, &x_hi, full(stage), chunk * KC, x0 + dx - 1, y0 + dy - 1, n);
-        tma_load_3d(b, &w_hi, full(stage), chunk * KC, n0, tap);
-        if constexpr (kPasses >= 2) {
-          tma_load_4d(a + Cfg::kATileBytes, &x_lo, full(stage), chunk * KC, x0 + dx - 1,
-                      y0 + dy - 1, n);
-        }
-        if constexpr (kPasses == 3) {
-          tma_load_3d(b + Cfg::kBTileBytes, &w_lo, full(stage), chunk * KC, n0, tap);
-        }
+        const uint32_t b = a + Cfg::kATileBytes;
+        tma_load_4d(a, &x_map, full(stage), chunk * KC, x0 + dx - 1, y0 + dy - 1, n);
+        tma_load_3d(b, &w_map, full(stage), chunk * KC, n0, tap);
         if (++stage == Cfg::kStages) {
           stage = 0;
           phase ^= 1u;
@@ -370,26 +355,17 @@ conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
   for (int it = 0; it < k_iters; ++it) {
     const int ksteps = it / 9 == n_chunks - 1 ? last_ksteps : KC / 16;
     mbar_wait(full(stage), phase);
-    const uint32_t a_hi = base + stage * Cfg::kStageBytes + wg * MT * 64 * Cfg::kRowBytes;
-    const uint32_t b_hi = base + stage * Cfg::kStageBytes + Cfg::kATiles * Cfg::kATileBytes;
-    const uint32_t b_lo = b_hi + Cfg::kBTileBytes;
+    const uint32_t a = base + stage * Cfg::kStageBytes + wg * MT * 64 * Cfg::kRowBytes;
+    const uint32_t b = base + stage * Cfg::kStageBytes + Cfg::kATileBytes;
     fence_all();
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < KC / 16; ++k) {
       if (k < ksteps) {
-        const uint64_t b = smem_desc<KC>(b_hi + 32 * k);
-        wgmma_tile<BN>(acc0, smem_desc<KC>(a_hi + 32 * k), b);
+        const uint64_t desc_b = smem_desc<KC>(b + 32 * k);
+        wgmma_tile<BN>(acc0, smem_desc<KC>(a + 32 * k), desc_b);
         if constexpr (MT > 1) {
-          wgmma_tile<BN>(acc1, smem_desc<KC>(a_hi + 64 * Cfg::kRowBytes + 32 * k), b);
-        }
-        // MT is 1 for f32; the passes in the TPU kernel's order
-        if constexpr (kPasses == 3) {
-          wgmma_tile<BN>(acc0, smem_desc<KC>(a_hi + 32 * k),
-                         smem_desc<KC>(b_lo + 32 * k));
-        }
-        if constexpr (kPasses >= 2) {
-          wgmma_tile<BN>(acc0, smem_desc<KC>(a_hi + Cfg::kATileBytes + 32 * k), b);
+          wgmma_tile<BN>(acc1, smem_desc<KC>(a + 64 * Cfg::kRowBytes + 32 * k), desc_b);
         }
       }
     }
@@ -441,48 +417,11 @@ conv3x3_k3_kernel(__grid_constant__ const CUtensorMap x_hi,
   if constexpr (MT > 1) store_tile(acc1, 1);
 }
 
-// The f32 path's operand split: src (rows, cols) f32 -> hi, lo (rows,
-// cols_p) bf16 with hi = bf16(v), lo = bf16(v - hi), zeros in columns
-// [cols, cols_p); lo null writes hi alone (no pass reads lo). cols_p is a
-// multiple of 16; each thread takes 4 columns.
-__global__ void __launch_bounds__(256)
-split_hi_lo_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ hi,
-                   __nv_bfloat16* __restrict__ lo, long long rows, int cols, int cols_p) {
-  const int quads = cols_p / 4;
-  const long long total = rows * quads;
-  const bool vector = cols % 4 == 0;
-  for (long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < total;
-       q += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = q / quads;
-    const int c = static_cast<int>(q - r * quads) * 4;
-    const float* s = src + r * cols + c;
-    float v[4];
-    if (vector && c < cols) {
-      const float4 f = *reinterpret_cast<const float4*>(s);
-      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = c + e < cols ? s[e] : 0.0f;
-    }
-    uint32_t h[2], l[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const __nv_bfloat162 hv = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-      const float2 back = __bfloat1622float2(hv);
-      const __nv_bfloat162 lv = __floats2bfloat162_rn(v[2 * e] - back.x, v[2 * e + 1] - back.y);
-      h[e] = *reinterpret_cast<const uint32_t*>(&hv);
-      l[e] = *reinterpret_cast<const uint32_t*>(&lv);
-    }
-    *reinterpret_cast<uint2*>(hi + r * cols_p + c) = make_uint2(h[0], h[1]);
-    if (lo != nullptr) *reinterpret_cast<uint2*>(lo + r * cols_p + c) = make_uint2(l[0], l[1]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The narrow variant: float32 x, Cout <= 8 (the composed top's 256^2 64->1
 // and 128^2 64->4 convs, the last conv in training, the studies' narrow
-// models). Its products are the wide kernel's, passes and all; its design is
-// for a conv whose output is a sliver of its input, so the input's bytes are
+// models). Its products are the other float32 kernels', passes and all; its
+// design is for a conv whose output is a sliver of its input, so the input's bytes are
 // the bound:
 //
 //   * x is read once, as float32, where it lies: base pointer and four
@@ -1135,6 +1074,537 @@ split_hi_lo_k_fragments_kernel(const float* __restrict__ w, long long s0, long l
 
 }  // namespace narrow_k
 
+// ---------------------------------------------------------------------------
+// The wide_f32 variant: float32 x with Cout > 8 outside narrow_k's range
+// (the trunk of every f32-storage serving mode, 128^2 64->128 down to 8^2
+// 512->512 and back up to 128^2 128->64, and the forward and dx of every
+// trunk conv in training at a pass count). Its products are the other
+// variants', in the order the wide kernel summed them before it took bf16
+// alone (bit for bit its float32 results): chunks of 64 input channels,
+// then the 9 taps, then the chunk's 4 k16 steps, then the passes in the TPU
+// kernel's order. At batch 128 most of these convs are 0.31 TFLOP a pass
+// against 0.5-1.6 GB of float32 x and output: bound by the tensor cores
+// from 2 passes, and at 1 pass by the bytes where Cout is 128 or less. The
+// wide kernel ran them on bf16 copies of x that a split launch wrote, with
+// one TMA load of the window for each tap and one tile a CTA. This design:
+//
+//   * reads x once a chunk, as float32, where it lies: one TMA box of the
+//     tile's halo ((rows + 2) x (cols + 2) pixels x 64 channels) from a 4-D
+//     tensor map of NHWC memory (box of pixels) or of the NHWC view of NCHW
+//     memory (box of rows, starting 16-byte aligned at x0 - 4 as the narrow
+//     variant's); any other strides come in by predicated 4-byte cp.async.
+//     TMA's zero fill is the same padding and the Cin tail. No copy of x is
+//     written to device memory.
+//   * splits x on chip, once a chunk: three warps turn the staged halo into
+//     bf16 hi (and lo from 2 passes) buffers, [halo pixel][72] (a 144-byte
+//     pitch keeps ldmatrix's 8 rows off each other's banks), two sets so
+//     that chunk i + 1 is split while chunk i's products run.
+//   * feeds the 9 taps from that one buffer: wgmma with A in registers
+//     (m64nBNk16, BN 64 or 128), each lane's ldmatrix address its output
+//     pixel's halo pixel shifted by the tap, so any tile shape works (16 x
+//     8 pixels, 8 x 16, or two 8 x 8 images); B, the tap's weights (BN x 64
+//     bf16 under the 128-byte swizzle), comes by TMA through a ring of 3-6
+//     stages filled by one thread. The weights' hi and lo are one small
+//     split launch a call (split_hi_lo_weights_kernel).
+//   * is persistent: one CTA an SM walks work items (a 128-pixel tile and
+//     a block of BN output channels, the block fastest so that neighbouring
+//     CTAs share the tile's halo in L2) blockIdx.x, + gridDim.x, ...; the
+//     rings run on across items, so the next item's first chunk is loaded
+//     and split while this one's epilogue runs. BN is 64 where 128 would
+//     leave more of the card idle on the last wave (small grids).
+//   * stores from registers: a quad swaps halves of its accumulators so
+//     that each thread writes 16 contiguous bytes (64 a quad: whole 32-byte
+//     sectors), bias and activation applied on the way.
+//   * no atomics, and Cin is never split across CTAs: the same bits every
+//     run.
+namespace wide_f32 {
+
+constexpr int kKC = 64;                        // input channels a chunk
+constexpr int kKSteps = kKC / 16;              // its k16 steps
+constexpr int kPitch = kKC + 8;                // bf16 a halo pixel in a split buffer (144 B)
+constexpr int kMaxHaloPx = 200;                // 18 x 10 (a 16 x 8 tile), 2 x 10 x 10 (two 8 x 8)
+constexpr int kConsumers = 2;                  // warpgroups 0 and 1: the products and stores
+constexpr int kSplitWarps = 3;                 // warps 9-11: x's loads and split
+constexpr int kSplitThreads = 32 * kSplitWarps;
+constexpr int kThreads = 128 * kConsumers + 32 + kSplitThreads;   // + warp 8: the weights
+// A staged chunk: at most 200 pixels x 64 floats, or 64 channels x 10 rows
+// x 24 floats (the box of rows of a 16 x 8 tile)
+constexpr int kXStageBytes = 61440;
+constexpr int kHalfBytes = kMaxHaloPx * kPitch * 2;   // a split buffer's hi (or lo): 28,800
+constexpr int kSmemLimit = 232448;
+// How a chunk comes in (a launch's inputs pick one).
+enum Load { kScalar = 0, kRows = 1, kPixels = 2 };
+
+// BN output channels an item and kPasses bf16 passes: the rings' sizes.
+// One pass keeps two steps' products in flight (three sets of A registers)
+// and so more weight stages; from 2 passes a set holds lo beside hi (and
+// one step is in flight), and at 3 a weight stage holds w_lo beside w_hi.
+template <int BN, int kPasses>
+struct Cfg {
+  static constexpr int kASets = kPasses == 1 ? 3 : 2;
+  static constexpr int kWTileBytes = BN * kKC * 2;
+  static constexpr int kWStageBytes = (kPasses == 3 ? 2 : 1) * kWTileBytes;
+  static constexpr int kXStages = 1;
+  static constexpr int kSetBytes = (kPasses >= 2 ? 2 : 1) * kHalfBytes;
+  static constexpr int kSets = kPasses == 3 ? 1 : 2;
+  static constexpr int kFixed = kXStages * kXStageBytes + kSets * kSetBytes + 256 + 1024;
+  static constexpr int kFit = (kSmemLimit - kFixed) / kWStageBytes;
+  static constexpr int kWStages = kFit > 6 ? 6 : kFit;
+  static_assert(kWStages >= 2, "the weight ring needs two stages");
+  // weight stages (1 KB aligned for the swizzle), x stages, split sets,
+  // barriers, and slack to align the base to 1 KB
+  static constexpr int kXOffset = kWStages * kWStageBytes;
+  static constexpr int kSetOffset = kXOffset + kXStages * kXStageBytes;
+  static constexpr int kBarOffset = kSetOffset + kSets * kSetBytes;
+  static constexpr int kSmemBytes = kBarOffset + 256 + 1024;
+  static_assert(kSmemBytes <= kSmemLimit, "shared memory");
+};
+
+// A launch's work items: tn images x th rows x tw columns of output pixels
+// (128), tiles_x x tiles_y tiles an image group, n_cb blocks of BN output
+// channels; n_chunks chunks of Cin. Every step loads the A registers of
+// a_ksteps k16 steps: all kKSteps (a split set holds zeros past Cin, and
+// the weights' stage too, so a ragged chunk's last steps add exact zeros),
+// handed over at run time so that the loads stay predicated: with loads
+// the compiler could see were unconditional, ptxas gave every A register
+// set the same registers and waited for each wgmma before the next
+// (WARPGROUP.DEPBAR after each), and a branch around each wgmma put a
+// warpgroup arrive before each.
+struct Geometry {
+  int tw, th, tn, tiles_x, tiles_y, n_cb, n_items, n_chunks, a_ksteps;
+};
+
+// D(64 x BN, f32) += A(64 x 16, bf16, four registers a thread in the
+// layout of mma m16n8k16's A, warp w of the warpgroup rows 16 w .. + 15) *
+// B(16 x BN, bf16, K-major in shared memory under the 128-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (BN == 128) {
+    wgmma_rs_128(d, a, b);
+  } else {
+    wgmma_rs_64(d, a, b);
+  }
+}
+
+// Keeps the compiler from moving writes of the A registers across the
+// asynchronous wgmma that reads them and its wait.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[kKSteps][4]) {
+#pragma unroll
+  for (int k = 0; k < kKSteps; ++k) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i]) :: "memory");
+  }
+}
+
+__device__ __forceinline__ void split_bar() {
+  asm volatile("bar.sync 1, %0;" :: "n"(kSplitThreads) : "memory");
+}
+
+// Chunk c0 .. c0 + 63 of the halo of (n0, y0, x0) by 4-byte cp.async into a
+// stage laid out [halo pixel][64] floats, zeros outside the images and past
+// Cin: the layouts TMA does not take. Channels go first where they are
+// contiguous, so that neighbouring threads read neighbouring addresses.
+__device__ __forceinline__ void load_scalar(uint32_t stage, const narrow::XView& x, int n0, int y0,
+                                            int x0, int c0, int N, int H, int W, int Cin,
+                                            const Geometry& g, int st) {
+  const int halo_w = g.tw + 2, halo_h = g.th + 2, px = g.tn * halo_h * halo_w;
+  const bool c_fast = x.sc == 1;
+  for (int e = st; e < px * kKC; e += kSplitThreads) {
+    const int c = c_fast ? e % kKC : e / px;
+    const int p = c_fast ? e / kKC : e % px;
+    const int img = p / (halo_h * halo_w), hy = (p / halo_w) % halo_h, hx = p % halo_w;
+    const int n = n0 + img, y = y0 - 1 + hy, xx = x0 - 1 + hx, ch = c0 + c;
+    const bool ok = n < N && y >= 0 && y < H && xx >= 0 && xx < W && ch < Cin;
+    const float* src = ok ? x.p + n * x.sn + y * x.sh + xx * x.sw + ch * x.sc : x.p;
+    narrow::cp_async4(stage + (p * kKC + c) * 4, src, ok ? 4 : 0);
+  }
+}
+
+// A staged chunk into a split set, [halo pixel][kPitch] bf16: hi, and lo
+// when a pass reads it. From a [pixel][64] stage a thread takes 4 channels
+// of a pixel (a warp reads 2 pixels' 512 contiguous bytes); from a box of
+// rows ([image][channel][halo row][tw + 8], the halo's column hx at hx + 3)
+// 8 channels of a pixel, neighbouring threads on neighbouring pixels.
+template <bool kLo>
+__device__ __forceinline__ void split_x(const float* stage, __nv_bfloat16* hi, int load,
+                                        const Geometry& g, int st) {
+  __nv_bfloat16* lo = hi + kHalfBytes / 2;
+  const int halo_w = g.tw + 2, halo_h = g.th + 2, px = g.tn * halo_h * halo_w;
+  if (load != kRows) {
+    for (int i = st; i < px * (kKC / 4); i += kSplitThreads) {
+      const int p = i / (kKC / 4), q = i % (kKC / 4);
+      const float4 v = *reinterpret_cast<const float4*>(stage + p * kKC + 4 * q);
+      uint32_t h[2], l[2];
+      narrow::split2(v.x, v.y, h[0], l[0]);
+      narrow::split2(v.z, v.w, h[1], l[1]);
+      *reinterpret_cast<uint2*>(hi + p * kPitch + 4 * q) = make_uint2(h[0], h[1]);
+      if constexpr (kLo) *reinterpret_cast<uint2*>(lo + p * kPitch + 4 * q) = make_uint2(l[0], l[1]);
+    }
+  } else {
+    const int row_w = g.tw + 8, plane = halo_h * row_w;
+    for (int i = st; i < px * (kKC / 8); i += kSplitThreads) {
+      const int p = i % px, grp = i / px;
+      const int img = p / (halo_h * halo_w), hy = (p / halo_w) % halo_h, hx = p % halo_w;
+      const float* s = stage + (img * kKC + 8 * grp) * plane + hy * row_w + hx + 3;
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) narrow::split2(s[2 * j * plane], s[(2 * j + 1) * plane], h[j], l[j]);
+      *reinterpret_cast<uint4*>(hi + p * kPitch + 8 * grp) = make_uint4(h[0], h[1], h[2], h[3]);
+      if constexpr (kLo) {
+        *reinterpret_cast<uint4*>(lo + p * kPitch + 8 * grp) = make_uint4(l[0], l[1], l[2], l[3]);
+      }
+    }
+  }
+}
+
+// grid min(items, SMs), block 384: warpgroups 0 and 1 multiply and store,
+// warp 8 loads the weights, warps 9-11 load and split x.
+template <int BN, int kPasses>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_k3_wide_f32_kernel(__grid_constant__ const CUtensorMap x_map,
+                           __grid_constant__ const CUtensorMap w_hi,
+                           __grid_constant__ const CUtensorMap w_lo, narrow::XView x,
+                           const float* __restrict__ bias, const float* __restrict__ prelu,
+                           float* __restrict__ out, int N, int H, int W, int Cin, int Cout,
+                           int act, Geometry g, int load, int vec4) {
+  using C = Cfg<BN, kPasses>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // TMA's 128-byte swizzle needs the weight stages 1 KB aligned
+  uint8_t* smem = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t x_ring = base + C::kXOffset, sets = base + C::kSetOffset;
+  const uint32_t bars = base + C::kBarOffset;
+  auto wfull = [&](int s) { return bars + 8u * s; };
+  auto wempty = [&](int s) { return bars + 8u * (C::kWStages + s); };
+  auto xfull = [&](int s) { return bars + 8u * (2 * C::kWStages + s); };
+  auto sfull = [&](int s) { return bars + 8u * (2 * C::kWStages + C::kXStages + s); };
+  auto sempty = [&](int s) {
+    return bars + 8u * (2 * C::kWStages + C::kXStages + C::kSets + s);
+  };
+
+  const int tid = static_cast<int>(threadIdx.x);
+  // the warp's index from lane 0, so that the compiler sees every role's
+  // branch as uniform across the warp (and the warpgroup)
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0), lane = tid % 32;
+  const int my_items = (g.n_items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                       static_cast<int>(gridDim.x);
+  const int n_steps = 9 * g.n_chunks;         // (chunk, tap) steps an item, chunk-major
+  // Item i of this CTA: first image n0, rows from y0, columns from x0, the
+  // block cb of BN output channels (fastest).
+  auto origin = [&](int i, int& n0, int& y0, int& x0, int& cb) {
+    int t = static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x);
+    cb = t % g.n_cb;
+    t /= g.n_cb;
+    x0 = (t % g.tiles_x) * g.tw;
+    t /= g.tiles_x;
+    y0 = (t % g.tiles_y) * g.th;
+    n0 = (t / g.tiles_y) * g.tn;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < C::kWStages; ++s) {
+      mbar_init(wfull(s), 1);
+      mbar_init(wempty(s), kConsumers * 4);   // one arrival per consumer warp
+    }
+    for (int s = 0; s < C::kXStages; ++s) mbar_init(xfull(s), 1);
+    for (int s = 0; s < C::kSets; ++s) {
+      mbar_init(sfull(s), 1);
+      mbar_init(sempty(s), kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {               // the weights: one tap's tiles a stage
+    if (lane == 0) {
+      int step = 0;
+      for (int i = 0; i < my_items; ++i) {
+        int n0, y0, x0, cb;
+        origin(i, n0, y0, x0, cb);
+        for (int s = 0; s < n_steps; ++s, ++step) {
+          const int chunk = s / 9, tap = s - 9 * chunk, ws = step % C::kWStages;
+          const uint32_t dst = base + ws * C::kWStageBytes;
+          mbar_wait(wempty(ws), ((step / C::kWStages) & 1u) ^ 1u);
+          mbar_expect_tx(wfull(ws), C::kWStageBytes);
+          tma_load_3d(dst, &w_hi, wfull(ws), chunk * kKC, cb * BN, tap);
+          if constexpr (kPasses == 3) {
+            tma_load_3d(dst + C::kWTileBytes, &w_lo, wfull(ws), chunk * kKC, cb * BN, tap);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  if (warp > 4 * kConsumers) {                // x: a chunk's halo a stage, split into a set
+    const int st = tid - (4 * kConsumers + 1) * 32;
+    const int total = my_items * g.n_chunks;
+    const int halo_px = g.tn * (g.th + 2) * (g.tw + 2);
+    // Chunk j of this CTA into x stage j % kXStages: by TMA, one thread,
+    // completing on the stage's barrier; or by every split thread's
+    // cp.async, one group a chunk (empty or not).
+    auto issue_x = [&](int j) {
+      const uint32_t dst = x_ring + (j % C::kXStages) * kXStageBytes;
+      const int c0 = (j % g.n_chunks) * kKC;
+      int n0 = 0, y0 = 0, x0 = 0, cb = 0;
+      if (j < total) origin(j / g.n_chunks, n0, y0, x0, cb);
+      if (load == kScalar) {
+        if (j < total) load_scalar(dst, x, n0, y0, x0, c0, N, H, W, Cin, g, st);
+        narrow::cp_async_commit();
+      } else if (st == 0 && j < total) {
+        const uint32_t bar = xfull(j % C::kXStages);
+        if (load == kPixels) {
+          mbar_expect_tx(bar, halo_px * kKC * 4);
+          tma_load_4d(dst, &x_map, bar, c0, x0 - 1, y0 - 1, n0);
+        } else {
+          mbar_expect_tx(bar, g.tn * kKC * (g.th + 2) * (g.tw + 8) * 4);
+          tma_load_4d(dst, &x_map, bar, x0 - 4, y0 - 1, c0, n0);
+        }
+      }
+    };
+    // Wait until chunk j has landed, for every split thread.
+    auto landed_x = [&](int j) {
+      if (load == kScalar) {
+        narrow::cp_async_wait<C::kXStages - 1>();
+        split_bar();
+      } else {
+        mbar_wait(xfull(j % C::kXStages), static_cast<uint32_t>(j / C::kXStages) & 1u);
+      }
+    };
+    for (int j = 0; j < C::kXStages; ++j) issue_x(j);
+    for (int j = 0; j < total; ++j) {
+      const int set = j % C::kSets;
+      const float* stage = reinterpret_cast<const float*>(
+          smem + C::kXOffset + (j % C::kXStages) * kXStageBytes);
+      auto* hi = reinterpret_cast<__nv_bfloat16*>(smem + C::kSetOffset + set * C::kSetBytes);
+      landed_x(j);
+      mbar_wait(sempty(set), ((j / C::kSets) & 1u) ^ 1u);
+      split_x<(kPasses >= 2)>(stage, hi, load, g, st);
+      split_bar();                            // the set is whole and the stage free
+      if (st == 0) mbar_arrive(sfull(set));
+      issue_x(j + C::kXStages);
+    }
+    if (load == kScalar) narrow::cp_async_wait<0>();
+    return;
+  }
+
+  // Consumer warpgroup wg: output pixels 64 wg .. + 63 of each item's tile,
+  // warp cw rows 16 cw .. + 15 of those, as the A fragments of wgmma.
+  const int wg = warp / 4, cw = warp % 4;
+  const int tile_px = g.th * g.tw, halo_w = g.tw + 2;
+  // This lane's ldmatrix row, output pixel m of the tile, and its halo
+  // pixel; ldmatrix lanes 16-31 take channels 8 .. 15 of a k16 step.
+  const int m = wg * 64 + cw * 16 + lane % 16;
+  const uint32_t lane_off =
+      ((((m / tile_px) * (g.th + 2) + (m % tile_px) / g.tw) * halo_w + m % g.tw) * kPitch +
+       (lane / 16) * 8) * 2;
+  float acc[BN / 2];
+  // kASets sets of A registers, one a step in flight (hi, and lo when a
+  // pass reads it)
+  uint32_t ah[C::kASets][kKSteps][4] = {};
+  uint32_t al[kPasses >= 2 ? C::kASets : 1][kKSteps][4] = {};
+  int step = 0, chunk_seq = 0, released = 0;
+  // Give the weight stages of steps ``released`` .. ``last`` back to the
+  // producer (their products are done).
+  auto release_upto = [&](int last) {
+    for (; released <= last; ++released) {
+      mbar_arrive_if(wempty(released % C::kWStages), lane == 0);
+    }
+  };
+  // Step s of an item (chunk s / 9, tap s % 9), in A register set u: A of
+  // the tap from the chunk's split set into registers, the products with
+  // the tap's weight stage; then at most kASets - 1 steps' products are in
+  // flight, so the set the next step loads into (u + 1) is free, and so is
+  // the weight stage of the step kASets - 1 back.
+  auto run_step = [&](int s, auto u) {
+    constexpr int kU = decltype(u)::value, kNext = (kU + 1) % C::kASets;
+    constexpr int kLo = kPasses >= 2 ? kU : 0, kLoNext = kPasses >= 2 ? kNext : 0;
+    const int chunk = s / 9, tap = s - 9 * chunk;
+    const int set = chunk_seq % C::kSets;
+    if (tap == 0) mbar_wait(sfull(set), static_cast<uint32_t>(chunk_seq / C::kSets) & 1u);
+    const int ws = step % C::kWStages;
+    mbar_wait(wfull(ws), static_cast<uint32_t>(step / C::kWStages) & 1u);
+    const uint32_t a = sets + set * C::kSetBytes + lane_off +
+                       ((tap / 3) * halo_w + tap % 3) * kPitch * 2;
+#pragma unroll
+    for (int k = 0; k < kKSteps; ++k) {
+      if (k < g.a_ksteps) {
+        narrow::ldmatrix_x4(ah[kU][k], a + 32 * k);
+        if constexpr (kPasses >= 2) narrow::ldmatrix_x4(al[kLo][k], a + kHalfBytes + 32 * k);
+      }
+    }
+    if (tap == 8) {                           // the chunk's last reads of its set
+      __syncwarp();
+      mbar_arrive_if(sempty(set), lane == 0);
+      ++chunk_seq;
+    }
+    const uint32_t b_hi = base + ws * C::kWStageBytes, b_lo = b_hi + C::kWTileBytes;
+    fence_acc(acc);
+    fence_a(ah[kU]);
+    if constexpr (kPasses >= 2) fence_a(al[kLo]);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kKSteps; ++k) {
+      // the passes in the TPU kernel's order
+      wgmma_rs<BN>(acc, ah[kU][k], smem_desc<kKC>(b_hi + 32 * k));
+      if constexpr (kPasses == 3) wgmma_rs<BN>(acc, ah[kU][k], smem_desc<kKC>(b_lo + 32 * k));
+      if constexpr (kPasses >= 2) wgmma_rs<BN>(acc, al[kLo][k], smem_desc<kKC>(b_hi + 32 * k));
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<C::kASets - 1>();
+    fence_acc(acc);
+    fence_a(ah[kNext]);
+    if constexpr (kPasses >= 2) fence_a(al[kLoNext]);
+    release_upto(step - (C::kASets - 1));
+    ++step;
+  };
+
+  const int g4 = lane / 4, q = lane % 4;
+  for (int i = 0; i < my_items; ++i) {
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[e] = 0.0f;
+    for (int s = 0; s < n_steps; s += C::kASets) {
+      run_step(s, std::integral_constant<int, 0>());
+      if (s + 1 < n_steps) run_step(s + 1, std::integral_constant<int, 1>());
+      if constexpr (C::kASets == 3) {
+        if (s + 2 < n_steps) run_step(s + 2, std::integral_constant<int, 2>());
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release_upto(step - 1);
+
+    // Accumulator layout of wgmma m64nNk16: thread (cw, lane) holds rows
+    // 16 cw + g4 (+ 8) and columns 8 j + 2 q (+ 1) as acc[4 j + 2 h + e],
+    // h the row half, e the column.
+    int n0, y0, x0, cb;
+    origin(i, n0, y0, x0, cb);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int mm = wg * 64 + cw * 16 + g4 + 8 * h;
+      const int n = n0 + mm / tile_px, y = y0 + (mm % tile_px) / g.tw, xx = x0 + mm % g.tw;
+      const bool px_ok = n < N && y < H && xx < W;
+      float* row = out + ((static_cast<long long>(n) * H + y) * W + xx) * Cout;
+      // Bias and slope loaded without a branch (the index clamped to the
+      // last channel), so that the compiler batches the loads; the
+      // activation as selects: v >= 0 ? v : s v, s 1 for identity, 0.01
+      // for lrelu, the channel's slope for prelu; relu max(v, 0).
+      auto value = [&](int j, int e) {
+        const int c = cb * BN + 8 * j + 2 * q + e, cc = c < Cout ? c : Cout - 1;
+        const float v = acc[4 * j + 2 * h + e] + __ldg(bias + cc);
+        const float slope = act == kPrelu ? __ldg(prelu + cc) : (act == kLrelu ? 0.01f : 1.0f);
+        return act == kRelu ? fmaxf(v, 0.0f) : (v >= 0.0f ? v : slope * v);
+      };
+      if (vec4) {
+        // Column blocks j, j + 1: an even lane writes channels 8 j + 2 q ..
+        // + 3 (its own pair and its odd partner's), an odd lane 8 (j + 1) +
+        // 2 (q - 1) .. + 3 (its even partner's pair and its own).
+        const bool odd = q & 1;
+#pragma unroll
+        for (int j = 0; j < BN / 8; j += 2) {
+          const float v[2] = {value(j, 0), value(j, 1)};
+          const float w[2] = {value(j + 1, 0), value(j + 1, 1)};
+          const float r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : w[0], 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : w[1], 1);
+          const int c = cb * BN + 8 * (j + (odd ? 1 : 0)) + 4 * (q >> 1);
+          if (px_ok && c < Cout) {
+            *reinterpret_cast<float4*>(row + c) =
+                odd ? make_float4(r0, r1, w[0], w[1]) : make_float4(v[0], v[1], r0, r1);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = cb * BN + 8 * j + 2 * q + e;
+            if (px_ok && c < Cout) row[c] = value(j, e);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The weights (3, 3, Cin, Cout) float32 at element strides s0-s3 into the
+// wide_f32 kernel's B operand: hi (and lo, when not null) (9, Cout, Cin_p)
+// bf16, K-major, hi = bf16(w), lo = bf16(w - hi), zeros in [Cin, Cin_p). A
+// block turns a 32 x 32 tile (input x output channels) of one tap through
+// shared memory, so that both its reads and its writes run along a row.
+__global__ void __launch_bounds__(256)
+split_hi_lo_weights_kernel(const float* __restrict__ w, long long s0, long long s1, long long s2,
+                           long long s3, int Cin, int Cout, int Cin_p,
+                           __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo) {
+  __shared__ float tile[32][33];
+  const int tap = static_cast<int>(blockIdx.z);
+  const int c0 = static_cast<int>(blockIdx.x) * 32, o0 = static_cast<int>(blockIdx.y) * 32;
+  const int tx = static_cast<int>(threadIdx.x), ty = static_cast<int>(threadIdx.y);
+  const float* t = w + (tap / 3) * s0 + (tap % 3) * s1;
+  for (int r = ty; r < 32; r += 8) {
+    const int c = c0 + r, o = o0 + tx;
+    tile[r][tx] = c < Cin && o < Cout ? t[c * s2 + o * s3] : 0.0f;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {
+    const int o = o0 + r, c = c0 + tx;
+    if (o < Cout && c < Cin_p) {
+      const float v = tile[tx][r];
+      const __nv_bfloat16 h = __float2bfloat16_rn(v);
+      const long long at = (static_cast<long long>(tap) * Cout + o) * Cin_p + c;
+      hi[at] = h;
+      if (lo != nullptr) lo[at] = __float2bfloat16_rn(v - __bfloat162float(h));
+    }
+  }
+}
+
+}  // namespace wide_f32
+
 using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1226,13 +1696,28 @@ int launch_narrow_k(const narrow::XView& x, const uint4* frags, const float* bia
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, int kPasses, bool kF32, int KC, int MT>
+template <int BN, int kPasses>
+int launch_wide_f32(const CUtensorMap* maps, const narrow::XView& x, const float* bias,
+                    const float* prelu, float* out, int N, int H, int W, int Cin, int Cout,
+                    int act, const wide_f32::Geometry& g, int load, int vec4, int sms,
+                    cudaStream_t stream) {
+  using C = wide_f32::Cfg<BN, kPasses>;
+  auto kernel = wide_f32::conv3x3_k3_wide_f32_kernel<BN, kPasses>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>(g.n_items < sms ? g.n_items : sms);
+  kernel<<<grid, wide_f32::kThreads, C::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], x, bias, prelu, out, N, H, W, Cin, Cout, act, g, load, vec4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, int KC, int MT>
 int launch(const CUtensorMap* maps, const float* bias, const float* prelu, void* out, int N,
            int H, int W, int Cout, int n_chunks, int last_ksteps, int tile_w_log2, int tile_h,
            int act, cudaStream_t stream) {
-  using Cfg = Config<BN, kPasses, KC, MT>;
-  using Out = typename std::conditional<kF32, float, __nv_bfloat16>::type;
-  auto kernel = conv3x3_k3_kernel<BN, kPasses, kF32, KC, MT>;
+  using Cfg = Config<BN, KC, MT>;
+  auto kernel = conv3x3_k3_kernel<BN, KC, MT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Cfg::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1241,8 +1726,8 @@ int launch(const CUtensorMap* maps, const float* bias, const float* prelu, void*
   const int n_cb = (Cout + BN - 1) / BN;
   const dim3 grid(static_cast<unsigned>(N) * tiles_y * tiles_x * n_cb);
   kernel<<<grid, kThreads, Cfg::kSmemBytes, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], bias, prelu, static_cast<Out*>(out), H, W, Cout,
-      n_chunks, last_ksteps, tile_w_log2, tile_h, tiles_x, tiles_y, n_cb, act);
+      maps[0], maps[1], bias, prelu, static_cast<__nv_bfloat16*>(out), H, W, Cout, n_chunks,
+      last_ksteps, tile_w_log2, tile_h, tiles_x, tiles_y, n_cb, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1250,31 +1735,23 @@ int launch(const CUtensorMap* maps, const float* bias, const float* prelu, void*
 
 extern "C" {
 
-// Launches K3 on ``stream`` and returns cudaGetLastError() (or one of the
-// kErr codes above): a launch the runtime refuses never runs, and only this
-// call reports it. x_* are (N, H, W, Cin_p) bf16 and w_* (9, Cout, Cin_p)
-// bf16, Cin_p a multiple of 16, all 16-byte aligned; ``dtype`` 1 (bfloat16)
-// reads x_hi and w_hi only, takes ``passes`` 1 and writes bf16, ``dtype`` 0
-// (float32) runs ``passes`` bf16 passes (1: x_hi w_hi; 2: + x_lo w_hi; 3: +
-// x_hi w_lo) and writes f32; x_lo is read from 2 passes, w_lo at 3 only
-// (the others may be null). bias and prelu are f32 (Cout,).
-int conv3x3_k3(const void* x_hi, const void* x_lo, const void* w_hi, const void* w_lo,
-               const float* bias, const float* prelu, void* out, int N, int H, int W,
-               int Cin_p, int Cout, int act, int dtype, int passes, void* stream) {
+// Launches K3's wide kernel on ``stream`` and returns cudaGetLastError()
+// (or one of the kErr codes above): a launch the runtime refuses never
+// runs, and only this call reports it. x is (N, H, W, Cin_p) bf16 and w
+// (9, Cout, Cin_p) bf16, Cin_p a multiple of 16, both 16-byte aligned; one
+// bf16 pass, a bf16 output; bias and prelu are f32 (Cout,).
+int conv3x3_k3(const void* x, const void* w, const float* bias, const float* prelu, void* out,
+               int N, int H, int W, int Cin_p, int Cout, int act, void* stream) {
   if (encoder() == nullptr) return kErrNoEncoder;
-  if (Cin_p % 16 != 0 || (dtype != 0 && dtype != 1) || passes < 1 || passes > 3 ||
-      (dtype == 1 && passes != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool split = dtype == 0;
+  if (Cin_p % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int BN = Cout > 64 ? 128 : 64;
   // Channels a stage: all of Cin_p when it is 16 or 32 (narrow layers at
   // BN 64, such as the first), else chunks of 64.
   const int KC = BN == 64 && Cin_p <= 32 ? Cin_p : 64;
-  // Pixels a CTA: 256 for bf16 at BN 128 (each A tile feeds twice the
-  // products, for less L2 traffic a FLOP), else 128; as tile_h rows of
-  // tile_w, tile_w the smallest power of two in [16, 128] that covers W.
-  const int MT = !split && BN == 128 ? 2 : 1;
+  // Pixels a CTA: 256 at BN 128 (each A tile feeds twice the products, for
+  // less L2 traffic a FLOP), else 128; as tile_h rows of tile_w, tile_w the
+  // smallest power of two in [16, 128] that covers W.
+  const int MT = BN == 128 ? 2 : 1;
   int tile_w_log2 = 4;
   while ((1 << tile_w_log2) < W && tile_w_log2 < 7) ++tile_w_log2;
   const int tile_w = 1 << tile_w_log2;
@@ -1288,29 +1765,21 @@ int conv3x3_k3(const void* x_hi, const void* x_lo, const void* w_hi, const void*
   const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(Cin_p), static_cast<cuuint64_t>(Cout), 9};
   const cuuint64_t w_strides[2] = {row, row * Cout};
   const cuuint32_t w_box[3] = {static_cast<cuuint32_t>(KC), static_cast<cuuint32_t>(BN), 1};
-  CUtensorMap maps[4];
-  if (!encode(&maps[0], x_hi, 4, x_dims, x_strides, x_box) ||
-      !encode(&maps[1], passes >= 2 ? x_lo : x_hi, 4, x_dims, x_strides, x_box) ||
-      !encode(&maps[2], w_hi, 3, w_dims, w_strides, w_box) ||
-      !encode(&maps[3], passes == 3 ? w_lo : w_hi, 3, w_dims, w_strides, w_box)) {
+  CUtensorMap maps[2];
+  if (!encode(&maps[0], x, 4, x_dims, x_strides, x_box) ||
+      !encode(&maps[1], w, 3, w_dims, w_strides, w_box)) {
     return kErrEncode;
   }
   const int n_chunks = (Cin_p + KC - 1) / KC;
   const int last_ksteps = (Cin_p - (n_chunks - 1) * KC) / 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K3_LAUNCH(BN_, PASSES_, F32_, KC_, MT_)                                            \
-  launch<BN_, PASSES_, F32_, KC_, MT_>(maps, bias, prelu, out, N, H, W, Cout, n_chunks,  \
-                                       last_ksteps, tile_w_log2, tile_h, act, s)
-  // f32 at ``passes`` passes for one configuration (BN_, KC_), MT 1
-#define K3_F32(BN_, KC_)                                     \
-  (passes == 1   ? K3_LAUNCH(BN_, 1, true, KC_, 1)           \
-   : passes == 2 ? K3_LAUNCH(BN_, 2, true, KC_, 1)           \
-                 : K3_LAUNCH(BN_, 3, true, KC_, 1))
-  if (BN == 128) return split ? K3_F32(128, 64) : K3_LAUNCH(128, 1, false, 64, 2);
-  if (KC == 16) return split ? K3_F32(64, 16) : K3_LAUNCH(64, 1, false, 16, 1);
-  if (KC == 32) return split ? K3_F32(64, 32) : K3_LAUNCH(64, 1, false, 32, 1);
-  return split ? K3_F32(64, 64) : K3_LAUNCH(64, 1, false, 64, 1);
-#undef K3_F32
+#define K3_LAUNCH(BN_, KC_, MT_)                                                             \
+  launch<BN_, KC_, MT_>(maps, bias, prelu, out, N, H, W, Cout, n_chunks, last_ksteps,      \
+                        tile_w_log2, tile_h, act, s)
+  if (BN == 128) return K3_LAUNCH(128, 64, 2);
+  if (KC == 16) return K3_LAUNCH(64, 16, 1);
+  if (KC == 32) return K3_LAUNCH(64, 32, 1);
+  return K3_LAUNCH(64, 64, 1);
 #undef K3_LAUNCH
 }
 
@@ -1413,19 +1882,102 @@ int conv3x3_k3_narrow_k(const float* x, long long sn, long long sh, long long sw
 #undef K3_NARROW_K
 }
 
-// The f32 operand split (split_hi_lo_kernel) on ``stream``; returns
-// cudaGetLastError(). src is (rows, cols) f32, hi and lo (rows, cols_p)
-// bf16 with cols_p a multiple of 16; all 16-byte aligned; lo may be null.
-int conv_split_hi_lo(const float* src, void* hi, void* lo, long long rows, int cols, int cols_p,
-                     void* stream) {
-  if (cols_p % 16 != 0 || cols > cols_p) return static_cast<int>(cudaErrorInvalidValue);
-  const long long work = rows * (cols_p / 4);
-  const long long blocks = (work + 255) / 256;
-  const long long capped = blocks < 132 * 32 ? blocks : 132 * 32;   // grid-stride beyond
-  const unsigned grid = static_cast<unsigned>(capped > 0 ? capped : 1);
-  split_hi_lo_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, static_cast<__nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(lo), rows, cols, cols_p);
-  return static_cast<int>(cudaGetLastError());
+// K3's wide_f32 variant on ``stream``: float32 x (N, H, W, Cin) at element
+// strides (sn, sh, sw, sc), any layout, read in place; the weights (3, 3,
+// Cin, Cout) float32 at element strides (w0, w1, w2, w3); ``passes`` 1 to 3
+// as conv3x3_k3 takes them; out (N, H, W, Cout) float32 contiguous.
+// ``scratch`` holds the weights' split (split_hi_lo_weights_kernel,
+// launched first): w_hi (9, Cout, Cin_p) bf16 with Cin_p = Cin rounded up to
+// 16, and w_lo after it at 3 passes; 16-byte aligned. Returns
+// cudaGetLastError() after each launch (or one of the kErr codes).
+int conv3x3_k3_wide_f32(const float* x, long long sn, long long sh, long long sw, long long sc,
+                        const float* w, long long w0, long long w1, long long w2, long long w3,
+                        void* scratch, const float* bias, const float* prelu, float* out, int N,
+                        int H, int W, int Cin, int Cout, int act, int passes, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || passes < 1 || passes > 3 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (encoder() == nullptr) return kErrNoEncoder;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cin_p = (Cin + 15) / 16 * 16;
+  auto* w_hi = static_cast<__nv_bfloat16*>(scratch);
+  __nv_bfloat16* w_lo = passes == 3 ? w_hi + 9ll * Cout * cin_p : nullptr;
+  const dim3 split_grid((cin_p + 31) / 32, (Cout + 31) / 32, 9);
+  wide_f32::split_hi_lo_weights_kernel<<<split_grid, dim3(32, 8), 0, s>>>(
+      w, w0, w1, w2, w3, Cin, Cout, cin_p, w_hi, w_lo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // x by TMA where C is contiguous (a box of pixels) or W is (a box of
+  // rows), with the other strides and the base 16-byte multiples (its
+  // global strides must be); else by cp.async
+  const bool aligned = sh % 4 == 0 && sn % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool pixels = aligned && sc == 1 && sw % 4 == 0;
+  const bool rows = !pixels && aligned && sw == 1 && sc % 4 == 0;
+  const int load = pixels ? wide_f32::kPixels : rows ? wide_f32::kRows : wide_f32::kScalar;
+  // A work item's 128 output pixels: 16 x 8 of one image; where W is at
+  // most 8, 8 x 16, or 8 x 8 of two images where H is too, but for a box
+  // of rows (whose stage holds 16-wide tiles alone) 16 x 8 all the same.
+  wide_f32::Geometry g{};
+  g.tw = W > 8 || rows ? 16 : 8;
+  g.th = g.tw == 16 || H > 8 ? 128 / g.tw : 8;
+  g.tn = 128 / (g.tw * g.th);
+  g.tiles_x = (W + g.tw - 1) / g.tw;
+  g.tiles_y = (H + g.th - 1) / g.th;
+  g.n_chunks = (Cin + wide_f32::kKC - 1) / wide_f32::kKC;
+  g.a_ksteps = wide_f32::kKSteps;
+  const long long tiles = static_cast<long long>((N + g.tn - 1) / g.tn) * g.tiles_x * g.tiles_y;
+  // BN 128 unless Cout fits 64, or 64 gives the last wave less idle time:
+  // the fewest waves of items, each weighted by its BN.
+  auto waves = [&](int bn) { return (tiles * ((Cout + bn - 1) / bn) + sms - 1) / sms; };
+  const int BN = Cout <= 64 || 64 * waves(64) < 128 * waves(128) ? 64 : 128;
+  g.n_cb = (Cout + BN - 1) / BN;
+  const long long items = tiles * g.n_cb;
+  if (items > (1ll << 31) - 1) return static_cast<int>(cudaErrorInvalidValue);
+  g.n_items = static_cast<int>(items);
+
+  CUtensorMap maps[3]{};
+  const cuuint64_t b = 4;   // bytes a float
+  const cuuint64_t n_ = static_cast<cuuint64_t>(N), h_ = static_cast<cuuint64_t>(H),
+                   w_ = static_cast<cuuint64_t>(W), c_ = static_cast<cuuint64_t>(Cin);
+  const cuuint32_t halo_w = static_cast<cuuint32_t>(g.tw + 2),
+                   halo_h = static_cast<cuuint32_t>(g.th + 2), tn = static_cast<cuuint32_t>(g.tn);
+  if (pixels) {
+    const cuuint64_t dims[4] = {c_, w_, h_, n_};
+    const cuuint64_t strides[3] = {sw * b, sh * b, sn * b};
+    const cuuint32_t box[4] = {wide_f32::kKC, halo_w, halo_h, tn};
+    if (!encode_f32(&maps[0], x, dims, strides, box)) return kErrEncode;
+  } else if (rows) {
+    const cuuint64_t dims[4] = {w_, h_, c_, n_};
+    const cuuint64_t strides[3] = {sh * b, sc * b, sn * b};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(g.tw + 8), halo_h, wide_f32::kKC, tn};
+    if (!encode_f32(&maps[0], x, dims, strides, box)) return kErrEncode;
+  }
+  const cuuint64_t row = static_cast<cuuint64_t>(cin_p) * 2;
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(cin_p), static_cast<cuuint64_t>(Cout), 9};
+  const cuuint64_t w_strides[2] = {row, row * Cout};
+  const cuuint32_t w_box[3] = {wide_f32::kKC, static_cast<cuuint32_t>(BN), 1};
+  if (!encode(&maps[1], w_hi, 3, w_dims, w_strides, w_box) ||
+      !encode(&maps[2], passes == 3 ? w_lo : w_hi, 3, w_dims, w_strides, w_box)) {
+    return kErrEncode;
+  }
+  const narrow::XView view{x, sn, sh, sw, sc};
+  // 16-byte stores where every pixel's channels start 16-byte aligned
+  const int vec4 = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 ? 1 : 0;
+#define K3_WIDE_F32(BN_)                                                                        \
+  (passes == 1   ? launch_wide_f32<BN_, 1>(maps, view, bias, prelu, out, N, H, W, Cin, Cout,   \
+                                           act, g, load, vec4, sms, s)                          \
+   : passes == 2 ? launch_wide_f32<BN_, 2>(maps, view, bias, prelu, out, N, H, W, Cin, Cout,   \
+                                           act, g, load, vec4, sms, s)                          \
+                 : launch_wide_f32<BN_, 3>(maps, view, bias, prelu, out, N, H, W, Cin, Cout,   \
+                                           act, g, load, vec4, sms, s))
+  return BN == 128 ? K3_WIDE_F32(128) : K3_WIDE_F32(64);
+#undef K3_WIDE_F32
 }
 
 const char* conv_error_string(int code) {

@@ -17,15 +17,19 @@ precisions on f32 operands, with a float32 result: 1 pass ``x_hi w_hi``
 Two implementations of that one function:
 
   * ``conv3x3_bias_act`` on a CUDA tensor launches kernel K3
-    (``csrc/conv.cu``), one of its three variants as ``k3_variant`` routes
+    (``csrc/conv.cu``), one of its four kernels as ``k3_variant`` routes
     the call, by dtype, Cin and Cout alone:
-      - "wide" (bfloat16, and float32 that neither variant below takes):
-        an implicit GEMM
-        with ``wgmma`` fed by TMA. It takes bf16 operands
-        (``kernel_operands``): Cin padded with zeros to a multiple of 16
-        and the weights re-laid as (9, Cout, Cin_p); for float32 the split
-        kernel of the same source writes the hi halves and the lo halves
-        the call's passes read.
+      - "wide" (bfloat16): an implicit GEMM with ``wgmma`` fed by TMA. It
+        takes bf16 operands (``kernel_operands``): Cin padded with zeros to
+        a multiple of 16 and the weights re-laid as (9, Cout, Cin_p).
+      - "wide_f32" (float32 that neither narrow variant takes: the trunk
+        of every f32-storage serving mode and of training at a pass
+        count): reads x in place at its strides, one float32 halo a chunk
+        of 64 input channels, splits it on chip into bf16 buffers that all
+        9 taps read, and runs ``wgmma`` with A in registers on a persistent
+        grid; one small kernel a call splits the weights into the (9,
+        Cout, Cin_p) bf16 hi (and lo at 3 passes) that it reads by TMA
+        (``wide_f32_weights_plain``).
       - "narrow" (float32 with Cout <= 8: the composed top's convs, the
         last conv in training, the narrow models' convs): reads x in
         place at its strides (the NHWC views the model hands it, of K3's
@@ -52,10 +56,9 @@ as the JAX UNet runs them through XLA; its serving modes run every 3x3 conv
 that has a pass count through ``conv3x3_bias_act`` (``models/unet.py``).
 ``LAUNCHES`` counts kernel launches: ``k3`` the conv (any dtype, any
 variant), ``k3_p1``, ``k3_p2`` and ``k3_p3`` its float32 launches by pass
-count, ``k3_narrow`` and ``k3_narrow_k`` those of the two narrow variants,
-``k3_split`` the float32 operand splits (two a wide float32 call: x and the
-weights, each writing only the halves the passes read; one a narrow or
-narrow_k call: the weights).
+count, ``k3_wide_f32``, ``k3_narrow`` and ``k3_narrow_k`` those of the
+three float32 kernels, ``k3_split`` the splits of their weights (one a
+float32 call; x is split on chip, never by a launch of its own).
 """
 
 from __future__ import annotations
@@ -69,11 +72,11 @@ import torch.nn.functional as F
 from resdepth_tpu_torch.ops import build, passes as pass_ops
 
 LAUNCHES = {"k3": 0, "k3_p1": 0, "k3_p2": 0, "k3_p3": 0, "k3_split": 0, "k3_narrow": 0,
-            "k3_narrow_k": 0}
+            "k3_narrow_k": 0, "k3_wide_f32": 0}
 
 LRELU_SLOPE = 0.01
 _ACT_CODES = {"relu": 1, "lrelu": 2, "prelu": 3}   # any other name: identity
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 CIN_ALIGN = 16     # TMA's 16-byte strides and wgmma's K step of 16
 NARROW_COUT = 8    # the narrow variant's mma N: float32 calls up to this Cout
 # the narrow_k variant: float32 calls with Cin up to NARROW_K_CIN (K = 9 Cin
@@ -81,9 +84,9 @@ NARROW_COUT = 8    # the narrow variant's mma N: float32 calls up to this Cout
 NARROW_K_CIN, NARROW_K_COUT = 4, 64
 
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# conv3x3_k3_narrow and conv3x3_k3_narrow_k: x and its 4 strides, the
-# weights and theirs, scratch, bias, slopes, out, N H W Cin Cout act
-# passes, the stream
+# conv3x3_k3_wide_f32, conv3x3_k3_narrow and conv3x3_k3_narrow_k: x and its
+# 4 strides, the weights and theirs, scratch, bias, slopes, out, N H W Cin
+# Cout act passes, the stream
 NARROW_ARGTYPES = ([_PTR] + [_LONG] * 4 + [_PTR] + [_LONG] * 4 + [_PTR] * 4 + [_INT] * 7
                    + [_PTR])
 
@@ -92,14 +95,14 @@ NARROW_ARGTYPES = ([_PTR] + [_LONG] * 4 + [_PTR] + [_LONG] * 4 + [_PTR] * 4 + [_
 def _library() -> ctypes.CDLL:
     """The built conv library with its entry points typed (once)."""
     lib = build.load("conv")
-    lib.conv3x3_k3.argtypes = [_PTR] * 7 + [_INT] * 8 + [_PTR]
+    lib.conv3x3_k3.argtypes = [_PTR] * 5 + [_INT] * 6 + [_PTR]
     lib.conv3x3_k3.restype = ctypes.c_int
     lib.conv3x3_k3_narrow.argtypes = NARROW_ARGTYPES
     lib.conv3x3_k3_narrow.restype = ctypes.c_int
     lib.conv3x3_k3_narrow_k.argtypes = NARROW_ARGTYPES
     lib.conv3x3_k3_narrow_k.restype = ctypes.c_int
-    lib.conv_split_hi_lo.argtypes = [_PTR, _PTR, _PTR, _LONG, _INT, _INT, _PTR]
-    lib.conv_split_hi_lo.restype = ctypes.c_int
+    lib.conv3x3_k3_wide_f32.argtypes = NARROW_ARGTYPES
+    lib.conv3x3_k3_wide_f32.restype = ctypes.c_int
     lib.conv_error_string.argtypes = [ctypes.c_int]
     lib.conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -134,7 +137,7 @@ def _activate(v, act_fn, act_param):
 def split_hi_lo_plain(t: torch.Tensor, cols_p: int | None = None):
     """``t`` (..., C) float32 -> (hi, lo) bf16 with ``hi = bf16(t)`` and
     ``lo = bf16(t - hi)``, the last dimension zero-padded to ``cols_p``: the
-    plain version of the split kernel."""
+    split every float32 kernel of K3 makes of its operands."""
     pad = (cols_p or t.shape[-1]) - t.shape[-1]
     return tuple(F.pad(v.to(torch.bfloat16), (0, pad)) for v in pass_ops.split(t))
 
@@ -196,6 +199,18 @@ def narrow_k_fragments_plain(kernel: torch.Tensor) -> torch.Tensor:
     return torch.stack([pair(hi, 0), pair(hi, 8), pair(lo, 0), pair(lo, 8)], dim=-1)
 
 
+def wide_f32_weights_plain(kernel: torch.Tensor, n_passes: int):
+    """The wide_f32 variant's weight operands, the plain version of
+    ``csrc/conv.cu::split_hi_lo_weights_kernel``: the weights (3, 3, Cin,
+    Cout) re-laid as (9, Cout, Cin_p), K-major, Cin zero-padded to a
+    multiple of 16, split into bf16 ``(hi, lo)``; ``lo`` None below 3
+    passes (no pass reads it)."""
+    c_in, c_out = kernel.shape[2], kernel.shape[3]
+    c_in_p = -(-c_in // CIN_ALIGN) * CIN_ALIGN
+    hi, lo = split_hi_lo_plain(kernel.float().reshape(9, c_in, c_out).transpose(1, 2), c_in_p)
+    return hi, lo if n_passes == 3 else None
+
+
 def pass_count(x, passes) -> int:
     """The bf16 passes a call runs: ``passes`` (default 3) for float32,
     1 for bfloat16, which takes no ``passes``; other values raise."""
@@ -228,56 +243,26 @@ def conv3x3_bias_act_plain(x, kernel, bias=None, act_param=None, *,
     return _activate(y.float() + b, act_fn, a).to(x.dtype)
 
 
-def _split(t: torch.Tensor, cols_p: int, with_lo: bool = True):
-    """The split on ``t``'s device -> ``(hi, lo)``, ``lo`` None unless
-    ``with_lo``: the split kernel on CUDA (counted in
-    ``LAUNCHES['k3_split']``; it writes only the halves asked for), its
-    plain version elsewhere."""
-    if t.device.type != "cuda":
-        hi, lo = split_hi_lo_plain(t, cols_p)
-        return hi, lo if with_lo else None
-    src = t.contiguous()
-    hi = torch.empty(src.shape[:-1] + (cols_p,), dtype=torch.bfloat16, device=t.device)
-    lo = torch.empty_like(hi) if with_lo else None
-    lib = _library()
-    code = lib.conv_split_hi_lo(src.data_ptr(), hi.data_ptr(),
-                                lo.data_ptr() if with_lo else None,
-                                src.numel() // src.shape[-1], src.shape[-1], cols_p,
-                                _stream(t))
-    if code != 0:
-        raise RuntimeError(f"K3's split kernel failed to launch: "
-                           f"{lib.conv_error_string(code).decode()}")
-    LAUNCHES["k3_split"] += 1
-    return hi, lo
-
-
-def kernel_operands(x, kernel, n_passes: int = 3):
-    """The bf16 operands K3 reads at ``n_passes``: ``(x_hi, x_lo, w_hi,
-    w_lo)``, x as (N, H, W, Cin_p) and the weights as (9, Cout, Cin_p),
-    K-major, with Cin zero-padded to a multiple of 16. A lo half is None
-    where no pass reads it: both for bfloat16 and at 1 pass, ``w_lo`` at 2
-    passes. For float32 the split runs on ``x``'s device (the split kernel
-    on CUDA, once for x and once for the weights)."""
+def kernel_operands(x, kernel):
+    """The bf16 operands the wide kernel reads: ``(x_p, w_p)``, x as (N, H,
+    W, Cin_p) and the weights as (9, Cout, Cin_p), K-major, with Cin
+    zero-padded to a multiple of 16 (bfloat16 ``x``; float32 calls go to
+    the float32 kernels, which read x where it lies)."""
     c_in = x.shape[3]
-    c_in_p = -(-c_in // CIN_ALIGN) * CIN_ALIGN
+    pad = -(-c_in // CIN_ALIGN) * CIN_ALIGN - c_in
     # (3, 3, Cin, Cout) -> (9, Cout, Cin): one small copy a call
     w9 = kernel.to(device=x.device, dtype=x.dtype).reshape(9, c_in, -1).transpose(1, 2)
-    if x.dtype == torch.float32:
-        x_hi, x_lo = _split(x, c_in_p, with_lo=n_passes >= 2)
-        w_hi, w_lo = _split(w9, c_in_p, with_lo=n_passes == 3)
-        return x_hi, x_lo, w_hi, w_lo
-    pad = c_in_p - c_in
     x_p = F.pad(x, (0, pad)) if pad else x.contiguous()
     if x_p.data_ptr() % 16:                  # TMA needs 16-byte aligned bases
         x_p = x_p.clone()
-    return x_p, None, F.pad(w9, (0, pad)).contiguous(), None
+    return x_p, F.pad(w9, (0, pad)).contiguous()
 
 
 def _check_cuda_args(x, kernel) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA tensors (CPU tensors run the plain "
                          f"version), got a tensor on {x.device}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in _DTYPES:
         raise ValueError(f"K3 takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, x.shape[3]):
         raise ValueError(f"expected x (N, H, W, Cin) and kernel (3, 3, Cin, Cout), "
@@ -294,12 +279,14 @@ def k3_variant(dtype, c_in: int, c_out: int) -> str:
     """The K3 kernel a call on the card launches: "narrow" for float32 with
     at most ``NARROW_COUT`` output channels, "narrow_k" for float32 with at
     most ``NARROW_K_CIN`` input and ``NARROW_K_COUT`` output channels,
-    "wide" for any other."""
+    "wide_f32" for every other float32 call, "wide" for bfloat16."""
     if dtype != torch.float32:
         return "wide"
     if c_out <= NARROW_COUT:
         return "narrow"
-    return "narrow_k" if c_in <= NARROW_K_CIN and c_out <= NARROW_K_COUT else "wide"
+    if c_in <= NARROW_K_CIN and c_out <= NARROW_K_COUT:
+        return "narrow_k"
+    return "wide_f32"
 
 
 def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu",
@@ -315,50 +302,51 @@ def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu",
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
     variant = k3_variant(x.dtype, x.shape[3], kernel.shape[3])
     if variant == "wide":
-        return _launch_wide(x, kernel, b, a, act_fn, n_passes)
+        return _launch_wide(x, kernel, b, a, act_fn)
     return _launch_in_place(variant, x, kernel, b, a, act_fn, n_passes)
 
 
-def _launch_wide(x, kernel, b, a, act_fn, n_passes):
-    """K3's wide variant on checked arguments (``conv3x3_bias_act``; any
-    dtype and Cout), with ``b`` and ``a`` the epilogue vectors."""
-    x_hi, x_lo, w_hi, w_lo = kernel_operands(x, kernel, n_passes)
-    n, h, w, c_in_p = x_hi.shape
+def _launch_wide(x, kernel, b, a, act_fn):
+    """K3's wide kernel on checked bfloat16 arguments
+    (``conv3x3_bias_act``), with ``b`` and ``a`` the epilogue vectors."""
+    x_p, w_p = kernel_operands(x, kernel)
+    n, h, w, c_in_p = x_p.shape
     c_out = kernel.shape[3]
     out = torch.empty((n, h, w, c_out), dtype=x.dtype, device=x.device)
     lib = _library()
-    code = lib.conv3x3_k3(
-        x_hi.data_ptr(), None if x_lo is None else x_lo.data_ptr(), w_hi.data_ptr(),
-        None if w_lo is None else w_lo.data_ptr(),
-        b.data_ptr(), a.data_ptr(), out.data_ptr(), n, h, w, c_in_p, c_out,
-        _ACT_CODES.get(act_fn, 0), _DTYPE_CODES[x.dtype], n_passes, _stream(x))
+    code = lib.conv3x3_k3(x_p.data_ptr(), w_p.data_ptr(), b.data_ptr(), a.data_ptr(),
+                          out.data_ptr(), n, h, w, c_in_p, c_out, _ACT_CODES.get(act_fn, 0),
+                          _stream(x))
     if code != 0:
         raise RuntimeError(f"conv kernel K3 failed to launch: "
                            f"{lib.conv_error_string(code).decode()}")
     LAUNCHES["k3"] += 1
-    if x.dtype == torch.float32:
-        LAUNCHES[f"k3_p{n_passes}"] += 1
     return out
 
 
-def _fragment_bytes(variant: str, c_in: int) -> int:
-    """Scratch for a narrow or narrow_k call's weight fragments: 512 bytes
-    a tap and chunk of 16 input channels (``narrow_fragments_plain``), or
-    4096 a k16 step (``narrow_k_fragments_plain``)."""
+def _fragment_bytes(variant: str, c_in: int, c_out: int, n_passes: int) -> int:
+    """Scratch for a call's split weights: 512 bytes a tap and chunk of 16
+    input channels (narrow, ``narrow_fragments_plain``), 4096 a k16 step
+    (narrow_k, ``narrow_k_fragments_plain``), or the (9, Cout, Cin_p) bf16
+    hi, and lo at 3 passes (wide_f32, ``wide_f32_weights_plain``)."""
     if variant == "narrow":
         return -(-c_in // CIN_ALIGN) * 9 * 512
-    return narrow_k_steps(c_in) * 4096
+    if variant == "narrow_k":
+        return narrow_k_steps(c_in) * 4096
+    return 9 * c_out * -(-c_in // CIN_ALIGN) * CIN_ALIGN * 2 * (2 if n_passes == 3 else 1)
 
 
 def _launch_in_place(variant, x, kernel, b, a, act_fn, n_passes):
-    """K3's narrow or narrow_k variant (``variant``) on checked float32
-    arguments: x and the weights handed over at their strides, as they
-    lie; scratch for the weights' fragments and the contiguous output
-    allocated here."""
+    """K3's wide_f32, narrow or narrow_k kernel (``variant``) on checked
+    float32 arguments: x and the weights handed over at their strides, as
+    they lie; scratch for the weights' split and the contiguous output
+    allocated here. The entry splits the weights, then launches the conv:
+    one ``k3_split`` and one conv launch."""
     n, h, w, c_in = x.shape
     c_out = kernel.shape[3]
     weights = kernel.to(device=x.device, dtype=torch.float32)
-    frags = torch.empty(_fragment_bytes(variant, c_in), dtype=torch.uint8, device=x.device)
+    frags = torch.empty(_fragment_bytes(variant, c_in, c_out, n_passes), dtype=torch.uint8,
+                        device=x.device)
     out = torch.empty((n, h, w, c_out), dtype=torch.float32, device=x.device)
     lib = _library()
     code = getattr(lib, f"conv3x3_k3_{variant}")(

@@ -14,11 +14,21 @@ magnitude, rtol 0 (measured: 2-13 ulps for Cin 3-64). In bf16 the bar is 2
 bf16 ulps at the output's largest magnitude (both round the f32 sum to
 bf16 once; the plain version also rounds the conv before the bias).
 
-The CUDA path's operands (``kernel_operands``: Cin zero-padded to a
-multiple of 16, weights re-laid as (9, Cout, Cin_p), the float32 hi/lo
-split) are held against JAX too, through the kernel's GEMM written out in
-float64 here, at channel counts that need the padding (Cin 1, 2, 3, 4 and
-5, Cout 7 and 64: the first convs of the channel modes among them).
+The bfloat16 path's operands (``kernel_operands``: Cin zero-padded to a
+multiple of 16, weights re-laid as (9, Cout, Cin_p)) are held against JAX
+too, through the kernel's GEMM written out in float64 here, at channel
+counts that need the padding (Cin 1, 2, 3, 4 and 5, Cout 7 and 64: the
+first convs of the channel modes among them).
+
+K3's wide_f32 kernel (every other float32 call: the trunk) is held the
+same way: its routing at every conv the served flagship and the train step
+hand K3, its wrapper on meta tensors (x and the weights handed over where
+they lie, one split launch a call: the weights'), its weights' layout
+(``wide_f32_weights_plain``: (9, Cout, Cin_p) bf16 hi, lo at 3 passes)
+against ``split_hi_lo_plain``, and the plain version and its operands (x
+gathered where it lies and split as the kernel splits it on chip) through
+its GEMM against the JAX kernel (3 passes) and the float64 split products
+(1 and 2 passes), at the channel counts above and trunk-like ones.
 
 K3's narrow variant (float32 with Cout <= 8) is held the same way: its
 routing, its wrapper on meta tensors (x handed over where it lies, no split
@@ -151,33 +161,37 @@ def _gemm_from_operands(x_hi, x_lo, w_hi, w_lo):
     return acc
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,act", [
+# The shapes whose operands are held through the kernels' GEMM: Cin 1-5,
+# 16 and 20 (padded to 16 and 32), Cout 7, 8 and 64.
+OPERAND_SHAPES = [
     ((2, 16, 16, 3, 7), "relu"), ((1, 16, 16, 5, 7), "prelu"),
     ((1, 16, 32, 16, 8), "lrelu"), ((1, 16, 16, 20, 64), "none"),
     ((2, 16, 16, 1, 64), "relu"), ((2, 16, 16, 2, 64), "relu"),
-    ((2, 16, 16, 4, 64), "relu")])
+    ((2, 16, 16, 4, 64), "relu")]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16"])
+@pytest.mark.parametrize("shape,act", OPERAND_SHAPES)
 def test_kernel_operands_match_jax_kernel(shape, act, dtype):
-    """The operands the CUDA path hands K3 (Cin padded to 16, weights re-laid
-    (9, Cout, Cin_p), the float32 split) give the JAX kernel's result
-    through the kernel's GEMM."""
+    """The operands the bfloat16 path hands the wide kernel (Cin padded to
+    16, weights re-laid (9, Cout, Cin_p)) give the JAX kernel's result
+    through the kernel's GEMM. (Float32 goes to the float32 kernels:
+    ``test_wide_f32_operands_match_jax_kernel``.)"""
     x, k, b, ap = _inputs(shape, act, seed=8)
     tdtype = getattr(torch, dtype)
     xt = torch.from_numpy(x).to(tdtype)
-    x_hi, x_lo, w_hi, w_lo = conv.kernel_operands(xt, torch.from_numpy(k))
+    x_p, w_p = conv.kernel_operands(xt, torch.from_numpy(k))
     c_in_p = -(-shape[3] // 16) * 16
-    assert x_hi.dtype == w_hi.dtype == torch.bfloat16
-    assert x_hi.shape == shape[:3] + (c_in_p,) and w_hi.shape == (9, shape[4], c_in_p)
-    assert not x_hi[..., shape[3]:].any() and not w_hi[..., shape[3]:].any()
-    assert (x_lo is None) == (dtype == "bfloat16")
+    assert x_p.dtype == w_p.dtype == torch.bfloat16
+    assert x_p.shape == shape[:3] + (c_in_p,) and w_p.shape == (9, shape[4], c_in_p)
+    assert not x_p[..., shape[3]:].any() and not w_p[..., shape[3]:].any()
     bias, slope = conv._epilogue_vectors(xt, torch.from_numpy(k),
                                          None if b is None else torch.from_numpy(b),
                                          None if ap is None else torch.from_numpy(ap))
-    acc = _gemm_from_operands(x_hi, x_lo, w_hi, w_lo).float()
+    acc = _gemm_from_operands(x_p, None, w_p, None).float()
     got = conv._activate(acc + bias, act, slope).to(tdtype).float().numpy()
     want = _jax(x, k, b, ap, act, dtype=getattr(jnp, dtype))
-    bar = _f32_bar(want, shape[3]) if dtype == "float32" else _bf16_bar(want)
-    np.testing.assert_allclose(got, want, rtol=0, atol=bar)
+    np.testing.assert_allclose(got, want, rtol=0, atol=_bf16_bar(want))
 
 
 def test_split_matches_the_tpu_kernels_split():
@@ -208,7 +222,7 @@ def test_device_tensor_never_runs_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(conv, "conv3x3_bias_act_plain", plain)
     x = torch.empty((2, 16, 16, 16), device="meta")
-    k = torch.empty((3, 3, 16, 16), device="meta")    # Cin 16, Cout 16: the wide variant
+    k = torch.empty((3, 3, 16, 16), device="meta")    # Cin 16, Cout 16: the wide_f32 kernel
     with pytest.raises(ValueError, match="CUDA"):
         conv.conv3x3_bias_act(x, k)
 
@@ -217,7 +231,7 @@ def test_device_tensor_never_runs_the_plain_version(monkeypatch):
     class FakeLibrary:
         code = 0
 
-        def conv3x3_k3(self, *args):
+        def conv3x3_k3_wide_f32(self, *args):
             calls.append(args)
             return self.code
 
@@ -234,7 +248,7 @@ def test_device_tensor_never_runs_the_plain_version(monkeypatch):
     before = conv.LAUNCHES["k3"]
     out = conv.conv3x3_bias_act(x, k, act_fn="prelu")
     assert out.shape == (2, 16, 16, 16) and conv.LAUNCHES["k3"] == before + 1
-    assert calls[0][7:14] == (2, 16, 16, 16, 16, 3, 0)  # N H W Cin_p Cout act dtype
+    assert calls[0][14:21] == (2, 16, 16, 16, 16, 3, 3)  # N H W Cin Cout act passes
     lib.code = 1
     with pytest.raises(RuntimeError, match="K3 failed to launch"):
         conv.conv3x3_bias_act(x, k)
@@ -257,14 +271,14 @@ def test_kernel_source_is_built_by_name():
 @pytest.mark.parametrize("c_out", [1, 4, 8, 9, 64, 65])
 def test_k3_variant_routes_by_dtype_and_cout(dtype, c_in, c_out):
     """float32 with Cout <= 8 goes to the narrow variant, float32 with Cin
-    <= 4 and Cout 9 to 64 to the narrow_k variant, every other call to the
-    wide kernel."""
+    <= 4 and Cout 9 to 64 to the narrow_k variant, every other float32 call
+    to the wide_f32 kernel, bfloat16 to the wide one."""
     if dtype != torch.float32:
         want = "wide"
     elif c_out <= 8:
         want = "narrow"
     else:
-        want = "narrow_k" if c_in <= 4 and c_out <= 64 else "wide"
+        want = "narrow_k" if c_in <= 4 and c_out <= 64 else "wide_f32"
     assert conv.k3_variant(dtype, c_in, c_out) == want
 
 
@@ -285,6 +299,10 @@ class _FakeLibrary:
 
     def conv3x3_k3_narrow_k(self, *args):
         self.calls.append(("narrow_k", args))
+        return self.code
+
+    def conv3x3_k3_wide_f32(self, *args):
+        self.calls.append(("wide_f32", args))
         return self.code
 
     def conv_error_string(self, code):
@@ -312,10 +330,6 @@ def test_narrow_call_reads_x_where_it_lies(fake_library, monkeypatch, c_out, pas
     split, and raises on a launch error without counting (meta tensors
     stand in for CUDA ones; a view at an offset gives a base pointer that a
     copy would not have)."""
-    def no_split(*args, **kwargs):
-        raise AssertionError("the narrow path split x")
-
-    monkeypatch.setattr(conv, "_split", no_split)
     nchw = torch.empty((2, 6, 16, 24), device="meta")[:, 1:]
     x = nchw.permute(0, 2, 3, 1)
     k = torch.empty((3, 3, 5, c_out), device="meta")
@@ -339,16 +353,20 @@ def test_narrow_call_reads_x_where_it_lies(fake_library, monkeypatch, c_out, pas
 @pytest.mark.parametrize("dtype,c_out", [(torch.float32, 9), (torch.float32, 64),
                                          (torch.bfloat16, 1), (torch.bfloat16, 8)])
 def test_other_calls_reach_the_wide_kernel(fake_library, dtype, c_out):
-    """Cout above 8 in float32 at Cin above 4, and bfloat16 at any Cout,
-    launch the wide kernel, ``conv3x3_k3``, and nothing of the narrow
-    variants."""
+    """Cout above 8 in float32 at Cin above 4 launches the wide_f32 kernel,
+    ``conv3x3_k3_wide_f32``; bfloat16 at any Cout the wide kernel,
+    ``conv3x3_k3``, with its bf16 operands (Cin padded to 16); neither
+    launches anything of the narrow variants."""
     x = torch.empty((2, 16, 16, 16), device="meta", dtype=dtype)
     k = torch.empty((3, 3, 16, c_out), device="meta")
     before = dict(conv.LAUNCHES)
     conv.conv3x3_bias_act(x, k)
-    assert [entry for entry, _ in fake_library.calls] == ["wide"]
-    assert fake_library.calls[0][1][11] == c_out
+    f32 = dtype == torch.float32
+    assert [entry for entry, _ in fake_library.calls] == ["wide_f32" if f32 else "wide"]
+    assert fake_library.calls[0][1][18 if f32 else 9] == c_out
     assert conv.LAUNCHES["k3"] == before["k3"] + 1
+    assert conv.LAUNCHES["k3_wide_f32"] == before["k3_wide_f32"] + f32
+    assert conv.LAUNCHES["k3_split"] == before["k3_split"] + f32
     assert conv.LAUNCHES["k3_narrow"] == before["k3_narrow"]
     assert conv.LAUNCHES["k3_narrow_k"] == before["k3_narrow_k"]
 
@@ -527,10 +545,6 @@ def test_narrow_k_call_reads_x_where_it_lies(fake_library, monkeypatch, layout, 
     split, and raises on a launch error without counting (meta tensors
     stand in for CUDA ones; a view at an offset gives a base pointer that a
     copy would not have)."""
-    def no_split(*args, **kwargs):
-        raise AssertionError("the narrow_k path split x")
-
-    monkeypatch.setattr(conv, "_split", no_split)
     if layout == "nchw":
         memory = torch.empty((2, 4, 16, 24), device="meta")[:, 1:]
         x = memory.permute(0, 2, 3, 1)
@@ -665,3 +679,201 @@ def test_narrow_k_ablation_cuts_find_their_lines(name):
     assert "conv3x3_k3_narrow_k_kernel" in cuts[name]
     narrow = source[:source.index("namespace narrow_k {")]
     assert cuts[name].startswith(narrow)
+
+
+# ------------------------- K3's wide_f32 kernel ----------------------------- #
+# Every other float32 call (the trunk) goes to the wide_f32 kernel
+# (``k3_variant``): it reads x at the strides it is handed, a float32 halo
+# a chunk of 64 input channels, splits it on chip into the bf16 buffers
+# that all 9 taps read, and takes the weights as (9, Cout, Cin_p) bf16 hi
+# (and lo at 3 passes), split by one small launch a call
+# (``wide_f32_weights_plain``).
+
+# The kernel each (Cin, Cout) of the served flagship and of its train step
+# goes to in float32 (bfloat16 goes to "wide" at any of them).
+FLAGSHIP_ROUTES = {(3, 64): "narrow_k", (1, 64): "narrow_k", (64, 1): "narrow",
+                   (64, 4): "narrow", (64, 128): "wide_f32", (128, 256): "wide_f32",
+                   (256, 512): "wide_f32", (512, 512): "wide_f32", (512, 256): "wide_f32",
+                   (256, 128): "wide_f32", (128, 64): "wide_f32"}
+
+
+def _train_k3_calls():
+    """The K3 calls of one flagship train step at 'default' as (H, Cin,
+    Cout): the forward of every 3x3 conv (the top not composed: the last
+    conv 64 -> 1) and the dx of each but encoder0 (Cout -> Cin)."""
+    import chip_smoke
+
+    forward = [c[:3] for c in chip_smoke.mode_k3_convs("fast32")
+               if c[2] not in (1, 4)] + [(256, 64, 1)]
+    return forward + [(h, c_out, c_in) for h, c_in, c_out in forward[1:]]
+
+
+@pytest.mark.parametrize("path", ["mixed", "fast32", "act2pass", "balanced", "balanced16",
+                                  "train"])
+def test_k3_routes_every_served_and_trained_conv(path):
+    """Every conv the served flagship hands K3 in a serving mode
+    (``chip_smoke.mode_k3_convs``, traced on meta tensors), and every forward
+    and dx call of its train step, goes in float32 to the kernel named in
+    ``FLAGSHIP_ROUTES`` (the trunk to wide_f32), and in bfloat16 to the wide
+    kernel."""
+    import chip_smoke
+
+    if path == "train":
+        calls = _train_k3_calls()
+        assert len(calls) == chip_smoke.k3_launches_a_step("default")[1]
+    else:
+        calls = [c[:3] for c in chip_smoke.mode_k3_convs(path)]
+    assert calls
+    for _, c_in, c_out in calls:
+        assert conv.k3_variant(torch.float32, c_in, c_out) == FLAGSHIP_ROUTES[(c_in, c_out)]
+        assert conv.k3_variant(torch.bfloat16, c_in, c_out) == "wide"
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_wide_f32_call_reads_x_where_it_lies(fake_library, layout, passes):
+    """A wide_f32 call hands the kernel x's own base pointer and strides,
+    for NHWC memory (what K3 writes, as every serving mode hands it) and
+    for the NHWC view of NCHW memory, and the weights at their own strides
+    (the dx's flipped and transposed view): no copy of either, no split
+    launch on x; it counts ``k3``, ``k3_p{n}``, ``k3_wide_f32`` and one
+    split (the weights'), and raises on a launch error without counting
+    (meta tensors stand in for CUDA ones; a view at an offset gives a base
+    pointer that a copy would not have)."""
+    if layout == "nchw":
+        memory = torch.empty((2, 40, 16, 24), device="meta")[:, 1:]
+        x = memory.permute(0, 2, 3, 1)
+        strides = (40 * 16 * 24, 24, 1, 16 * 24)
+    else:
+        memory = torch.empty((3, 16, 24, 39), device="meta")[1:]
+        x = memory
+        strides = (16 * 24 * 39, 24 * 39, 39, 1)
+    oihw = torch.empty((39, 72, 3, 3), device="meta")      # a conv 72 -> 39; its dx 39 -> 72
+    k = oihw.flip(2, 3).transpose(0, 1).permute(2, 3, 1, 0)
+    before = dict(conv.LAUNCHES)
+    out = conv.conv3x3_bias_act(x, k, act_fn="prelu", passes=passes)
+    assert out.shape == (2, 16, 24, 72) and out.is_contiguous()
+    (entry, args), = fake_library.calls
+    assert entry == "wide_f32" and args[0] == memory.data_ptr() != 0
+    assert args[1:5] == strides and args[6:10] == k.stride()
+    assert args[14:21] == (2, 16, 24, 39, 72, 3, passes)    # N H W Cin Cout act passes
+    gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
+    assert {key: n for key, n in gained.items() if n} == {
+        "k3": 1, f"k3_p{passes}": 1, "k3_wide_f32": 1, "k3_split": 1}
+    fake_library.code = 1
+    counted = dict(conv.LAUNCHES)
+    with pytest.raises(RuntimeError, match="K3 failed to launch"):
+        conv.conv3x3_bias_act(x, k, passes=passes)
+    assert conv.LAUNCHES == counted
+
+
+@pytest.mark.parametrize("c_out", [9, 72])
+@pytest.mark.parametrize("c_in", [5, 64, 80])
+def test_wide_f32_weights_hold_the_split_weights(c_in, c_out):
+    """``wide_f32_weights_plain`` (the plain version of
+    ``split_hi_lo_weights_kernel``) holds ``split_hi_lo_plain`` of the
+    weights, re-laid (9, Cout, Cin_p) K-major: every weight's hi, and lo at
+    3 passes, at [tap, output channel, input channel]; zeros past Cin up to
+    the multiple of 16; no lo below 3 passes."""
+    k = torch.from_numpy(np.random.default_rng(c_in + c_out).normal(
+        size=(3, 3, c_in, c_out)).astype(np.float32))
+    c_in_p = -(-c_in // 16) * 16
+    hi, lo = conv.split_hi_lo_plain(k.reshape(9, c_in, c_out))
+    w_hi, w_lo = conv.wide_f32_weights_plain(k, 3)
+    assert w_hi.shape == w_lo.shape == (9, c_out, c_in_p) and w_hi.dtype == torch.bfloat16
+    assert torch.equal(w_hi[..., :c_in], hi.transpose(1, 2))
+    assert torch.equal(w_lo[..., :c_in], lo.transpose(1, 2))
+    assert not w_hi[..., c_in:].any() and not w_lo[..., c_in:].any()
+    for passes in (1, 2):
+        one_half, none = conv.wide_f32_weights_plain(k, passes)
+        assert torch.equal(one_half, w_hi) and none is None
+
+
+def _wide_f32_emulation(x, kernel, passes):
+    """K3's wide_f32 kernel in float64 on its operands: x gathered from its
+    storage at the strides the wrapper hands the kernel, zeros outside the
+    image and past Cin (TMA's zero fill), split as the kernel splits it on
+    chip (``pass_ops.split``); the weights as ``wide_f32_weights_plain``
+    lays them out; each tap's window times the tap's (Cout, Cin_p) weights,
+    the passes' products summed. Returns (N, H, W, Cout)."""
+    from resdepth_tpu_torch.ops import passes as pass_ops
+
+    n, h, w, _ = x.shape
+    w_hi, w_lo = conv.wide_f32_weights_plain(kernel, passes)
+    x_hi, x_lo = (t.double() for t in pass_ops.split(_padded_from_storage(x, w_hi.shape[2])))
+    pairs = {1: [(x_hi, w_hi)], 2: [(x_hi, w_hi), (x_lo, w_hi)],
+             3: [(x_hi, w_hi), (x_hi, w_lo), (x_lo, w_hi)]}[passes]
+    acc = torch.zeros(n, h, w, kernel.shape[3], dtype=torch.float64)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        for xs, ws in pairs:
+            acc += xs[:, dy:dy + h, dx:dx + w] @ ws[tap].double().T
+    return acc
+
+
+@pytest.mark.parametrize("shape,act", OPERAND_SHAPES)
+def test_wide_f32_operands_match_jax_kernel(shape, act):
+    """The operands the float32 path hands the wide_f32 kernel (x where it
+    lies, NHWC memory and the NHWC view of NCHW memory, split as the kernel
+    splits it; the weights re-laid (9, Cout, Cin_p) and split) give the JAX
+    kernel's result (3 passes) through the kernel's GEMM."""
+    x, k, b, ap = _inputs(shape, act, seed=8)
+    kt = torch.from_numpy(k)
+    bias, slope = conv._epilogue_vectors(torch.from_numpy(x), kt,
+                                         None if b is None else torch.from_numpy(b),
+                                         None if ap is None else torch.from_numpy(ap))
+    want = _jax(x, k, b, ap, act)
+    for xt in (torch.from_numpy(x), torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+               .permute(0, 2, 3, 1)):
+        acc = _wide_f32_emulation(xt, kt, 3).float()
+        got = conv._activate(acc + bias, act, slope).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=_f32_bar(want, shape[3]))
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("shape,act", [
+    ((2, 16, 12, 64, 72), "relu"),     # a whole chunk, Cout past BN 64
+    ((1, 8, 20, 80, 40), "prelu"),     # a chunk and a ragged one
+    ((3, 8, 8, 24, 130), "lrelu")])    # 8 x 8 images, Cout past BN 128
+def test_wide_f32_matches_jax_kernel(shape, act, passes):
+    """The wide_f32 kernel's shapes: the plain version, which the wrapper
+    runs on the CPU, and the kernel's operands through its GEMM (x gathered
+    where it lies, NHWC memory) give the JAX kernel's result (interpret
+    mode) within ``_f32_bar`` at 3 passes, and the float64 sum of the JAX
+    kernel's split products at 1 and 2 passes (the JAX kernel runs 3 only)
+    within the same bar."""
+    x, k, b, ap = _inputs(shape, act, seed=30 + passes)
+    want = (_jax(x, k, b, ap, act) if passes == 3
+            else _float64_passes(x, k, b, act, ap, passes))
+    bar = _f32_bar(want, shape[3])
+    kt, bt = torch.from_numpy(k), torch.from_numpy(b)
+    at = None if ap is None else torch.from_numpy(ap)
+    plain = conv.conv3x3_bias_act(torch.from_numpy(x), kt, bt, at, act_fn=act, passes=passes)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=bar)
+    bias, slope = conv._epilogue_vectors(plain, kt, bt, at)
+    acc = _wide_f32_emulation(torch.from_numpy(x), kt, passes).float()
+    np.testing.assert_allclose(conv._activate(acc + bias, act, slope).numpy(), want, rtol=0,
+                               atol=bar)
+
+
+@pytest.mark.parametrize("name", ["whole", "no_mma", "no_split", "no_loads", "no_wloads",
+                                  "stores_only"])
+def test_wide_f32_ablation_cuts_find_their_lines(name):
+    """``studies/narrow_ablation.py --kernel wide_f32`` cuts parts of the
+    wide_f32 kernel out of a copy of ``csrc/conv.cu`` by pattern: each cut
+    still finds its lines (else it raises), gives a source of its own and
+    leaves the other kernels whole; a cut of the weights' loads keeps the
+    ring's barrier (its producer arrives with no bytes to wait for)."""
+    from resdepth_tpu_torch.studies import narrow_ablation
+
+    with open(os.path.join(build.CSRC, "conv.cu")) as f:
+        source = f.read()
+    cuts = narrow_ablation.cut_sources(source, "wide_f32")
+    assert (cuts[name] == source) == (name == "whole")
+    assert len(cuts[name]) <= len(source) and len(set(cuts.values())) == len(cuts)
+    assert "conv3x3_k3_wide_f32_kernel" in cuts[name]
+    others = source[:source.index("namespace wide_f32 {")]
+    assert cuts[name].startswith(others)
+    if name in ("no_wloads", "stores_only"):
+        assert "mbar_expect_tx(wfull(ws), 0);" in cuts[name]
+        assert "mbar_wait(wfull(ws)" in cuts[name]

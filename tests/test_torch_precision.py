@@ -336,26 +336,29 @@ def test_bf16_resize_matches_jax():
 
 @pytest.mark.parametrize("n_passes", [1, 2, 3])
 def test_operands_hold_only_the_halves_read(n_passes):
-    """K3's operands at a pass count: x_lo from 2 passes, w_lo at 3 only."""
+    """K3's float32 operands at a pass count: the weights' lo at 3 passes
+    only (``wide_f32_weights_plain``, and the scratch the wrapper allocates
+    for them); x is split on chip, so it hands over no halves at all."""
     x, k, _ = (torch.from_numpy(a) for a in _conv_inputs((1, 8, 8, 5, 4), seed=2))
-    x_hi, x_lo, w_hi, w_lo = conv.kernel_operands(x, k, n_passes)
-    full = conv.kernel_operands(x, k)
-    assert (x_lo is not None, w_lo is not None) == (n_passes >= 2, n_passes == 3)
-    for got, want in zip((x_hi, x_lo, w_hi, w_lo), full):
-        if got is not None:
-            assert torch.equal(got, want)
+    w_hi, w_lo = conv.wide_f32_weights_plain(k, n_passes)
+    full = conv.wide_f32_weights_plain(k, 3)
+    assert (w_lo is not None) == (n_passes == 3)
+    assert torch.equal(w_hi, full[0]) and (w_lo is None or torch.equal(w_lo, full[1]))
+    halves = 2 if n_passes == 3 else 1
+    assert conv._fragment_bytes("wide_f32", 5, 4, n_passes) == halves * w_hi.numel() * 2
 
 
 def test_cuda_launches_count_by_passes(monkeypatch):
     """On a device tensor the wrapper hands the pass count to the kernel
     library and counts the launch under it (meta tensors stand in): float32
     at Cout 8 on K3's narrow variant, which splits the weights in one
-    counted launch of its own and x in registers, bfloat16 on the wide one."""
+    counted launch of its own and x in registers, bfloat16 on the wide one
+    (one native pass, no pass count handed over)."""
     calls = []
 
     class FakeLibrary:
-        def conv3x3_k3(self, *args):
-            calls.append(args[13:15])             # dtype code, passes
+        def conv3x3_k3(self, *args):              # bfloat16 only
+            calls.append((1, 1))
             return 0
 
         def conv3x3_k3_narrow(self, *args):
@@ -381,7 +384,7 @@ def test_cuda_launches_count_by_passes(monkeypatch):
     assert calls == [(0, 1), (0, 2), (0, 2), (0, 3), (1, 1)]
     gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
     assert gained == {"k3": 5, "k3_p1": 1, "k3_p2": 2, "k3_p3": 1, "k3_split": 4,
-                      "k3_narrow": 4, "k3_narrow_k": 0}
+                      "k3_narrow": 4, "k3_narrow_k": 0, "k3_wide_f32": 0}
 
 
 def test_mode_served_on_cpu_launches_nothing(make_geotiff):

@@ -105,13 +105,15 @@ def test_chip_smoke_reads_steps_from_a_trace(tmp_path):
     ("void (anonymous namespace)::conv3x3_k3_kernel<64, 3, true, 64, 1>(x)", 1),
     ("void (anonymous namespace)::narrow::conv3x3_k3_narrow_kernel<3, 2>(x)", 1),
     ("void (anonymous namespace)::narrow_k::conv3x3_k3_narrow_k_kernel<3, 2>(x)", 1),
+    ("void (anonymous namespace)::wide_f32::conv3x3_k3_wide_f32_kernel<128, 1>(x)", 1),
+    ("void (anonymous namespace)::wide_f32::split_hi_lo_weights_kernel(float const*)", 0),
     ("void (anonymous namespace)::narrow_k::split_hi_lo_k_fragments_kernel(float const*)", 0),
     ("void (anonymous namespace)::narrow::split_hi_lo_fragments_kernel(float const*)", 0),
     ("void (anonymous namespace)::split_hi_lo_kernel(float const*)", 0)])
 def test_chip_smoke_counts_k3_kernels_of_both_variants(tmp_path, name, k3):
-    """``chip_smoke.trace_steps`` counts a launch of K3's wide, narrow or
-    narrow_k kernel as one K3 kernel, and its split kernels as none (the profile
-    phase holds that count to K3's launch counter)."""
+    """``chip_smoke.trace_steps`` counts a launch of K3's wide, wide_f32,
+    narrow or narrow_k kernel as one K3 kernel, and its split kernels as
+    none (the profile phase holds that count to K3's launch counter)."""
     import chip_smoke
 
     events = [{"cat": "user_annotation", "name": "train#0", "ts": 0, "dur": 100},

@@ -380,8 +380,12 @@ def test_k3_launches_a_step(monkeypatch, policy):
     calls = []
 
     class FakeLibrary:
-        def conv3x3_k3(self, *args):
-            calls.append(args[13:15])             # dtype code, passes
+        def conv3x3_k3(self, *args):              # bfloat16: one native pass
+            calls.append((1, 1))
+            return 0
+
+        def conv3x3_k3_wide_f32(self, *args):     # float32, the trunk
+            calls.append((0, args[20]))
             return 0
 
         def conv3x3_k3_narrow(self, *args):       # float32, Cout <= 8
@@ -493,12 +497,14 @@ def test_eval_step_matches_jax(make_geotiff, compute_dtype):
 
 def test_k3_time_by_passes_from_kernel_names():
     """``chip_smoke.k3_ms_by_passes`` reads the pass count from K3's
-    template arguments (float32 launches only) and its split kernel's."""
-    names = {"void (anonymous namespace)::conv3x3_k3_kernel<128, 1, true, 64, 1>(x)": 2.0,
-             "void (anonymous namespace)::conv3x3_k3_kernel<64, 3, true, 16, 1>(x)": 1.5,
-             "void (anonymous namespace)::conv3x3_k3_kernel<64, 1, true, 32, 1>(x)": 0.5,
-             "void (anonymous namespace)::conv3x3_k3_kernel<128, 1, false, 64, 2>(x)": 9.0,
-             "void (anonymous namespace)::split_hi_lo_kernel(float const*)": 0.25,
+    template arguments (its float32 kernels only: the wide_f32 kernel's
+    second, ``<BN, kPasses>``; the bf16 wide kernel, ``<BN, KC, MT>``, has
+    none) and adds its weights' split kernel's time."""
+    names = {"void (anonymous namespace)::wide_f32::conv3x3_k3_wide_f32_kernel<128, 1>(x)": 2.0,
+             "void (anonymous namespace)::wide_f32::conv3x3_k3_wide_f32_kernel<64, 3>(x)": 1.5,
+             "void (anonymous namespace)::wide_f32::conv3x3_k3_wide_f32_kernel<64, 1>(x)": 0.5,
+             "void (anonymous namespace)::conv3x3_k3_kernel<128, 64, 2>(x)": 9.0,
+             "void (anonymous namespace)::wide_f32::split_hi_lo_weights_kernel(x)": 0.25,
              "cudnn::winograd_nonfused::winogradForwardData4x4": 7.0}
     assert chip_smoke.k3_ms_by_passes(names) == {1: 2.5, 3: 1.5, "split": 0.25}
 
@@ -509,9 +515,9 @@ def test_k3_time_by_passes_reads_the_narrow_kernel():
     split kernels' time."""
     names = {"void (anonymous namespace)::narrow::conv3x3_k3_narrow_kernel<3, 2>(x)": 1.0,
              "void (anonymous namespace)::narrow::conv3x3_k3_narrow_kernel<1, 0>(x)": 0.5,
-             "void (anonymous namespace)::conv3x3_k3_kernel<64, 3, true, 16, 1>(x)": 1.5,
+             "void (anonymous namespace)::wide_f32::conv3x3_k3_wide_f32_kernel<64, 3>(x)": 1.5,
              "void (anonymous namespace)::narrow::split_hi_lo_fragments_kernel(x)": 0.125,
-             "void (anonymous namespace)::split_hi_lo_kernel(float const*)": 0.25}
+             "void (anonymous namespace)::wide_f32::split_hi_lo_weights_kernel(x)": 0.25}
     assert chip_smoke.k3_ms_by_passes(names) == {1: 0.5, 3: 2.5, "split": 0.375}
 
 
