@@ -7,7 +7,11 @@ normalises a batch of tiles (``data.pipeline.build_batch``), runs the UNet
 in eval mode, and stitches the batch into the canvas in place
 (``ops.stitch``: denormalisation, separable blend weights and overlap-add
 in one kernel). CUDA work is asynchronous, so the loop only enqueues; the
-canvas comes back to the host once.
+canvas comes back to the host once. Whenever a ``torch.profiler`` profile
+is on, ``predict_linear_blend`` records a ``scene`` span with
+``scene.weight_table``, each batch's ``scene.gather`` and
+``scene.forward`` (timed on the device too) and ``scene.fetch`` under it
+(``utils/profiler.py``).
 
 Blend semantics are the reference's (``resdepth_tpu/ops/blend.py``):
 partition of unity over the region, weight 1 in each tile's exclusive area
@@ -49,6 +53,7 @@ from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
                                             serving_precision)
 from resdepth_tpu_torch.ops import blend, stitch
 from resdepth_tpu_torch.parallel import mesh
+from resdepth_tpu_torch.utils import profiler
 
 # Dihedral-group subsets for test-time augmentation (general.tta). Element
 # g is rot90 by (g % 4) quarter turns, after a horizontal flip when g >= 4.
@@ -194,28 +199,30 @@ def _predict_tiles(model: UNet, rasters: DeviceRasters, positions, pair_idx,
     def run_model(x):
         return apply_unet(model, x.to(dtype), **kwargs)[..., 0].to(torch.float32)
 
+    def forward(x):
+        if tta == 1:
+            return run_model(x)
+        if tta_merge == "median":
+            # The per-tile denormalisation is a monotone affine map shared
+            # by a tile's replicas, so the median commutes with it.
+            return _median(torch.stack([_dihedral_invert(run_model(_dihedral_apply(x, g)), g)
+                                        for g in TTA_SUBGROUPS[tta]]))
+        # Averaging normalised predictions equals averaging the denormalised
+        # ones (the stitch's denormalisation is affine).
+        acc = 0.0
+        for g in TTA_SUBGROUPS[tta]:
+            acc = acc + _dihedral_invert(run_model(_dihedral_apply(x, g)), g)
+        return acc / tta
+
     if canvas is None:
         canvas = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
     with torch.inference_mode():
         for start in range(0, n_padded, batch_size):
             sl = slice(start, start + batch_size)
-            batch = build_batch(rasters, pos_d[sl], pair_d[sl], spec)
-            if tta == 1:
-                pred = run_model(batch["input"])
-            elif tta_merge == "median":
-                # The per-tile denormalisation is a monotone affine map
-                # shared by a tile's replicas, so the median commutes with it.
-                pred = _median(torch.stack([
-                    _dihedral_invert(run_model(_dihedral_apply(batch["input"], g)), g)
-                    for g in TTA_SUBGROUPS[tta]]))
-            else:
-                # Averaging normalised predictions equals averaging the
-                # denormalised ones (the stitch's denormalisation is affine).
-                acc = 0.0
-                for g in TTA_SUBGROUPS[tta]:
-                    acc = acc + _dihedral_invert(
-                        run_model(_dihedral_apply(batch["input"], g)), g)
-                pred = acc / tta
+            with profiler.span("scene.gather", device=device):
+                batch = build_batch(rasters, pos_d[sl], pair_d[sl], spec)
+            with profiler.span("scene.forward", device=device):
+                pred = forward(batch["input"])
             stitch.stitch_tiles(canvas, pred.contiguous(), pos_d[sl], wy_d[sl],
                                 wx_d[sl], batch["dsm_mean"], dsm_std,
                                 use_pallas=use_pallas,
@@ -300,17 +307,22 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     scene. The sum regroups each pixel's tiles by rank, so the scene is
     held to K1's bar, not bitwise, against one process.
     """
-    device, model = _scene_model(model, device, compute_dtype, fold_bn)
-    if rasters is None:
-        rasters = device_put_dataset(ds, device)
-    rasters = dataclasses.replace(rasters, dsm_target=None)
+    with profiler.span("scene"):
+        device, model = _scene_model(model, device, compute_dtype, fold_bn)
+        if rasters is None:
+            rasters = device_put_dataset(ds, device)
+        rasters = dataclasses.replace(rasters, dsm_target=None)
 
-    wy, wx = blend.weight_table(ds.tile_size, ds.stride, ds.valid_bounds)
-    out = _predict_tiles(model, rasters, ds.positions, ds.pair_indices, wy, wx,
-                         ds.dsm_input.shape, _inference_spec(ds), ds.dsm_std,
-                         _scene_batch(batch_size, ds, mesh.size(group)),
-                         compute_dtype, use_pallas, tta, tta_merge, group=group)
-    return out.cpu().numpy() if as_numpy else out
+        with profiler.span("scene.weight_table"):
+            wy, wx = blend.weight_table(ds.tile_size, ds.stride, ds.valid_bounds)
+        out = _predict_tiles(model, rasters, ds.positions, ds.pair_indices, wy, wx,
+                             ds.dsm_input.shape, _inference_spec(ds), ds.dsm_std,
+                             _scene_batch(batch_size, ds, mesh.size(group)),
+                             compute_dtype, use_pallas, tta, tta_merge, group=group)
+        if not as_numpy:
+            return out
+        with profiler.span("scene.fetch", device=out.device):
+            return out.cpu().numpy()
 
 
 def predict_linear_blend_streaming(model: UNet, ds: TileDataset, *, device,

@@ -27,6 +27,11 @@ share of every batch of tiles and the canvases are summed
 (``predict_linear_blend(group=...)``); an over-budget scene gives each rank
 whole row bands in turn (``predict_linear_blend_scene_sharded``). Only rank
 0 writes the log, evaluates and writes rasters.
+
+Whenever a ``torch.profiler`` profile is on, a run records its stretches as
+spans (``utils/profiler.py``): ``cli.run``, under it ``cli.model``,
+``cli.read`` (the GeoTIFFs), ``cli.infer`` (the scene's spans under it)
+and ``cli.fetch``.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from resdepth_tpu_torch.models import weights
 from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
                                             unet_config_from_settings)
 from resdepth_tpu_torch.parallel import bootstrap, mesh
-from resdepth_tpu_torch.utils import fs
+from resdepth_tpu_torch.utils import fs, profiler
 from resdepth_tpu_torch.utils.logging import (add_console_logger, add_file_logger,
                                               setup_logger)
 
@@ -155,7 +160,8 @@ def main(argv=None) -> None:
     if chief:
         add_file_logger(logger, log_file=os.path.join(cfg.output.directory, "run.log"))
     try:
-        _run(cfg, cfg_orig, args, logger, chief)
+        with profiler.span("cli.run"):
+            _run(cfg, cfg_orig, args, logger, chief)
     finally:
         _close_file_handlers(logger)
 
@@ -195,10 +201,11 @@ def _run(cfg, cfg_orig, args, logger, chief: bool = True) -> None:
     logger.info("\n\nDefine model\n------------\n")
     model_config = unet_config_from_settings(cfg.model.settings)
     logger.info(f"Load model weights: {cfg.model.weights}")
-    model = UNet(model_config)
-    model.load_state_dict(weights.load_state_dict(cfg.model.weights, model_config))
-    # The exact serving rewrites once, reused for every pair.
-    model = serving_model(model, device, compute_dtype)
+    with profiler.span("cli.model"):
+        model = UNet(model_config)
+        model.load_state_dict(weights.load_state_dict(cfg.model.weights, model_config))
+        # The exact serving rewrites once, reused for every pair.
+        model = serving_model(model, device, compute_dtype)
 
     batch_size = cfg.general.get("batch_size", 128)
     # None -> TileDataset's 'test' default, tile_size/2 (reference parity).
@@ -245,7 +252,8 @@ def _run(cfg, cfg_orig, args, logger, chief: bool = True) -> None:
 
         image_pairs = dataset.get("image_pairs") or [None]
         basename = fs.filename_wo_ext(dataset.raster_in)
-        raster_in = raster_mod.open_raster(dataset.raster_in)
+        with profiler.span("cli.read"):
+            raster_in = raster_mod.open_raster(dataset.raster_in)
 
         residual_pool: dict[str, list] = {}
         device_rasters = None  # scene rasters upload once, reused per pair
@@ -277,13 +285,14 @@ def _run(cfg, cfg_orig, args, logger, chief: bool = True) -> None:
                     output_directory = output_parent
                     ds_entry = dict(dataset)
 
-                tile_ds = TileDataset(
-                    ds_entry, input_channels=cfg.model.input_channels,
-                    tile_size=cfg.general.tile_size, sampling_strategy="test",
-                    stride=tile_stride,
-                    dsm_mean=None, dsm_std=params_dsm["std"],
-                    ortho_mean=params_images["mean"],
-                    ortho_std=params_images["std"])
+                with profiler.span("cli.read"):
+                    tile_ds = TileDataset(
+                        ds_entry, input_channels=cfg.model.input_channels,
+                        tile_size=cfg.general.tile_size, sampling_strategy="test",
+                        stride=tile_stride,
+                        dsm_mean=None, dsm_std=params_dsm["std"],
+                        ortho_mean=params_images["mean"],
+                        ortho_std=params_images["std"])
 
                 logger.info("Predict...")
                 n_views = 0 if tile_ds.orthos is None else tile_ds.orthos.shape[2]
@@ -300,14 +309,16 @@ def _run(cfg, cfg_orig, args, logger, chief: bool = True) -> None:
                                   batch_size=batch_size, compute_dtype=compute_dtype,
                                   use_pallas=use_pallas, fold_bn=False, tta=tta,
                                   tta_merge=tta_merge, group=group)
-                    if sharded:
-                        # Whole bands a rank, all ranks at once; the chief
-                        # adds them into the scene (the others get None).
-                        prediction = predict_linear_blend_scene_sharded(
-                            model, tile_ds, **kwargs)
-                    else:
-                        prediction = predict_linear_blend_streaming(
-                            model, tile_ds, **kwargs)
+                    with profiler.span("cli.infer"):
+                        if sharded:
+                            # Whole bands a rank, all ranks at once; the
+                            # chief adds them into the scene (the others
+                            # get None).
+                            prediction = predict_linear_blend_scene_sharded(
+                                model, tile_ds, **kwargs)
+                        else:
+                            prediction = predict_linear_blend_streaming(
+                                model, tile_ds, **kwargs)
                 else:
                     if device_rasters is None:
                         device_rasters = device_put_dataset(tile_ds, device)
@@ -320,12 +331,13 @@ def _run(cfg, cfg_orig, args, logger, chief: bool = True) -> None:
                     # canvases.
                     overlap = (scene_pixels + 2 * tile_ds.dsm_input.size
                                <= MAX_DEVICE_PIXELS)
-                    prediction = predict_linear_blend(
-                        model, tile_ds, device=device, batch_size=batch_size,
-                        compute_dtype=compute_dtype, rasters=pair_rasters,
-                        use_pallas=use_pallas, fold_bn=False,
-                        as_numpy=not overlap, tta=tta, tta_merge=tta_merge,
-                        group=group)
+                    with profiler.span("cli.infer"):
+                        prediction = predict_linear_blend(
+                            model, tile_ds, device=device, batch_size=batch_size,
+                            compute_dtype=compute_dtype, rasters=pair_rasters,
+                            use_pallas=use_pallas, fold_bn=False,
+                            as_numpy=not overlap, tta=tta, tta_merge=tta_merge,
+                            group=group)
                 pair_tag = (f" ({folder})" if image_pair is not None else "")
                 job = (prediction, tile_ds, output_directory, pair_tag)
 
@@ -333,7 +345,8 @@ def _run(cfg, cfg_orig, args, logger, chief: bool = True) -> None:
                 pending = job
                 continue
             prediction, tile_ds, output_directory, pair_tag = pending
-            prediction = _to_numpy(prediction)  # fetch; overlaps job's compute
+            with profiler.span("cli.fetch"):
+                prediction = _to_numpy(prediction)  # fetch; overlaps job's compute
             pending = job
             if not chief:
                 # The others fetch (pacing the pair pipeline as the chief

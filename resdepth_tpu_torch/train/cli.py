@@ -33,7 +33,8 @@ the float32 policy at the compute dtype. A region whose rasters exceed
 the rasters in host RAM, one window on the device at a time).
 ``tpu.profile_dir`` traces the first trained epoch with ``torch.profiler``
 into that directory, one Chrome trace JSON file a process
-(``utils/profiler.py``), as ``train.py`` traces it with ``jax.profiler``.
+(``utils/profiler.py``), as ``train.py`` traces it with ``jax.profiler``;
+the trace holds the program's spans, one a step (``train#<step>``).
 """
 
 from __future__ import annotations

@@ -34,9 +34,13 @@ would: with the per-epoch augmentation seeds, the resumed run is the
 uninterrupted one, bit for bit on the same hardware.
 
 With ``profile_dir`` the first trained epoch runs under
-``utils.profiler.trace`` (as the JAX trainer traces it), each of its steps
-under ``step_annotation("train", step)``, ``step`` the run's 0-based step
-index; validation is not traced. Tracing changes no result.
+``utils.profiler.trace`` (as the JAX trainer traces it); validation is not
+traced. Each step's call runs under ``step_annotation("train", step)``,
+``step`` the run's 0-based step index: whenever a profiler is on
+(``profile_dir``'s trace, or a caller's own), the trace and the span store
+(``utils/profiler.py``) hold these spans, so a step's host time (the time
+to enqueue it) and the loop's time between steps can be read; with none
+on they record nothing. Tracing changes no result.
 
 Under a multi-process launch (``parallel.bootstrap``) every process runs
 every step and every validation (the steps' all-reduces need all of them),
@@ -46,7 +50,6 @@ console lines; the others log warnings and errors alone.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import math
 import os
@@ -223,9 +226,9 @@ class Trainer:
             meter.update(float(value))
         pending.clear()
 
-    def train_one_epoch(self, epoch: int, annotate: bool = False) -> AverageMeter:
-        """One pass over the training loaders; with ``annotate`` each step
-        runs under ``profiler.step_annotation("train", step)``."""
+    def train_one_epoch(self, epoch: int) -> AverageMeter:
+        """One pass over the training loaders, each step's call under
+        ``profiler.step_annotation("train", step)``."""
         meter = AverageMeter()
         pending = []  # device scalars, fetched at logging points
         chunks = self._epoch_chunks(self.train_loaders)
@@ -241,8 +244,7 @@ class Trainer:
                     else GeneratorDraws(torch.Generator(device=device).manual_seed(
                         epoch_seed(self.rng_seed, epoch, process_index()))))
             for positions, pair_idx, bounds, weights in chunk:
-                with (profiler.step_annotation("train", num_iter * epoch + c_iter + 1)
-                      if annotate else contextlib.nullcontext()):
+                with profiler.step_annotation("train", num_iter * epoch + c_iter + 1):
                     pending.append(self.train_step(self.state, rasters, positions,
                                                    pair_idx, bounds, weights,
                                                    generators[device]))
@@ -315,7 +317,7 @@ class Trainer:
             traced = bool(self.profile_dir) and epoch == self.start_epoch
             with profiler.trace(self.profile_dir if traced else None,
                                 next(self.state.model.parameters()).device):
-                self.train_one_epoch(epoch, annotate=traced)
+                self.train_one_epoch(epoch)
 
             if (epoch + 1) % self.evaluate_rate == 0:
                 val_loss = self.validate(epoch)

@@ -1,10 +1,10 @@
 """The port's profiler hooks (``resdepth_tpu_torch.utils.profiler``) on the
-CPU, beside the JAX package's ``resdepth_tpu.utils.profiler``.
+CPU.
 
 ``trace`` writes one Chrome trace JSON file that holds the block's step
-annotations; ``trace(None)`` and ``trace("")`` write nothing; ``StepTimer``
-gives the JAX ``StepTimer``'s mean for the same clock ticks (the same
-arithmetic, so exactly).
+annotations; ``trace(None)`` and ``trace("")`` write nothing;
+``chip_smoke.trace_steps`` reads steps and K3 kernels from a trace. The
+spans themselves are ``tests/test_torch_spans.py``'s.
 """
 
 import glob
@@ -15,7 +15,6 @@ from unittest import mock
 import pytest
 import torch
 
-from resdepth_tpu.utils import profiler as jprofiler
 from resdepth_tpu_torch.utils import profiler
 
 
@@ -48,19 +47,6 @@ def test_trace_without_a_directory_is_a_no_op(tmp_path, monkeypatch, profile_dir
         with profiler.trace(profile_dir, torch.device("cpu")):
             ran.append(True)
     assert ran == [True] and not profile.called and os.listdir(tmp_path) == []
-
-
-def test_step_timer_matches_jax():
-    ticks = [10.0, 10.25, 10.75, 11.0, 12.5, 12.625]
-    means = {}
-    for name, module in (("port", profiler), ("jax", jprofiler)):
-        timer = module.StepTimer(window=3)
-        assert timer.mean_ms == 0.0
-        with mock.patch.object(module.time, "perf_counter", side_effect=list(ticks)):
-            for _ in ticks:
-                timer.tick()
-        means[name] = timer.mean_ms
-    assert means["port"] == means["jax"] == pytest.approx(1e3 * (0.25 + 1.5 + 0.125) / 3)
 
 
 def test_chip_smoke_reads_steps_from_a_trace(tmp_path):
