@@ -15,7 +15,8 @@ logging and fs helpers) so that it imports nothing of ``resdepth_tpu``.
   other bit for bit (none, deflate, lzw; native and pure-Python codec),
   grids, allocation, blend weights, evaluation statistics, LR sequences,
   ``TileDataset`` tiles and the normalization pickles. Everything here is
-  exact: the copies run the same numpy code.
+  exact: the copies run the same numpy code, but for the statistics, which
+  the port takes by exact selection and holds bitwise to the masked sorts.
 """
 
 import ast
@@ -304,6 +305,73 @@ def test_evaluate_performance_matches_jax(make_geotiff, tmp_path, threshold):
                         for k, v in maps.items()})
     assert results[1].keys() == results[0].keys() and len(results[0]) > 2
     assert results[1] == results[0]
+
+
+def _statistics_case(case):
+    """Residuals of one shape of input that ``get_statistics`` is given."""
+    rng = np.random.default_rng(31)
+    data = rng.normal(0.0, 1.5, (257, 263)) + rng.standard_t(2, (257, 263)) * 0.2
+    mask = rng.random(data.shape) < 0.3
+    data[1, 1:3], mask[1, 1:3] = (2.0, -2.0), False  # on the truncation's threshold
+    if case in ("odd", "even"):
+        if np.count_nonzero(~mask) % 2 != (case == "odd"):
+            mask[0, 0] = not mask[0, 0]
+        return np.ma.masked_array(data, mask=mask)
+    if case == "nomask":
+        return np.ma.masked_array(data)
+    if case == "all-masked":
+        return np.ma.masked_array(data, mask=np.ones(data.shape, bool))
+    if case == "one-pixel":
+        one = np.ones(data.shape, bool)
+        one[100, 7] = False
+        data[100, 7] = 3.5
+        return np.ma.masked_array(data, mask=one)
+    if case in ("nan", "overflow"):  # an unmasked NaN, or a square past float64
+        data[5, 9] = np.nan if case == "nan" else -1e200
+        mask[5, 9] = False
+        return np.ma.masked_array(data, mask=mask)
+    flat = data.ravel()  # "pooled": a 1-D aggregate over image pairs
+    flat[::97] = np.nan
+    flat[::89] = np.inf
+    return np.ma.masked_invalid(flat)
+
+
+def _bits(tree):
+    """Statistics as their types and bytes, ``np.ma.masked`` by name."""
+    if isinstance(tree, dict):
+        return {k: _bits(v) for k, v in tree.items()}
+    if tree is np.ma.masked:
+        return "masked"
+    return type(tree).__name__, np.asarray(tree).tobytes()
+
+
+@pytest.mark.parametrize("nmad_center", ["medae", "median"])
+@pytest.mark.parametrize("threshold", [None, 2.0])
+@pytest.mark.parametrize("case", ["odd", "even", "nomask", "all-masked", "one-pixel",
+                                  "nan", "overflow", "pooled"])
+def test_get_statistics_bitwise_matches_jax(case, threshold, nmad_center):
+    """The port's statistics by exact selection against the JAX package's masked
+    sorts: every value, its type and key order, and the input left as it was."""
+    residuals = _statistics_case(case)
+    before = (np.ma.getdata(residuals).tobytes(), np.ma.getmaskarray(residuals).tobytes())
+    if case == "nan" and threshold:
+        # The truncated set's deviations are all NaN and outnumbered by its masked
+        # pixels: np.ma.median's NaN check then writes into np.ma.masked and raises.
+        # Selection gives the NaN that the check means; the rest is as np.ma has it.
+        with pytest.raises(ValueError, match="read-only"):
+            j_stats(residuals, threshold, nmad_center)
+        got = t_stats(residuals, threshold, nmad_center)
+        truncated = got.pop("truncated")
+        assert np.isnan([truncated.absolute_median, truncated.median, truncated.NMAD]).all()
+        expected = _bits(j_stats(residuals, None, nmad_center))
+        assert _bits(got) == dict(expected, truncation=_bits(True))
+    else:
+        expected = _bits(j_stats(residuals, threshold, nmad_center))
+        got = _bits(t_stats(residuals, threshold, nmad_center))
+        assert list(got) == list(expected)
+        assert got == expected
+    assert (np.ma.getdata(residuals).tobytes(),
+            np.ma.getmaskarray(residuals).tobytes()) == before
 
 
 # -------------------------------- schedulers -------------------------------- #
