@@ -40,11 +40,12 @@ found:
      peak memory and the bytes a band puts on the card;
   5. card against CPU: a 512x512 crop refined on the card (K2, whose sum
      order is the plain stitch's) and on the CPU, float32 within 4 f32 ulps
-     of the largest height (``CROP_ULPS``),
-     and each serving mode's UNet outputs on the crop's tiles, the mean
-     |diff| within a share of its own deviation from float32
-     (``CROP_SHARES``) that every other compute dtype served on the card
-     in its place misses; "modes-cli": one CLI run at ``compute_dtype:
+     of the largest height (``CROP_ULPS``), held after a K1 and a bfloat16
+     scene on the card that leave K2's array as it was and share no memory
+     with it (each lands in pinned memory of its own), and each serving
+     mode's UNet outputs on the crop's tiles, the mean |diff| within a
+     share of its own deviation from float32 (``CROP_SHARES``) that every
+     other compute dtype served on the card in its place misses; "modes-cli": one CLI run at ``compute_dtype:
      "balanced16"`` that writes its rasters;
   6. conv: kernel K3 (the SASS of its library must hold HGMMA and
      UTMALDG) at batch 128 at every 3x3 conv the served flagship hands it
@@ -128,8 +129,8 @@ found:
      plain version, and each leg's launches counted.
 
 ``python3 chip_smoke.py --phase studies --phase config-smoke`` runs phases
-1 and 2 and the phases named (also ``conv``, phase 6, and ``dryrun``), and
-prints no result line.
+1 and 2 and the phases named (also ``conv``, phase 6, ``dryrun`` and
+``crop``, phase 5's crop on the seeded scene), and prints no result line.
 ``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
 kernels' times over the scene's batches alone, and prints no result line:
 run in two checkouts in one call, it compares their stitches on one card.
@@ -1332,7 +1333,8 @@ def _crop_modes(model, ds) -> dict:
 def phase_crop(work: str, scene: dict, model_path: str) -> dict:
     """The f32 refined scene of a 512x512 crop on the card (TF32 off) against
     the port's CPU path (plain stitch), within ``CROP_ULPS`` f32 ulps of the
-    largest height; then each serving
+    largest height, held after two more card scenes (K1, bfloat16) that
+    leave K2's array unchanged and share no memory with it; then each serving
     mode on the crop, card against CPU (``_crop_modes``)."""
     from resdepth_tpu_torch.geo import raster as raster_mod
     from resdepth_tpu_torch.geo import tiff
@@ -1366,11 +1368,27 @@ def phase_crop(work: str, scene: dict, model_path: str) -> dict:
     outputs = {}
     for name, device, use_pallas in (("cpu", torch.device("cpu"), None),
                                      ("k2", torch.device("cuda", 0), "fused"),
-                                     ("k1", torch.device("cuda", 0), None)):
-        dtype = predict.select_compute_dtype("float32", device)
+                                     ("k1", torch.device("cuda", 0), None),
+                                     ("bf16", torch.device("cuda", 0), "fused")):
+        dtype = predict.select_compute_dtype(
+            "bfloat16" if name == "bf16" else "float32", device)
         outputs[name] = predict_linear_blend(model, ds, device=device,
                                              batch_size=BATCH, compute_dtype=dtype,
                                              use_pallas=use_pallas)
+        if name == "k2":
+            kept = outputs["k2"].copy()
+    # Each card scene lands in pinned host memory of its own: the two later
+    # scenes (K1's, then a bfloat16 one that differs by cm) leave K2's array
+    # as it was, and share no memory with it.
+    later = (outputs["k1"], outputs["bf16"])
+    if (not np.array_equal(outputs["k2"], kept) or np.array_equal(outputs["bf16"], kept)
+            or any(np.shares_memory(outputs["k2"], o) for o in later)):
+        raise AssertionError("a later scene wrote to K2's scene array or shares "
+                             "its memory")
+    stats = getattr(torch.cuda, "host_memory_stats", dict)()
+    log("crop", f"three {CROP_SIZE}^2 card scenes in a row: K2's array unchanged "
+        "after K1's and a bfloat16 scene, no memory shared; pinned host memory "
+        + ", ".join(f"{k} {v}" for k, v in stats.items() if "bytes" in k))
     # K2 sums each pixel in the plain stitch's order, so its difference is
     # the UNet's alone (cuDNN against the CPU's convs); K1's atomics may add
     # up to 2 more ulps on top, so it is reported, not held to the bar.
@@ -3951,7 +3969,7 @@ def main(argv: list | None = None) -> int:
                              "to compare two checkouts on one card; prints no "
                              "result line")
     parser.add_argument("--phase", action="append",
-                        choices=("conv", "studies", "config-smoke", "dryrun"),
+                        choices=("conv", "studies", "config-smoke", "dryrun", "crop"),
                         help="run phases 1-2 and only this phase (repeatable), to "
                              "iterate on it; prints no result line")
     parser.add_argument("--dp-rank", metavar="PLAN",
@@ -3983,6 +4001,14 @@ def main(argv: list | None = None) -> int:
         for name in args.phase:
             if name in ("conv", "dryrun"):
                 {"conv": phase_conv, "dryrun": phase_dryrun}[name]()
+                continue
+            if name == "crop":
+                scene = write_scene(os.path.join(WORK_DIR, "scene"), SCENE_SIZE,
+                                    SCENE_SIZE)
+                model = write_model_artifacts(
+                    os.path.join(WORK_DIR, "model"), flagship_config("geom-stereo"),
+                    "geom-stereo", scene["image_mean"], scene["image_std"])
+                phase_crop(WORK_DIR, scene, model["weights"])
                 continue
             {"studies": phase_studies, "config-smoke": phase_config_smoke}[name](
                 os.path.join(WORK_DIR, name))

@@ -7,8 +7,9 @@ normalises a batch of tiles (``data.pipeline.build_batch``), runs the UNet
 in eval mode, and stitches the batch into the canvas in place
 (``ops.stitch``: denormalisation, separable blend weights and overlap-add
 in one kernel). CUDA work is asynchronous, so the loop only enqueues; the
-canvas comes back to the host once. Whenever a ``torch.profiler`` profile
-is on, ``predict_linear_blend`` records a ``scene`` span with
+canvas comes back to the host once, through pinned memory on CUDA
+(``_fetch``). Whenever a ``torch.profiler`` profile is on,
+``predict_linear_blend`` records a ``scene`` span with
 ``scene.weight_table``, each batch's ``scene.gather`` and
 ``scene.forward`` (timed on the device too) and ``scene.fetch`` under it
 (``utils/profiler.py``).
@@ -63,6 +64,14 @@ TTA_SUBGROUPS = {1: (0,), 2: (0, 4), 4: (0, 1, 2, 3), 8: tuple(range(8))}
 
 # How the tta predictions of one tile are merged (general.tta_merge).
 TTA_MERGES = ("mean", "median")
+
+# The largest resident canvas (an 8192^2 f32 scene) that predict_linear_blend
+# fetches through pinned memory. Past it, pinned blocks (power-of-two sized,
+# never returned to the system) would lock GiBs of host memory. The CLI
+# fetches whole with as_numpy=True only a scene whose rasters and two
+# canvases outgrow predict.MAX_DEVICE_PIXELS: a canvas over 2**32 / (planes
+# + 2) bytes, above this bound up to 14 raster planes, so it never pins.
+PINNED_SCENE_BYTES = 1 << 28
 
 
 def _dihedral_apply(x: torch.Tensor, g: int) -> torch.Tensor:
@@ -294,8 +303,15 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
     are f32.
 
     ``as_numpy``: True returns a host numpy array (waits for the device).
-    False returns the device canvas as soon as the work is queued; fetch it
-    with ``.cpu().numpy()`` (``np.asarray`` raises on a CUDA tensor).
+    On CUDA a canvas of at most ``PINNED_SCENE_BYTES`` is copied into pinned
+    host memory (``_fetch``), a fresh block of torch's caching host
+    allocator each call: the array belongs to the caller, and no later call
+    writes to it. The block is a power of two in size and stays pinned while
+    the caller holds the array; once dropped, the allocator keeps it for a
+    later scene and never hands it back to the system. A larger canvas is
+    copied into pageable memory. False returns the device canvas as soon as
+    the work is queued; fetch it with ``.cpu().numpy()`` (``np.asarray``
+    raises on a CUDA tensor).
 
     ``tta`` in {1, 2, 4, 8}: predict each tile under that dihedral subgroup
     and merge the inverse-transformed predictions by ``tta_merge``
@@ -322,7 +338,12 @@ def predict_linear_blend(model: UNet, ds: TileDataset, *, device,
         if not as_numpy:
             return out
         with profiler.span("scene.fetch", device=out.device):
-            return out.cpu().numpy()
+            if out.nbytes > PINNED_SCENE_BYTES:
+                return out.cpu().numpy()
+            host, done = _fetch(out)
+            if done is not None:
+                done.synchronize()
+            return host.numpy()
 
 
 def predict_linear_blend_streaming(model: UNet, ds: TileDataset, *, device,
@@ -506,7 +527,9 @@ def _fetch(canvas: torch.Tensor) -> tuple:
     host = torch.empty(canvas.shape, dtype=canvas.dtype, pin_memory=True)
     host.copy_(canvas, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    # The copy runs on the canvas device's stream, which need not be the
+    # current device's.
+    done.record(torch.cuda.current_stream(canvas.device))
     return host, done
 
 
