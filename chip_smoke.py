@@ -151,6 +151,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -230,6 +231,36 @@ NARROW_K_CASES = ((20, 256, 256, 1, 64, "none"), (128, 256, 256, 1, 64, "relu"),
                   (3, 37, 45, 3, 24, "prelu"), (3, 37, 45, 1, 40, "lrelu"),
                   (2, 19, 21, 2, 13, "relu"))
 
+# Phase "epilogue": the bf16 trunk's epilogue kernel (``ops/epilogue.py``)
+# at the calls one balanced16 forward of the served flagship hands it at
+# batch CONV_BATCH (``epilogue_calls``) and at ragged ones (kind, (N, C,
+# H, W), act_fn, pool), kind "block" (bf16 y), "cast" (f32 y) or "skip":
+# odd H and W (the pool's floor), C not a multiple of 8 (one channel a
+# thread), every activation. Every input holds NaN, +-inf and -0.0.
+EPILOGUE_RAGGED = (("block", (2, 24, 7, 9), "prelu", True),
+                   ("block", (3, 16, 5, 6), "lrelu", True),
+                   ("block", (1, 7, 9, 11), "relu", True),
+                   ("block", (2, 12, 6, 4), "none", False),
+                   ("block", (2, 8, 4, 4), "relu", False),
+                   ("cast", (2, 24, 7, 9), "none", True),
+                   ("cast", (1, 5, 3, 5), "none", True),
+                   ("skip", (2, 12, 5, 7), "none", False),
+                   ("skip", (2, 16, 6, 6), "none", False))
+# The scene served with test-time augmentation (``predict_linear_blend``,
+# 49 tiles in batches of EPILOGUE_SCENE_BATCH; each rotated batch reaches
+# the forward as a transposed view), through K2 so that the canvas can be
+# held bitwise to the one the ATen ops give, at each (mode, tta) of
+# EPILOGUE_TTA.
+EPILOGUE_SCENE, EPILOGUE_SCENE_BATCH = 1024, 16
+EPILOGUE_TTA = (("mixed", 4), ("mixed", 8), ("balanced16", 8))
+# Small models whose forwards hold the kernel to the ATen ops bitwise in
+# every path that reaches it: depth 3, start 4 (widths 4, 8, 16: one
+# channel a thread at 4), PReLU encoders and LeakyReLU decoders, in both
+# up modes, folded and not (BatchNorm before the epilogue), at mixed,
+# balanced16 and bfloat16 input on float32 weights, 4 tiles of 64.
+EPILOGUE_MODELS = tuple((up_mode, folded) for up_mode in ("transpose", "bilinear")
+                        for folded in (True, False))
+
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # memory bytes/s and bf16 tensor-core FLOP/s, for the kernels' bounds.
 PEAK_BYTES = 3.35e12
@@ -292,27 +323,56 @@ def k3_launches_a_step(policy: str, depth: int = 5) -> dict:
             "balanced16": {3: 3}, "bfloat16": {}, "high": {}, "highest": {}}[policy]
 
 
-def mode_k3_convs(mode: str, config=None) -> list:
-    """The 3x3 convs one forward of the served (folded) flagship hands to
-    ``conv3x3_bias_act`` in a serving mode, in order, as ``(H, Cin, Cout,
-    act, passes)`` at tiles of ``TILE``: traced through ``apply_unet`` on
-    meta tensors, the wrapper swapped for a recorder (nothing runs)."""
+def _meta_forward(mode: str, config, batch: int, k3) -> list:
+    """One forward of the served (folded) flagship (``config``, or the
+    stereo flagship) in a serving mode at ``batch`` tiles of ``TILE``,
+    traced through ``apply_unet`` on meta tensors with K3's wrapper swapped
+    for ``k3`` and the epilogue's entries (``ops.epilogue``) for recorders
+    that give outputs of the right shapes (nothing runs). Returns the
+    epilogue calls in order as ``(kind, (N, C, H, W), act_fn, pool)``, kind
+    "block", "cast" or "skip" (as ``EPILOGUE_RAGGED``)."""
     from unittest import mock
 
     from resdepth_tpu_torch.models import unet
+    from resdepth_tpu_torch.ops import epilogue
 
     config = config or unet.flagship_config("geom-stereo")
     model = unet.UNet(dataclasses.replace(config, do_BN=False), "meta",
                       composed_top=config.up_mode == "transpose")
     calls = []
 
+    def block(y, bias=None, slope=None, *, act_fn="none", pool=False):
+        n, c, h, w = y.shape
+        calls.append(("cast" if y.dtype == torch.float32 else "block", (n, c, h, w), act_fn,
+                      pool))
+        return (y.new_zeros(y.shape, dtype=torch.bfloat16),
+                y.new_zeros((n, c, h // 2, w // 2), dtype=torch.bfloat16) if pool else None)
+
+    def skip_add(u, bias, skip):
+        calls.append(("skip", tuple(u.shape), "none", False))
+        return torch.zeros_like(skip)
+
+    x = torch.zeros((batch, TILE, TILE, config.n_input_channels), device="meta")
+    with mock.patch.object(unet, "conv3x3_bias_act", k3), \
+            mock.patch.object(epilogue, "trunk_epilogue", block), \
+            mock.patch.object(epilogue, "skip_add_epilogue", skip_add), \
+            torch.inference_mode():
+        unet.apply_unet(model, x, **unet.serving_precision(mode).apply_kwargs())
+    return calls
+
+
+def mode_k3_convs(mode: str, config=None) -> list:
+    """The 3x3 convs one forward of the served (folded) flagship hands to
+    ``conv3x3_bias_act`` in a serving mode, in order, as ``(H, Cin, Cout,
+    act, passes)`` at tiles of ``TILE``: traced on meta tensors
+    (``_meta_forward``), the wrapper swapped for a recorder."""
+    calls = []
+
     def record(x, kernel, bias=None, act_param=None, *, act_fn="relu", passes=None):
         calls.append((x.shape[1], kernel.shape[2], kernel.shape[3], act_fn, passes))
         return x.new_zeros(x.shape[:3] + (kernel.shape[3],))
 
-    x = torch.zeros((1, TILE, TILE, config.n_input_channels), device="meta")
-    with mock.patch.object(unet, "conv3x3_bias_act", record), torch.inference_mode():
-        unet.apply_unet(model, x, **unet.serving_precision(mode).apply_kwargs())
+    _meta_forward(mode, config, 1, record)
     return calls
 
 
@@ -334,6 +394,16 @@ def k3_cases() -> dict:
             cases.setdefault(tuple(shape), {1: 0, 2: 0, 3: 0})[p] += 1
     order = [tuple(c[:4]) for c in mode_k3_convs("fast32")]   # every shape, in order
     return {shape: cases[shape] for shape in sorted(cases, key=order.index)}
+
+
+def epilogue_calls(mode: str = "balanced16", config=None, batch: int = CONV_BATCH) -> list:
+    """The calls one forward of the served (folded) flagship makes to
+    ``ops.epilogue`` in a serving mode, in order, as ``(kind, (N, C, H, W),
+    act_fn, pool)`` at ``batch`` tiles of ``TILE`` (``_meta_forward``)."""
+    def k3(x, kernel, *args, **kwargs):
+        return x.new_zeros(x.shape[:3] + (kernel.shape[3],))
+
+    return _meta_forward(mode, config, batch, k3)
 
 
 def log(phase: str, message: str) -> None:
@@ -564,20 +634,21 @@ def phase_build() -> float:
     """Build every kernel source at once (one nvcc each, in threads)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from resdepth_tpu_torch.ops import build, conv, stitch
+    from resdepth_tpu_torch.ops import build, conv, epilogue, stitch
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(lambda load: load(), (stitch._library, conv._library)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        libs = list(pool.map(lambda load: load(),
+                             (stitch._library, conv._library, epilogue._library)))
     seconds = time.perf_counter() - start
     for lib, names in zip(libs, (("stitch_k1", "stitch_k2"),
-                                 ("conv3x3_k3", "conv3x3_k3_narrow"))):
+                                 ("conv3x3_k3", "conv3x3_k3_narrow"), ("trunk_epilogue",))):
         if not all(hasattr(lib, name) for name in names):
             raise RuntimeError(f"a kernel library lacks one of {names}")
     log("build", "; ".join(
         f"csrc/{name}.cu -> {os.path.relpath(build.library_path(name), REPO)} "
-        f"(nvcc {build.BUILD_SECONDS[name]:.2f} s)" for name in ("stitch", "conv"))
-        + f"; both in {seconds:.2f} s; flags {' '.join(build.NVCC_FLAGS)}")
+        f"(nvcc {build.BUILD_SECONDS[name]:.2f} s)" for name in ("stitch", "conv", "epilogue"))
+        + f"; all in {seconds:.2f} s; flags {' '.join(build.NVCC_FLAGS)}")
     return seconds
 
 
@@ -1067,7 +1138,7 @@ def phase_steady(scene: dict, model_path: str) -> dict:
 
 # Kernel-name fragments by which ``device_breakdown`` groups device time.
 KERNEL_GROUPS = (("K3", ("conv3x3_k3",)), ("K3 split", ("split_hi_lo",)),
-                 ("stitch", ("stitch_k",)),
+                 ("stitch", ("stitch_k",)), ("trunk epilogue", ("trunk_epilogue",)),
                  ("cuDNN convs", ("conv", "cudnn", "xmma", "cutlass", "gemm")))
 
 
@@ -1125,14 +1196,16 @@ def k3_ms_by_passes(names: dict) -> dict:
 def phase_modes(scene: dict, model_path: str) -> dict:
     """The five string serving modes on the 4096^2 scene, rasters resident,
     through ``predict_linear_blend(compute_dtype=mode)``. For each mode the
-    K3 launch counters are zeroed just before its first scene run and read
-    just after it: they must be the forward's launches by pass count
-    (``k3_calls_a_forward``) times the batches. Then the scene time (median
-    of 3 more runs), tiles/s, the UNet forward of one batch of 128 (CUDA
-    events) and the peak memory; and the mean and p99 |deviation| of the
-    first run's scene from the float32 scene, in cm (random weights, so
-    this is no budget check). Returns the per-mode records and the K3
-    launches of the mode paths by pass count."""
+    K3 and trunk epilogue launch counters are zeroed just before its first
+    scene run and read just after it: they must be the forward's launches
+    by pass count (``k3_calls_a_forward``) and the forward's epilogue calls
+    (``epilogue_calls``: 14 on the bf16 trunk of mixed and balanced16, none
+    elsewhere) times the batches. Then the scene time (median of 3 more
+    runs), tiles/s, the UNet forward of one batch of 128 (CUDA events) and
+    the peak memory; and the mean and p99 |deviation| of the first run's
+    scene from the float32 scene, in cm (random weights, so this is no
+    budget check). Returns the per-mode records, the K3 launches of the
+    mode paths by pass count and their epilogue launches."""
     from resdepth_tpu_torch import predict
     from resdepth_tpu_torch.data.pipeline import build_batch, device_put_dataset
     from resdepth_tpu_torch.infer.tiled import (_inference_spec, predict_linear_blend,
@@ -1141,7 +1214,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
     from resdepth_tpu_torch.models.unet import (SERVING_PRECISION_MODES, UNet,
                                                 apply_unet, flagship_config,
                                                 serving_precision)
-    from resdepth_tpu_torch.ops import conv
+    from resdepth_tpu_torch.ops import conv, epilogue
 
     device = torch.device("cuda", 0)
     ds = _tile_dataset(scene["paths"], SCENE_SIZE, scene["image_mean"],
@@ -1165,13 +1238,22 @@ def phase_modes(scene: dict, model_path: str) -> dict:
     reference = run(served, dtype).cpu().numpy()
     breakdowns = {"float32": device_breakdown(lambda: run(served, dtype))}
     result, launches = {}, {1: 0, 2: 0, 3: 0, **{v: 0 for v in K3_F32_VARIANTS}}
+    launches["epilogue"] = 0
     for mode in SERVING_PRECISION_MODES:
         dtype = predict.select_compute_dtype(mode, device)
         served = serving_model(base, device, dtype)
         for key in conv.LAUNCHES:
             conv.LAUNCHES[key] = 0
+        epilogue.LAUNCHES["epilogue"] = 0
         canvas = run(served, dtype)
         torch.cuda.synchronize()
+        want_epilogue = len(epilogue_calls(mode, config, 1)) * n_batches
+        if epilogue.LAUNCHES["epilogue"] != want_epilogue or (
+                mode in ("mixed", "balanced16") and want_epilogue != 14 * n_batches):
+            raise AssertionError(f"{mode}: {epilogue.LAUNCHES['epilogue']} trunk epilogue "
+                                 f"launches, expected {want_epilogue} ({n_batches} batches; "
+                                 f"14 a batch on the bf16 trunk)")
+        launches["epilogue"] += want_epilogue
         counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)}
         want = {p: n * n_batches
                 for p, n in k3_calls_a_forward(mode, config.depth).items()}
@@ -1203,7 +1285,8 @@ def phase_modes(scene: dict, model_path: str) -> dict:
             "tiles_per_s": len(ds.positions) / float(np.median(walls)),
             "forward_ms": forward_ms,
             "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
-            "launches": want, "mean_dev_cm": float(dev_cm.mean()),
+            "launches": want, "epilogue_launches": want_epilogue,
+            "mean_dev_cm": float(dev_cm.mean()),
             "p99_dev_cm": float(np.percentile(dev_cm, 99))}
         breakdowns[mode] = device_breakdown(lambda: run(served, dtype))
         x_split = [n for n in breakdowns[mode].get("names", {})
@@ -1218,7 +1301,8 @@ def phase_modes(scene: dict, model_path: str) -> dict:
             f"{m} scene {r['scene_s']:.3f} s ({r['tiles_per_s']:.1f} tiles/s; runs "
             f"{', '.join(f'{w:.3f}' for w in r['walls'])} s), UNet forward "
             f"{r['forward_ms']:.2f} ms per batch of {BATCH}, peak {r['peak_gib']:.2f} "
-            f"GiB, K3 launches by passes {r['launches']}, |dev| from float32 mean "
+            f"GiB, K3 launches by passes {r['launches']}, trunk epilogue launches "
+            f"{r['epilogue_launches']}, |dev| from float32 mean "
             f"{r['mean_dev_cm']:.4g} cm, p99 {r['p99_dev_cm']:.4g} cm"
             for m, r in result.items())
         + f"; K3 launches of the mode paths by passes {launches}")
@@ -2031,6 +2115,215 @@ def phase_conv_variant(generator, variant: str, layouts: dict) -> dict:
     return {"rows": rows, "layouts": mine}
 
 
+def epilogue_bytes(kind: str, shape, pool: bool) -> int:
+    """The least bytes of one epilogue call (``csrc/epilogue.cu``): its
+    inputs read once (bf16 y, u and skip; f32 y for a cast), its outputs
+    written once in bf16, the (C,) bias in float32."""
+    n, c, h, w = shape
+    elements = n * c * h * w
+    reads = {"block": 2, "cast": 4, "skip": 4}[kind] * elements
+    writes = 2 * elements + (2 * n * c * (h // 2) * (w // 2) if pool else 0)
+    return reads + writes + (0 if kind == "cast" else 4 * c)
+
+
+def _epilogue_case(generator, device, kind, shape, act_fn, pool):
+    """Seeded inputs of one epilogue call in channels-last memory, each
+    with NaN, +inf, -inf and -0.0 planted (and -0.0 on a grid of channel
+    0, whose bias is -0.0, so that a -0.0 sum reaches the activation), and
+    the two calls: the kernel and the plain version (the ATen ops)."""
+    from resdepth_tpu_torch.ops import epilogue
+
+    n, c, h, w = shape
+
+    def draw(dtype):
+        t = torch.randn((n, h, w, c), generator=generator, device=device)
+        flat = t.view(-1)
+        spots = torch.randint(flat.numel(), (16,), generator=generator, device=device)
+        flat[spots] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0],
+                                   device=device).repeat(4)
+        t[:, ::2, ::3, 0] = -0.0
+        return t.to(dtype).permute(0, 3, 1, 2)
+
+    bias = 0.1 * torch.randn(c, generator=generator, device=device)
+    bias[0] = -0.0
+    slope = 0.3 * torch.rand(c, generator=generator, device=device)
+    if kind == "skip":
+        u, skip = draw(torch.bfloat16), draw(torch.bfloat16)
+        return (lambda: (epilogue.skip_add_epilogue(u, bias, skip), None),
+                lambda: (epilogue.skip_add_epilogue_plain(u, bias, skip), None))
+    y = draw(torch.float32 if kind == "cast" else torch.bfloat16)
+    args = (y,) if kind == "cast" else (y, bias, slope)
+    return (lambda: epilogue.trunk_epilogue(*args, act_fn=act_fn, pool=pool),
+            lambda: epilogue.trunk_epilogue_plain(*args, act_fn=act_fn, pool=pool))
+
+
+def _same_bits(got, want) -> bool:
+    """Whether two tensors (or two Nones) hold the same values bit for bit."""
+    if got is None or want is None:
+        return got is None and want is None
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    return torch.equal(got.contiguous().view(bits), want.contiguous().view(bits))
+
+
+def phase_epilogue(work: str) -> dict:
+    """The trunk epilogue kernel against its plain version (the ATen ops it
+    fuses), bitwise, at the 14 calls of a balanced16 forward of the served
+    flagship at batch 128 (``epilogue_calls``) and at ``EPILOGUE_RAGGED``,
+    one counted launch a call; times of the kernel and of the ATen ops
+    (CUDA graphs, in turns) beside the byte bound. Then a balanced16 forward
+    at batch 128 with the kernel and with the ATen ops in its place: device
+    time by kernel name (``device_breakdown``) and bits; the forwards of
+    ``EPILOGUE_MODELS``, bitwise the ATen ops'; then a seeded
+    ``EPILOGUE_SCENE``² scene through ``predict_linear_blend`` (K2) at each
+    of ``EPILOGUE_TTA``, whose launches must be 14 a batch and rotation and
+    whose canvas must equal the ATen ops' bitwise. Returns the rows and the
+    totals over a forward. (The launches of the main path are counted in
+    phase "modes".)"""
+    from unittest import mock
+
+    from resdepth_tpu_torch.infer.tiled import predict_linear_blend, serving_model
+    from resdepth_tpu_torch.models import unet
+    from resdepth_tpu_torch.ops import build, epilogue
+
+    report = [line.strip() for line in build.BUILD_LOGS.get("epilogue", "").splitlines()
+              if "registers" in line or "spill" in line]
+    log("epilogue", f"ptxas: {' | '.join(report) or 'reused build'}")
+    device = torch.device("cuda", 0)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    calls = epilogue_calls("balanced16")
+    if len(calls) != 14:
+        raise AssertionError(f"a balanced16 forward makes {len(calls)} epilogue calls, not 14")
+    rows = []
+    for case in calls + list(EPILOGUE_RAGGED):
+        kind, shape, act_fn, pool = case
+        kernel, plain = _epilogue_case(generator, device, kind, shape, act_fn, pool)
+        epilogue.LAUNCHES["epilogue"] = 0
+        got = kernel()
+        torch.cuda.synchronize()
+        if epilogue.LAUNCHES["epilogue"] != 1:
+            raise AssertionError(f"epilogue {case}: {epilogue.LAUNCHES['epilogue']} launches")
+        want = plain()
+        same = [_same_bits(g, w) for g, w in zip(got, want)]
+        label = f"{kind} {'x'.join(map(str, shape))} {act_fn}{' pool' if pool else ''}"
+        if not all(same):
+            bad = next(i for i, ok in enumerate(same) if not ok)
+            diff = (got[bad].float() - want[bad].float()).abs().nan_to_num(float("inf"))
+            raise AssertionError(f"epilogue {label}: {('skip', 'pooled')[bad]} differs from "
+                                 f"the ATen ops at {int((diff != 0).sum())} places")
+        row = {"label": label, "case": case}
+        if shape[0] == CONV_BATCH:
+            times = {"kernel": [], "plain": []}
+            for name in ("kernel", "plain", "plain", "kernel"):
+                times[name].append(graph_ms(kernel if name == "kernel" else plain,
+                                            iters=10, replays=5))
+            row.update(ms=float(np.mean(times["kernel"])),
+                       plain_ms=float(np.mean(times["plain"])),
+                       bound_ms=epilogue_bytes(kind, shape, pool) / PEAK_BYTES * 1e3)
+        rows.append(row)
+        del got, want, kernel, plain
+    timed = [r for r in rows if "ms" in r]
+    total = {k: sum(r[k] for r in timed) for k in ("ms", "plain_ms", "bound_ms")}
+    log("epilogue", "bitwise equal to the ATen ops at every call; CUDA graphs, kernel / "
+        "ATen ops / bound ms (share of bound): " + "; ".join(
+            f"{r['label']}: {r['ms']:.4f} / {r['plain_ms']:.4f} / {r['bound_ms']:.4f} "
+            f"({100 * r['bound_ms'] / r['ms']:.0f} %)" for r in timed)
+        + f"; a forward's 14 calls: {total['ms']:.3f} / {total['plain_ms']:.3f} / "
+        f"{total['bound_ms']:.3f} ms; ragged cases bitwise: "
+        + ", ".join(r["label"] for r in rows if "ms" not in r))
+    torch.cuda.empty_cache()
+
+    config = unet.flagship_config("geom-stereo")
+    base = random_model(config)
+    served = serving_model(base, device, "balanced16")
+    kwargs = unet.serving_precision("balanced16").apply_kwargs()
+    x = torch.randn((CONV_BATCH, TILE, TILE, config.n_input_channels),
+                    generator=generator, device=device)
+    aten = mock.patch.multiple(epilogue, trunk_epilogue=epilogue.trunk_epilogue_plain,
+                               skip_add_epilogue=epilogue.skip_add_epilogue_plain)
+    with torch.inference_mode():
+        forward = {}
+        for name in ("kernel", "aten", "aten", "kernel"):
+            with (aten if name == "aten" else contextlib.nullcontext()):
+                forward.setdefault(name, []).append(
+                    cuda_ms(lambda: unet.apply_unet(served, x, **kwargs), iters=5, warmup=2))
+        with aten:
+            want = unet.apply_unet(served, x, **kwargs)
+            aten_breakdown = device_breakdown(lambda: unet.apply_unet(served, x, **kwargs))
+        got = unet.apply_unet(served, x, **kwargs)
+        breakdown = device_breakdown(lambda: unet.apply_unet(served, x, **kwargs))
+    if not _same_bits(got, want):
+        raise AssertionError("the balanced16 forward with the kernel differs from the ATen ops")
+    for name, b in (("kernel", breakdown), ("aten", aten_breakdown)):
+        walls = ", ".join(f"{v:.2f}" for v in forward[name])
+        top = sorted(b.get("names", {}).items(), key=lambda kv: -kv[1])[:16]
+        log("epilogue", f"a balanced16 forward at batch {CONV_BATCH} with the {name} "
+            f"epilogue: {float(np.mean(forward[name])):.2f} ms (CUDA events: {walls}); "
+            "device ms by kernel: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    del x, got, want
+    torch.cuda.empty_cache()
+
+    small = []
+    for up_mode, folded in EPILOGUE_MODELS:
+        small_config = unet.UNetConfig(n_input_channels=3, start_kernel=4, max_filter_depth=16,
+                                       depth=3, act_fn_encoder="prelu",
+                                       act_fn_decoder="lrelu", up_mode=up_mode)
+        model = random_model(small_config).to(device)
+        if folded:
+            model = unet.fold_serving(model)
+        x = torch.randn((4, 64, 64, 3), generator=generator, device=device)
+        for mode in ("mixed", "balanced16", "bf16_compute"):
+            args = ((x.to(torch.bfloat16),), {}) if mode == "bf16_compute" else (
+                (x,), unet.serving_precision(mode).apply_kwargs())
+            epilogue.LAUNCHES["epilogue"] = 0
+            with torch.inference_mode():
+                got = unet.apply_unet(model, *args[0], **args[1])
+                with aten:
+                    want = unet.apply_unet(model, *args[0], **args[1])
+            torch.cuda.synchronize()
+            label = f"{up_mode} {'folded' if folded else 'unfolded'} {mode}"
+            if not _same_bits(got, want):
+                raise AssertionError(f"small model, {label}: the forward with the kernel "
+                                     f"differs from the ATen ops")
+            small.append(f"{label} ({epilogue.LAUNCHES['epilogue']} launches)")
+    log("epilogue", "small models' forwards bitwise the ATen ops': " + ", ".join(small))
+
+    scene = write_scene(os.path.join(work, "epilogue_scene"), EPILOGUE_SCENE, EPILOGUE_SCENE)
+    ds = _tile_dataset(scene["paths"], EPILOGUE_SCENE, scene["image_mean"],
+                       scene["image_std"])
+    n_batches = -(-len(ds.positions) // EPILOGUE_SCENE_BATCH)
+    models = {mode: serving_model(base, device, mode) for mode in ("mixed", "balanced16")}
+
+    def run(mode, tta):
+        return predict_linear_blend(models[mode], ds, device=device,
+                                    batch_size=EPILOGUE_SCENE_BATCH, compute_dtype=mode,
+                                    use_pallas="fused", fold_bn=False, tta=tta, as_numpy=False)
+
+    scenes = []
+    for mode, tta in EPILOGUE_TTA:
+        epilogue.LAUNCHES["epilogue"] = 0
+        canvas = run(mode, tta)
+        torch.cuda.synchronize()
+        launches = epilogue.LAUNCHES["epilogue"]
+        if launches != 14 * n_batches * tta:
+            raise AssertionError(f"{mode} at tta {tta}: the scene's {n_batches} batches "
+                                 f"launched the epilogue {launches} times, not "
+                                 f"{14 * n_batches * tta}")
+        with aten:
+            want = run(mode, tta)
+        if not _same_bits(canvas, want):
+            raise AssertionError(f"{mode} at tta {tta}: the scene with the kernel differs "
+                                 f"from the ATen ops' (K2)")
+        scenes.append(f"{mode} tta {tta} ({launches} launches)")
+        del canvas, want
+    log("epilogue", f"{EPILOGUE_SCENE}^2 scene, {len(ds.positions)} tiles in {n_batches} "
+        f"batches, canvas bitwise the ATen ops' (K2), 14 launches a batch and rotation: "
+        + ", ".join(scenes))
+    return {"rows": rows, **total,
+            "forward_ms": {k: float(np.mean(v)) for k, v in forward.items()}}
+
+
 @contextlib.contextmanager
 def _timed_train_steps():
     """Wrap the train CLI's train step with CUDA events while the block
@@ -2719,18 +3012,32 @@ def held_kernels(record: dict):
     ``models.unet`` and ``ops.passes`` call it) to ``conv3x3_bias_act_plain``
     within 1e-4 of the largest output, K2 bitwise and K1 within
     ``k1_ulps`` of the cover to the plain stitch on the CPU over a copy of
-    the canvas. The plain versions launch no kernel, so the counters see
-    only the path's launches. ``record["k3"]`` gets ``(x shape, Cout,
-    passes, err, bar)`` a call, ``record["k1"]``/``["k2"]`` ``(tile,
-    batch, canvas shape, err, bar)``; a call out of its bar raises."""
+    the canvas, the trunk epilogue bitwise to its plain version. The plain
+    versions launch no kernel, so the counters see only the path's
+    launches. ``record["k3"]`` gets ``(x shape, Cout, passes, err, bar)`` a
+    call, ``record["k1"]``/``["k2"]`` ``(tile, batch, canvas shape, err,
+    bar)``, ``record["epilogue"]`` ``(shape, 0.0, 0.0)``; a call out of its
+    bar raises."""
     from unittest import mock
 
     from resdepth_tpu_torch.models import unet
-    from resdepth_tpu_torch.ops import conv, stitch
+    from resdepth_tpu_torch.ops import conv, epilogue, stitch
 
     k3, stitch_call = conv.conv3x3_bias_act, stitch.stitch_tiles
-    for key in ("k1", "k2", "k3"):
+    trunk, skip_add = epilogue.trunk_epilogue, epilogue.skip_add_epilogue
+    for key in ("k1", "k2", "k3", "epilogue"):
         record.setdefault(key, [])
+
+    def held(kernel, plain, first, *args, **kwargs):
+        got = kernel(first, *args, **kwargs)
+        if first.device.type == "cuda":
+            want = plain(first, *args, **kwargs)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            if not all(_same_bits(g, w) for g, w in pairs):
+                raise AssertionError(f"the trunk epilogue at {tuple(first.shape)} differs "
+                                     f"from its plain version")
+            record["epilogue"].append((tuple(first.shape), 0.0, 0.0))
+        return got
 
     def k3_held(x, kernel, bias=None, act_param=None, *, act_fn="relu", passes=None):
         y = k3(x, kernel, bias, act_param, act_fn=act_fn, passes=passes)
@@ -2769,13 +3076,17 @@ def held_kernels(record: dict):
 
     with mock.patch.object(conv, "conv3x3_bias_act", k3_held), \
             mock.patch.object(unet, "conv3x3_bias_act", k3_held), \
-            mock.patch.object(stitch, "stitch_tiles", stitch_held):
+            mock.patch.object(stitch, "stitch_tiles", stitch_held), \
+            mock.patch.object(epilogue, "trunk_epilogue", functools.partial(
+                held, trunk, epilogue.trunk_epilogue_plain)), \
+            mock.patch.object(epilogue, "skip_add_epilogue", functools.partial(
+                held, skip_add, epilogue.skip_add_epilogue_plain)):
         yield record
 
 
 def _held_summary(record: dict) -> str:
     parts = []
-    for key in ("k3", "k2", "k1"):
+    for key in ("k3", "k2", "k1", "epilogue"):
         calls = record.get(key, [])
         if calls:
             worst = max(calls, key=lambda c: c[-2] / c[-1] if c[-1] else c[-2])
@@ -3969,7 +4280,8 @@ def main(argv: list | None = None) -> int:
                              "to compare two checkouts on one card; prints no "
                              "result line")
     parser.add_argument("--phase", action="append",
-                        choices=("conv", "studies", "config-smoke", "dryrun", "crop"),
+                        choices=("conv", "epilogue", "studies", "config-smoke", "dryrun",
+                                 "crop"),
                         help="run phases 1-2 and only this phase (repeatable), to "
                              "iterate on it; prints no result line")
     parser.add_argument("--dp-rank", metavar="PLAN",
@@ -4001,6 +4313,9 @@ def main(argv: list | None = None) -> int:
         for name in args.phase:
             if name in ("conv", "dryrun"):
                 {"conv": phase_conv, "dryrun": phase_dryrun}[name]()
+                continue
+            if name == "epilogue":
+                phase_epilogue(WORK_DIR)
                 continue
             if name == "crop":
                 scene = write_scene(os.path.join(WORK_DIR, "scene"), SCENE_SIZE,
@@ -4034,6 +4349,7 @@ def main(argv: list | None = None) -> int:
     phase_modes_cli(WORK_DIR, scene, model)
 
     convs = phase_conv()
+    trunk_epilogue = phase_epilogue(WORK_DIR)
     channel_modes = phase_channel_modes(WORK_DIR)
     studies = phase_studies(os.path.join(WORK_DIR, "studies"))
     smoke = phase_config_smoke(WORK_DIR)
@@ -4100,6 +4416,17 @@ def main(argv: list | None = None) -> int:
             ("wide_f32", f"{name}_wide_f32 (float32, Cout > 8 outside narrow_k's range)"),
             ("narrow", f"{name}_narrow (float32, Cout <= 8)"),
             ("narrow_k", "conv3x3_bias_act_narrow_k (float32, Cin <= 4, 8 < Cout <= 64)"))]
+    # the trunk epilogue: its launches on the mode paths (phase modes), its
+    # times over one balanced16 forward's 14 calls (its plain version is the
+    # ATen ops)
+    record["kernels"].append(
+        {"name": "trunk_epilogue_kernel", "route": "cuda",
+         "source": "resdepth_tpu_torch/csrc/epilogue.cu",
+         "replaces": "none (XLA fuses these elementwise ops on the TPU)",
+         "launches": modes["launches"]["epilogue"], "max_abs_err": 0.0,
+         "ms": trunk_epilogue["ms"], "plain_ms": trunk_epilogue["plain_ms"],
+         "bound_ms": trunk_epilogue["bound_ms"], "bound_by": "bytes",
+         "library_ms": trunk_epilogue["plain_ms"]})
     print(json.dumps(record))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from resdepth_tpu_torch.ops import passes as pass_ops
+from resdepth_tpu_torch.ops import epilogue, passes as pass_ops
 from resdepth_tpu_torch.ops.conv import _activate, conv3x3_bias_act
 from resdepth_tpu_torch.parallel import mesh
 
@@ -319,16 +319,15 @@ class UNet(nn.Module):
         skips = []
         out = ops.input(x)
         for i, level in enumerate(self.encoder):
-            out = ops.trunk(ops.block(f"encoder.{i}.0", level[0], out))
-            skips.append(out)
-            out = level[1](out)
+            skip, out = ops.encoder(f"encoder.{i}.0", level, out)
+            skips.append(skip)
         out = ops.block("bottleneck", self.bottleneck, out)
         for i, level in enumerate(self.decoder):
             if i < self.config.depth - 1:
-                out = skips[-1 - i] + ops.up(i, level[0], out)   # additive skip
+                out = ops.decoder(i, level[0], skips[-1 - i], out)
                 out = ops.block(f"decoder.{i}.1", level[1], out)
-            else:
-                out = skips[0] + ops.up(i, level, out)   # deepest level: no conv after
+            else:   # deepest level: no conv after the skip
+                out = ops.decoder(i, level, skips[0], out)
         if self.top_composed is not None:
             out = ops.top(self.top_composed, skips[0], out, self.last_layer)
         else:
@@ -357,6 +356,16 @@ class _Layers:
     def trunk(self, x):
         """An encoder block's output as the trunk stores it."""
         return x
+
+    def encoder(self, prefix, level, x):
+        """An encoder level -> ``(skip, pooled)``: the block, the trunk's
+        storage of its output, the level's 2x2 max-pool."""
+        skip = self.trunk(self.block(prefix, level[0], x))
+        return skip, level[1](skip)
+
+    def decoder(self, i, module, skip, x):
+        """A decoder level's additive skip: ``skip + up(x)``."""
+        return skip + self.up(i, module, x)
 
     def block(self, prefix, seq, x):
         if not self.train:
@@ -536,6 +545,12 @@ class _AtPrecision(_Layers):
     top on f32-upcast activations with f32 weights. The bias map of a
     composed top is exact float32 (HIGHEST), as in JAX.
 
+    In eval, the bf16 trunk's elementwise work after each conv (bias,
+    activation, the cast of a float32 encoder0 output, the 2x2 max-pool,
+    the upsampling's bias and the additive skip) is one pass of
+    ``ops.epilogue``, bitwise the separate ops (``_block_at``,
+    ``_upconv_bf16``); float32 storage keeps its ops.
+
     In training (``_block_train_at``) BatchNorm takes the batch's
     statistics in float32, cast back to the conv's dtype, and the activation
     is a separate op; an f32 conv with a pass count runs, and takes its
@@ -552,22 +567,50 @@ class _AtPrecision(_Layers):
         return Precision.HIGH if precision is None else precision
 
     def input(self, x):
-        if not self.mode.mixed:
-            return x
-        if x.dtype != torch.float32:
-            raise ValueError(f"mixed_precision needs a float32 input, got {x.dtype}")
-        # hifi_endpoints: the first conv reads the raw f32 input
-        return x if self.mode.hifi_endpoints else x.to(torch.bfloat16)
+        if self.mode.mixed:
+            if x.dtype != torch.float32:
+                raise ValueError(f"mixed_precision needs a float32 input, got {x.dtype}")
+            # hifi_endpoints: the first conv reads the raw f32 input
+            x = x if self.mode.hifi_endpoints else x.to(torch.bfloat16)
+        if x.dtype == torch.bfloat16 and not self.train:
+            # the epilogue reads NHWC memory, and cuDNN writes its output in
+            # the layout of its input: lay out a rotated view (test-time
+            # augmentation) so; no value changes
+            x = x.contiguous(memory_format=torch.channels_last)
+        return x
 
     def trunk(self, x):
         return x.to(torch.bfloat16) if self.mode.mixed else x
 
-    def block(self, prefix, seq, x):
+    def _block_precision(self, prefix):
         # "encoder.0.0" -> encoder0, "decoder.1.1" -> decoder1, "bottleneck"
-        precision = self._precision("".join(prefix.split(".")[:2]))
-        if not self.train:
-            return _block_at(seq, x, precision)
-        return self._train_block(prefix, _block_train_at, seq, x, precision)
+        return self._precision("".join(prefix.split(".")[:2]))
+
+    def encoder(self, prefix, level, x):
+        if self.train:
+            return super().encoder(prefix, level, x)
+        return self._eval_block(prefix, level[0], x, level[1])
+
+    def decoder(self, i, module, skip, x):
+        if self.train or x.dtype != torch.bfloat16:
+            return super().decoder(i, module, skip, x)
+        return epilogue.skip_add_epilogue(*_upconv_bf16(module, x), skip)
+
+    def block(self, prefix, seq, x):
+        if self.train:
+            return self._train_block(prefix, _block_train_at, seq, x,
+                                     self._block_precision(prefix))
+        return self._eval_block(prefix, seq, x)[0]
+
+    def _eval_block(self, prefix, seq, x, pool=None):
+        """An eval conv block -> ``(out, pool(out) or None)``. On the bf16
+        trunk (a bf16 conv, or ``mixed``'s storage of an f32 encoder0) the
+        bias, activation, cast and pool are one pass of the epilogue."""
+        y, bias, act_fn, slope = _block_at(seq, x, self._block_precision(prefix))
+        if y.dtype == torch.bfloat16 or (pool is not None and self.mode.mixed):
+            return epilogue.trunk_epilogue(y, bias, slope, act_fn=act_fn,
+                                           pool=pool is not None)
+        return y, None if pool is None else pool(y)
 
     def up(self, i, module, x):
         return _upconv_at(module, x, self._precision(f"up{i}"))
@@ -615,6 +658,12 @@ def _add_bias(y, bias):
     return y if bias is None else y + bias.to(y.dtype).view(-1, 1, 1)
 
 
+def _conv3x3_bf16(x, weight):
+    """The same-padded 3x3 conv of bf16 NCHW ``x`` on cuDNN, its sums
+    rounded to bf16, before any bias."""
+    return F.conv2d(x, weight.to(x.dtype), None, padding=1)
+
+
 def _conv3x3(x, weight, bias, precision=None, act_fn="none", slope=None):
     """Same-padded 3x3 conv + bias + activation on NCHW ``x`` with an OIHW
     ``weight``, as the JAX ``_conv`` at ``precision``. bf16 ``x``: cuDNN in
@@ -622,7 +671,7 @@ def _conv3x3(x, weight, bias, precision=None, act_fn="none", slope=None):
     kernel K3 at the precision's passes, or IEEE float32 where it has none
     (``precision_passes``)."""
     if x.dtype == torch.bfloat16:
-        y = _add_bias(F.conv2d(x, weight.to(x.dtype), None, padding=1), bias)
+        y = _add_bias(_conv3x3_bf16(x, weight), bias)
         return _activate_nchw(y, act_fn, slope)
     passes = precision_passes(precision)
     if passes is None:
@@ -633,13 +682,25 @@ def _conv3x3(x, weight, bias, precision=None, act_fn="none", slope=None):
 
 
 def _block_at(seq: nn.Sequential, x, precision):
-    """conv (+BN with running statistics) + activation at ``precision``."""
+    """An eval conv (+BN with running statistics) + activation at
+    ``precision`` -> ``(y, bias, act_fn, slope)``, what is left of it for
+    ``ops.epilogue.trunk_epilogue``. bf16 ``x``: the raw cuDNN conv (+BN in
+    float32, cast back), its bias and activation left; f32 ``x``: the whole
+    block (K3 applies bias and activation), nothing left."""
     conv = seq[0]
     act_fn, slope = _act_spec(seq[-1], conv.out_channels)
-    if not isinstance(seq[1], nn.BatchNorm2d):
-        return _conv3x3(x, conv.weight, conv.bias, precision, act_fn, slope)
-    y = _conv3x3(x, conv.weight, conv.bias, precision)
-    return _activate_nchw(_batch_norm_f32(seq[1], y), act_fn, slope)
+    bn = seq[1] if isinstance(seq[1], nn.BatchNorm2d) else None
+    if x.dtype == torch.bfloat16:
+        y = _conv3x3_bf16(x, conv.weight)
+        if bn is None:
+            return y, conv.bias, act_fn, slope
+        return _batch_norm_f32(bn, _add_bias(y, conv.bias)), None, act_fn, slope
+    if bn is None:
+        y = _conv3x3(x, conv.weight, conv.bias, precision, act_fn, slope)
+    else:
+        y = _activate_nchw(_batch_norm_f32(bn, _conv3x3(x, conv.weight, conv.bias, precision)),
+                           act_fn, slope)
+    return y, None, "none", None
 
 
 def _conv3x3_train(x, weight, bias, precision):
@@ -679,17 +740,28 @@ def _resize2x(x):
     return x
 
 
+def _upconv_bf16(module: nn.Module, x):
+    """The 2x upsampling of bf16 ``x`` in bf16 before its bias -> ``(u,
+    bias)``: the 2x2 stride-2 transposed conv, or the half-pixel bilinear
+    resize (``_resize2x``) and the 1x1 conv."""
+    transpose = isinstance(module, nn.ConvTranspose2d)
+    conv = module if transpose else module[1]
+    if transpose:
+        return pass_ops.conv_transpose2d(x, conv.weight.to(x.dtype)), conv.bias
+    return pass_ops.conv2d(_resize2x(x), conv.weight.to(x.dtype)), conv.bias
+
+
 def _upconv_at(module: nn.Module, x, precision):
     """The 2x upsampling of ``x`` at ``precision`` (``ops.passes``, with
     gradients at its passes; bf16 ``x`` runs in bf16, its bias added after
     the conv's rounding): the 2x2 stride-2 transposed conv, or the
     half-pixel bilinear resize (``_resize2x``) and the 1x1 conv."""
+    if x.dtype == torch.bfloat16:
+        return _add_bias(*_upconv_bf16(module, x))
     transpose = isinstance(module, nn.ConvTranspose2d)
     conv = module if transpose else module[1]
     up = x if transpose else _resize2x(x)
     run = pass_ops.conv_transpose2d if transpose else pass_ops.conv2d
-    if x.dtype == torch.bfloat16:
-        return _add_bias(run(up, conv.weight.to(x.dtype)), conv.bias)
     passes = precision_passes(precision)
     if passes is None:
         return run(up, conv.weight, conv.bias)

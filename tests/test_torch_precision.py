@@ -21,6 +21,9 @@ convs through kernel K3's wrapper, whose plain version runs here).
 * The scene: ``predict_linear_blend(compute_dtype=mode)`` with real passes
   against the JAX scene of the mode (exact f32 on XLA:CPU), the CLI at
   ``balanced16``, and the K3 calls a forward makes.
+* The bf16 trunk's epilogue (``ops/epilogue.py``): the calls an eval
+  forward on the bf16 trunk makes, none off it, and the forward's bits
+  with the entries swapped for the separate ops they fuse.
 """
 
 import collections
@@ -41,7 +44,7 @@ from resdepth_tpu_torch.geo.raster import open_raster
 from resdepth_tpu_torch.infer import tiled as ttiled
 from resdepth_tpu_torch.models import unet as tunet
 from resdepth_tpu_torch.models import weights
-from resdepth_tpu_torch.ops import conv, passes
+from resdepth_tpu_torch.ops import conv, epilogue, passes
 from resdepth_tpu_torch.studies import precision_study
 from test_torch_conv import _f32_bar
 from test_torch_infer import _scene_datasets, _small_artifacts, _small_scene_models
@@ -302,6 +305,138 @@ def test_chip_smoke_traces_each_k3_conv():
     assert list(cases) == list(dict.fromkeys(blocks + top))
     assert cases[(16, 512, 512, "relu")] == {1: 4, 2: 2, 3: 0}
     assert cases[(256, 3, 64, "relu")] == {1: 1, 2: 1, 3: 2}
+
+
+def _parent_trunk(y, bias=None, slope=None, *, act_fn="none", pool=False):
+    """The separate ops ``ops.epilogue.trunk_epilogue`` fuses, as the UNet
+    ran them: the bias, the activation, the trunk's cast, the pool."""
+    skip = tunet._activate_nchw(tunet._add_bias(y, bias), act_fn, slope).to(torch.bfloat16)
+    return skip, torch.nn.MaxPool2d(2, 2)(skip) if pool else None
+
+
+def _parent_skip_add(u, bias, skip):
+    return skip + tunet._add_bias(u, bias)
+
+
+def _count_epilogue(monkeypatch) -> list:
+    """Record each call of the epilogue's two entries by name."""
+    calls = []
+    for name in ("trunk_epilogue", "skip_add_epilogue"):
+        def counted(*args, _real=getattr(epilogue, name), _name=name, **kwargs):
+            calls.append(_name)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(epilogue, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("folded", [True, False], ids=["folded", "unfolded"])
+@pytest.mark.parametrize("up_mode", ["transpose", "bilinear"])
+@pytest.mark.parametrize("mode", ["balanced16", "mixed", "bf16_compute"])
+def test_epilogue_calls_a_forward(monkeypatch, mode, up_mode, folded):
+    """An eval forward on the bf16 trunk of depth d hands the epilogue
+    every conv's output: d encoder blocks (with the pool), the bottleneck,
+    d - 1 decoder blocks and each upsampling with its skip: 3d - 1 with a
+    composed top (folded, transpose), else 3d. With the entries swapped for
+    the separate ops they fuse, the forward gives the same bits (unfolded:
+    BatchNorm in float32 before the epilogue, which adds no bias)."""
+    _, _, _, model = _folded_pair(up_mode, folded=folded)
+    x = torch.from_numpy(_input(3))
+    if mode == "bf16_compute":   # bfloat16 x on float32 weights
+        x, kwargs = x.to(torch.bfloat16), {}
+    else:
+        kwargs = tunet.serving_precision(mode).apply_kwargs()
+    calls = _count_epilogue(monkeypatch)
+    with torch.no_grad():
+        got = tunet.apply_unet(model, x, **kwargs)
+    depth = model.config.depth
+    composed = model.top_composed is not None
+    assert len(calls) == 3 * depth - composed
+    assert calls.count("skip_add_epilogue") == depth - composed
+    monkeypatch.setattr(epilogue, "trunk_epilogue", _parent_trunk)
+    monkeypatch.setattr(epilogue, "skip_add_epilogue", _parent_skip_add)
+    with torch.no_grad():
+        want = tunet.apply_unet(model, x, **kwargs)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == want.dtype and torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("case", ["fast32", "act2pass", "balanced", "bfloat16", "train"])
+def test_epilogue_not_called_off_the_bf16_trunk(monkeypatch, case):
+    """The f32-storage modes, the module's own layers in bfloat16 and a
+    training forward (``balanced16``'s bf16 trunk under autograd) keep
+    their separate ops: no epilogue call."""
+    _, _, _, model = _folded_pair("transpose")
+    x = torch.from_numpy(_input(3))
+    calls = _count_epilogue(monkeypatch)
+    if case == "train":
+        y, _ = tunet.apply_unet(model, x, train=True,
+                                **tunet.serving_precision("balanced16").apply_kwargs())
+        y.sum().backward()
+    elif case == "bfloat16":
+        with torch.no_grad():
+            tunet.apply_unet(model.to(torch.bfloat16), x.to(torch.bfloat16))
+    else:
+        with torch.no_grad():
+            tunet.apply_unet(model, x, **tunet.serving_precision(case).apply_kwargs())
+    assert calls == []
+
+
+@pytest.mark.parametrize("g", range(8))
+@pytest.mark.parametrize("mode", ["balanced16", "mixed", "bf16_compute"])
+def test_epilogue_reads_nhwc_under_tta(monkeypatch, mode, g):
+    """Test-time augmentation hands the forward a rotated or flipped view
+    of the tiles (``infer.tiled._dihedral_apply``); each epilogue input
+    still lies in channels-last memory, as the kernel demands on the card
+    (the CPU's convs lay out their outputs as cuDNN does, after their
+    input), and the forward is the unrotated layout's, bit for bit."""
+    _, _, _, model = _folded_pair("transpose")
+    x = torch.from_numpy(_input(3))
+    if mode == "bf16_compute":
+        x, kwargs = x.to(torch.bfloat16), {}
+    else:
+        kwargs = tunet.serving_precision(mode).apply_kwargs()
+    calls = []
+
+    def checked(name, real):
+        def entry(*args, **kwargs):
+            for t in args[:1] + args[2:]:
+                if isinstance(t, torch.Tensor) and t.dim() == 4:
+                    epilogue.check_layout(t, name)
+            calls.append(name)
+            return real(*args, **kwargs)
+        return entry
+
+    view = ttiled._dihedral_apply(x, g)
+    monkeypatch.setattr(epilogue, "trunk_epilogue",
+                        checked("trunk_epilogue", epilogue.trunk_epilogue))
+    monkeypatch.setattr(epilogue, "skip_add_epilogue",
+                        checked("skip_add_epilogue", epilogue.skip_add_epilogue))
+    with torch.no_grad():
+        got = tunet.apply_unet(model, view, **kwargs)
+        want = tunet.apply_unet(model, view.contiguous(), **kwargs)
+    assert len(calls) == 2 * (3 * model.config.depth - 1)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits))
+
+
+def test_chip_smoke_traces_each_epilogue_call():
+    """``chip_smoke.py --phase epilogue`` holds the kernel at the 14 calls
+    a balanced16 forward of the served flagship makes at batch 128 (traced
+    on meta tensors): encoder0's float32 cast and the other encoders'
+    blocks pooled, the bottleneck, then each level's skip add and block."""
+    calls = chip_smoke.epilogue_calls("balanced16")
+    widths, sizes = (64, 128, 256, 512, 512), (256, 128, 64, 32, 16)
+    encoders = [("cast" if i == 0 else "block", (128, c, h, h), "relu" if i else "none", True)
+                for i, (c, h) in enumerate(zip(widths, sizes))]
+    decoders = []
+    for c_up, c_out, h in ((512, 512, 16), (512, 256, 32), (256, 128, 64), (128, 64, 128)):
+        decoders += [("skip", (128, c_up, h, h), "none", False),
+                     ("block", (128, c_out, h, h), "relu", False)]
+    assert calls == encoders + [("block", (128, 512, 8, 8), "relu", False)] + decoders
+    assert [c[:2] for c in chip_smoke.epilogue_calls("mixed")][1:] == [c[:2] for c in calls][1:]
+    assert chip_smoke.epilogue_calls("mixed")[0] == ("block", (128, 64, 256, 256), "relu", True)
+    assert chip_smoke.epilogue_calls("fast32") == []
 
 
 def test_mixed_bilinear_last_conv_at_high(monkeypatch):
