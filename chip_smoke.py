@@ -23,7 +23,9 @@ found:
      and with two others), each beside its bound (the bytes they must
      move);
   4. flagship: a seeded 4096x4096 geom-stereo scene (961 tiles) refined by
-     the CLI with K1 and with K2, in float32 (TF32 off) and in bfloat16;
+     the CLI with K1 and with K2, in float32 (TF32 off) and in bfloat16
+     (whose trunk runs the epilogue kernel, ``ops/epilogue.py``, after each
+     cuDNN conv, as the bf16 trunk of mixed and balanced16 does);
      the outputs exist and are finite, the launch counters show that every
      stitch went through the kernels, and the K1 and K2 scenes agree;
      "steady": the float32 and bfloat16 scene with rasters resident;
@@ -62,7 +64,13 @@ found:
      (Cin <= 4, 8 < Cout <= 64) at encoder0, the last conv's dx in
      training, the channel modes' first convs and ragged shapes; the
      narrow ones timed beside wide_f32 on the same calls; and the layouts
-     the served flagship hands each;
+     the served flagship hands each; "epilogue": the bf16 trunk's epilogue
+     kernel bitwise the ATen ops it fuses at the 14 calls of a balanced16
+     forward and at ragged ones, a forward both ways, small models
+     (mixed, balanced16, bfloat16 input on float32 weights, bfloat16
+     storage), and a 1024^2 scene served at mixed, balanced16 and
+     bfloat16 storage with test-time augmentation, 14 launches a batch and
+     rotation, the canvas bitwise the ATen ops';
   7. train: the flagship trained on a seeded 2048x2048 scene by the train
      CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
      float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
@@ -129,8 +137,9 @@ found:
      plain version, and each leg's launches counted.
 
 ``python3 chip_smoke.py --phase studies --phase config-smoke`` runs phases
-1 and 2 and the phases named (also ``conv``, phase 6, ``dryrun`` and
-``crop``, phase 5's crop on the seeded scene), and prints no result line.
+1 and 2 and the phases named (also ``conv``, phase 6, ``epilogue``,
+``dryrun`` and ``crop``, phase 5's crop on the seeded scene), and prints no
+result line.
 ``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
 kernels' times over the scene's batches alone, and prints no result line:
 run in two checkouts in one call, it compares their stitches on one card.
@@ -249,15 +258,17 @@ EPILOGUE_RAGGED = (("block", (2, 24, 7, 9), "prelu", True),
 # The scene served with test-time augmentation (``predict_linear_blend``,
 # 49 tiles in batches of EPILOGUE_SCENE_BATCH; each rotated batch reaches
 # the forward as a transposed view), through K2 so that the canvas can be
-# held bitwise to the one the ATen ops give, at each (mode, tta) of
-# EPILOGUE_TTA.
+# held bitwise to the one the ATen ops give, at each (compute_dtype, tta)
+# of EPILOGUE_TTA: a serving mode, or bfloat16 storage.
 EPILOGUE_SCENE, EPILOGUE_SCENE_BATCH = 1024, 16
-EPILOGUE_TTA = (("mixed", 4), ("mixed", 8), ("balanced16", 8))
+EPILOGUE_TTA = (("mixed", 4), ("mixed", 8), ("balanced16", 8), (torch.bfloat16, 1),
+                (torch.bfloat16, 8))
 # Small models whose forwards hold the kernel to the ATen ops bitwise in
 # every path that reaches it: depth 3, start 4 (widths 4, 8, 16: one
 # channel a thread at 4), PReLU encoders and LeakyReLU decoders, in both
 # up modes, folded and not (BatchNorm before the epilogue), at mixed,
-# balanced16 and bfloat16 input on float32 weights, 4 tiles of 64.
+# balanced16, bfloat16 input on float32 weights and bfloat16 storage, 4
+# tiles of 64.
 EPILOGUE_MODELS = tuple((up_mode, folded) for up_mode in ("transpose", "bilinear")
                         for folded in (True, False))
 
@@ -2273,14 +2284,16 @@ def phase_epilogue(work: str) -> dict:
         if folded:
             model = unet.fold_serving(model)
         x = torch.randn((4, 64, 64, 3), generator=generator, device=device)
-        for mode in ("mixed", "balanced16", "bf16_compute"):
-            args = ((x.to(torch.bfloat16),), {}) if mode == "bf16_compute" else (
+        for mode in ("mixed", "balanced16", "bf16_compute", "bf16_storage"):
+            args = ((x.to(torch.bfloat16),), {}) if mode.startswith("bf16") else (
                 (x,), unet.serving_precision(mode).apply_kwargs())
+            # bf16_storage comes last: ``.to`` converts the model in place
+            served = model.to(torch.bfloat16) if mode == "bf16_storage" else model
             epilogue.LAUNCHES["epilogue"] = 0
             with torch.inference_mode():
-                got = unet.apply_unet(model, *args[0], **args[1])
+                got = unet.apply_unet(served, *args[0], **args[1])
                 with aten:
-                    want = unet.apply_unet(model, *args[0], **args[1])
+                    want = unet.apply_unet(served, *args[0], **args[1])
             torch.cuda.synchronize()
             label = f"{up_mode} {'folded' if folded else 'unfolded'} {mode}"
             if not _same_bits(got, want):
@@ -2293,7 +2306,7 @@ def phase_epilogue(work: str) -> dict:
     ds = _tile_dataset(scene["paths"], EPILOGUE_SCENE, scene["image_mean"],
                        scene["image_std"])
     n_batches = -(-len(ds.positions) // EPILOGUE_SCENE_BATCH)
-    models = {mode: serving_model(base, device, mode) for mode in ("mixed", "balanced16")}
+    models = {mode: serving_model(base, device, mode) for mode, _ in EPILOGUE_TTA}
 
     def run(mode, tta):
         return predict_linear_blend(models[mode], ds, device=device,
@@ -2302,20 +2315,21 @@ def phase_epilogue(work: str) -> dict:
 
     scenes = []
     for mode, tta in EPILOGUE_TTA:
+        label = str(mode).removeprefix("torch.")
         epilogue.LAUNCHES["epilogue"] = 0
         canvas = run(mode, tta)
         torch.cuda.synchronize()
         launches = epilogue.LAUNCHES["epilogue"]
         if launches != 14 * n_batches * tta:
-            raise AssertionError(f"{mode} at tta {tta}: the scene's {n_batches} batches "
+            raise AssertionError(f"{label} at tta {tta}: the scene's {n_batches} batches "
                                  f"launched the epilogue {launches} times, not "
                                  f"{14 * n_batches * tta}")
         with aten:
             want = run(mode, tta)
         if not _same_bits(canvas, want):
-            raise AssertionError(f"{mode} at tta {tta}: the scene with the kernel differs "
+            raise AssertionError(f"{label} at tta {tta}: the scene with the kernel differs "
                                  f"from the ATen ops' (K2)")
-        scenes.append(f"{mode} tta {tta} ({launches} launches)")
+        scenes.append(f"{label} tta {tta} ({launches} launches)")
         del canvas, want
     log("epilogue", f"{EPILOGUE_SCENE}^2 scene, {len(ds.positions)} tiles in {n_batches} "
         f"batches, canvas bitwise the ATen ops' (K2), 14 launches a batch and rotation: "

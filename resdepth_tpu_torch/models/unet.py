@@ -79,9 +79,8 @@ _PASSES = {Precision.DEFAULT: 1, (Precision.HIGH, Precision.DEFAULT): 2,
 
 def precision_passes(precision) -> int | None:
     """bf16 passes of ``precision`` on float32 operands; None for exact
-    float32: ``HIGHEST``, and None, which keeps the port's float32 meaning
-    (IEEE; the JAX package reads None on float32 as HIGH)."""
-    if precision is None or precision == Precision.HIGHEST:
+    float32 (``HIGHEST``)."""
+    if precision == Precision.HIGHEST:
         return None
     if precision not in _PASSES:
         raise ValueError(f"unknown precision {precision!r}: one of "
@@ -220,6 +219,8 @@ class ComposedTop(nn.Module):
     to the four pixel phases (channel ``2a + b`` for output row ``2i + a``,
     column ``2j + b``, which is ``F.pixel_shuffle``'s order), plus the map
     the upconv bias leaves through the final conv's zero padding.
+    ``UNet.run`` evaluates it at the policy's precision
+    (``_composed_top_at``).
     """
 
     def __init__(self, c_d1: int):
@@ -235,9 +236,6 @@ class ComposedTop(nn.Module):
         if self.s_map.dtype != torch.float32:
             self.s_map = s_map.to(self.s_map.device)
         return self
-
-    def forward(self, skip, d1, last: nn.Conv2d):
-        return _composed_top_at(self, last, skip, d1)
 
 
 class UNet(nn.Module):
@@ -309,13 +307,15 @@ class UNet(nn.Module):
         its new value, and is empty otherwise. ``remat`` (training only)
         recomputes each conv(+BN+act) block in the backward pass
         (``torch.utils.checkpoint``) instead of storing its activations.
-        ``serving`` runs the same graph at a serving mode's or a training
-        policy's precisions and casts (``_AtPrecision``) instead of the
-        module's own layers. ``group`` (training) takes BatchNorm's batch
-        statistics over every rank of a ``torch.distributed`` group
-        (``batch_norm_train``)."""
-        ops = (_Layers(train, sample_weights, remat, group) if serving is None
-               else _AtPrecision(serving, train, sample_weights, remat, group))
+        ``serving`` is the precision policy, a serving mode's or a training
+        policy's (``_AtPrecision``); None is the module's own arithmetic,
+        the ``HIGHEST`` policy: IEEE float32 on float32 operands, the
+        native pass on bfloat16 ones. ``group`` (training) takes
+        BatchNorm's batch statistics over every rank of a
+        ``torch.distributed`` group (``batch_norm_train``)."""
+        if serving is None:
+            serving = ServingMode(precision=Precision.HIGHEST)
+        ops = _AtPrecision(serving, train, sample_weights, remat, group)
         skips = []
         out = ops.input(x)
         for i, level in enumerate(self.encoder):
@@ -337,78 +337,6 @@ class UNet(nn.Module):
             bn = self.layer_outer_skip[0] if self.config.outer_skip_BN else None
             out = out + ops.outer_skip(bn, x[:, 0:1])
         return out, ops.bn_state
-
-
-class _Layers:
-    """The layers of ``UNet.run``: the module's own, in its dtype, with
-    BatchNorm on running statistics, or in training on the batch's (their
-    new running values collected in ``bn_state``)."""
-
-    def __init__(self, train: bool, sample_weights, remat: bool, group=None):
-        self.train, self.sample_weights, self.remat = train, sample_weights, remat
-        self.group = group
-        self.bn_state: dict = {}
-
-    def input(self, x):
-        """The first conv's input."""
-        return x
-
-    def trunk(self, x):
-        """An encoder block's output as the trunk stores it."""
-        return x
-
-    def encoder(self, prefix, level, x):
-        """An encoder level -> ``(skip, pooled)``: the block, the trunk's
-        storage of its output, the level's 2x2 max-pool."""
-        skip = self.trunk(self.block(prefix, level[0], x))
-        return skip, level[1](skip)
-
-    def decoder(self, i, module, skip, x):
-        """A decoder level's additive skip: ``skip + up(x)``."""
-        return skip + self.up(i, module, x)
-
-    def block(self, prefix, seq, x):
-        if not self.train:
-            return _conv_block_eval(seq, x)
-        return self._train_block(prefix, _conv_block_train, seq, x)
-
-    def _train_block(self, prefix, fn, seq, x, *args):
-        """``fn(seq, x, sample_weights, group, *args) -> (out, mean, var)``,
-        under ``torch.utils.checkpoint`` with ``remat``; the BN statistics go
-        into ``bn_state``."""
-        args = (seq, x, self.sample_weights, self.group, *args)
-        if self.remat:
-            out, mean, var = torch.utils.checkpoint.checkpoint(
-                fn, *args, use_reentrant=False)
-        else:
-            out, mean, var = fn(*args)
-        if mean is not None:
-            self.bn_state[f"{prefix}.1.running_mean"] = mean
-            self.bn_state[f"{prefix}.1.running_var"] = var
-        return out
-
-    def up(self, i, module, x):
-        return module(x)
-
-    def top(self, top, skip, d1, last):
-        return top(skip, d1, last)
-
-    def last(self, last, x):
-        return last(x)
-
-    def result(self, y, x):
-        """The network's output before the outer skip."""
-        return y
-
-    def outer_skip(self, bn, x0):
-        if bn is None:
-            return x0
-        if not self.train:
-            return _batch_norm_eval(bn, x0)
-        x0, mean, var = batch_norm_train(bn, x0, self.sample_weights, self.group)
-        self.bn_state["layer_outer_skip.0.running_mean"] = mean
-        self.bn_state["layer_outer_skip.0.running_var"] = var
-        return x0
 
 
 def batch_norm_train(bn: nn.BatchNorm2d, x, sample_weights=None, group=None):
@@ -459,29 +387,6 @@ def batch_norm_train(bn: nn.BatchNorm2d, x, sample_weights=None, group=None):
     return y.to(x.dtype), new_mean, new_var
 
 
-def _batch_norm_eval(bn: nn.BatchNorm2d, x):
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                        False, 0.0, BN_EPS)
-
-
-def _conv_block_eval(seq: nn.Sequential, x):
-    """conv (+BN with running statistics) + activation."""
-    out = seq[0](x)
-    if isinstance(seq[1], nn.BatchNorm2d):
-        out = _batch_norm_eval(seq[1], out)
-    return seq[-1](out)
-
-
-def _conv_block_train(seq: nn.Sequential, x, sample_weights, group):
-    """conv (+BN with batch statistics) + activation -> ``(out, mean, var)``,
-    the BN's new running statistics (None without BN)."""
-    out = seq[0](x)
-    mean = var = None
-    if isinstance(seq[1], nn.BatchNorm2d):
-        out, mean, var = batch_norm_train(seq[1], out, sample_weights, group)
-    return seq[-1](out), mean, var
-
-
 def commit_bn_state(model: nn.Module, bn_state: dict) -> None:
     """Write new BatchNorm running statistics (``UNet.run``'s ``bn_state``)
     into ``model``'s buffers, in place."""
@@ -507,12 +412,13 @@ def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
 
     ``mixed_precision``, ``precision``, ``layer_precisions`` and
     ``hifi_endpoints`` are the JAX function's (``ServingMode.apply_kwargs``),
-    in eval and in training (``_AtPrecision``). An ``x`` in another dtype
-    than the parameters (bfloat16 compute on float32 weights) runs there
-    too: each conv casts its weights to ``x.dtype``, as the JAX graph does."""
+    in eval and in training (``_AtPrecision``); with none of them set the
+    forward is the module's own arithmetic (``UNet.run``'s ``HIGHEST``
+    policy). An ``x`` in another dtype than the parameters (bfloat16
+    compute on float32 weights) runs too: each conv casts its weights to
+    ``x.dtype``, as the JAX graph does."""
     serving = None
-    if (mixed_precision or precision is not None or layer_precisions
-            or x.dtype != model.last_layer.weight.dtype):
+    if mixed_precision or precision is not None or layer_precisions:
         serving = ServingMode(mixed_precision, precision, layer_precisions,
                               hifi_endpoints)
     y, bn_state = model.run(x.permute(0, 3, 1, 2), train=train,
@@ -527,23 +433,28 @@ def apply_unet(model: UNet, x: torch.Tensor, *, train: bool = False,
 # training: each conv casts its weights, as the JAX graph casts its kernels
 # per conv).
 
-class _AtPrecision(_Layers):
-    """``UNet.run``'s layers at a serving mode's or a training policy's
-    precisions: the forward of the JAX ``apply_unet`` with
-    ``mixed_precision``, ``precision``, ``layer_precisions`` and
-    ``hifi_endpoints``, in eval or in training.
+class _AtPrecision:
+    """``UNet.run``'s layers at a precision policy: the forward of the JAX
+    ``apply_unet`` with ``mixed_precision``, ``precision``,
+    ``layer_precisions`` and ``hifi_endpoints``, in eval with BatchNorm on
+    its running statistics, or in training on the batch's (their new
+    running values collected in ``bn_state``). The module's own arithmetic
+    is the ``HIGHEST`` policy: IEEE float32 on float32 operands, the native
+    pass on bfloat16 ones.
 
     Each conv takes the precision of its layer (``layer_precisions[name]``,
     else ``precision``), by the JAX names: ``encoder{i}``, ``bottleneck``,
     ``up{i}``, ``decoder{i}`` and ``last`` (both convs of a composed top).
-    None on float32 operands is HIGH, as the JAX package reads it (the
-    module's own float32 layers, ``serving`` None, are IEEE instead).
-    ``mixed`` (float32 input only) runs a bf16 trunk, cast where the JAX
-    graph casts: the input, every encoder output; the top gives float32 and
-    the outer skip adds the raw f32 channel 0. ``hifi_endpoints`` (with
-    ``mixed``) feeds ``encoder0`` the raw f32 input and runs the composed
-    top on f32-upcast activations with f32 weights. The bias map of a
-    composed top is exact float32 (HIGHEST), as in JAX.
+    A layer left without one is HIGH on float32 operands, as the JAX
+    package reads None. ``mixed`` (float32 input only) runs a bf16 trunk,
+    cast where the JAX graph casts: the input, every encoder output; the
+    top gives float32 and the outer skip adds the raw f32 channel 0.
+    ``hifi_endpoints`` (with ``mixed``) feeds ``encoder0`` the raw f32
+    input and runs the composed top on f32-upcast activations with f32
+    weights. The bias map of a composed top is exact float32 (HIGHEST), as
+    in JAX. A bf16 conv adds its bias after its sums are rounded to bf16,
+    and the bilinear 2x resize works one axis at a time (``_resize2x``),
+    the JAX orders.
 
     In eval, the bf16 trunk's elementwise work after each conv (bias,
     activation, the cast of a float32 encoder0 output, the 2x2 max-pool,
@@ -556,10 +467,12 @@ class _AtPrecision(_Layers):
     is a separate op; an f32 conv with a pass count runs, and takes its
     gradients, at those passes (``ops.passes.same_conv``, ``upconv2x2``)."""
 
-    def __init__(self, serving: ServingMode, train: bool = False,
-                 sample_weights=None, remat: bool = False, group=None):
-        super().__init__(train, sample_weights, remat, group)
+    def __init__(self, serving: ServingMode, train: bool, sample_weights, remat: bool,
+                 group):
         self.mode = serving
+        self.train, self.sample_weights, self.remat = train, sample_weights, remat
+        self.group = group
+        self.bn_state: dict = {}
 
     def _precision(self, name: str):
         layers = self.mode.layer_precisions or {}
@@ -567,6 +480,7 @@ class _AtPrecision(_Layers):
         return Precision.HIGH if precision is None else precision
 
     def input(self, x):
+        """The first conv's input."""
         if self.mode.mixed:
             if x.dtype != torch.float32:
                 raise ValueError(f"mixed_precision needs a float32 input, got {x.dtype}")
@@ -579,28 +493,40 @@ class _AtPrecision(_Layers):
             x = x.contiguous(memory_format=torch.channels_last)
         return x
 
-    def trunk(self, x):
-        return x.to(torch.bfloat16) if self.mode.mixed else x
-
     def _block_precision(self, prefix):
         # "encoder.0.0" -> encoder0, "decoder.1.1" -> decoder1, "bottleneck"
         return self._precision("".join(prefix.split(".")[:2]))
 
     def encoder(self, prefix, level, x):
-        if self.train:
-            return super().encoder(prefix, level, x)
-        return self._eval_block(prefix, level[0], x, level[1])
+        """An encoder level -> ``(skip, pooled)``: the block, the trunk's
+        storage of its output, the level's 2x2 max-pool."""
+        if not self.train:
+            return self._eval_block(prefix, level[0], x, level[1])
+        skip = self.block(prefix, level[0], x)
+        skip = skip.to(torch.bfloat16) if self.mode.mixed else skip
+        return skip, level[1](skip)
 
     def decoder(self, i, module, skip, x):
+        """A decoder level's additive skip: ``skip + up(x)``."""
         if self.train or x.dtype != torch.bfloat16:
-            return super().decoder(i, module, skip, x)
+            return skip + _upconv_at(module, x, self._precision(f"up{i}"))
         return epilogue.skip_add_epilogue(*_upconv_bf16(module, x), skip)
 
     def block(self, prefix, seq, x):
-        if self.train:
-            return self._train_block(prefix, _block_train_at, seq, x,
-                                     self._block_precision(prefix))
-        return self._eval_block(prefix, seq, x)[0]
+        """A conv block; in training under ``torch.utils.checkpoint`` with
+        ``remat``, its BN statistics into ``bn_state``."""
+        if not self.train:
+            return self._eval_block(prefix, seq, x)[0]
+        args = (seq, x, self.sample_weights, self.group, self._block_precision(prefix))
+        if self.remat:
+            out, mean, var = torch.utils.checkpoint.checkpoint(
+                _block_train_at, *args, use_reentrant=False)
+        else:
+            out, mean, var = _block_train_at(*args)
+        if mean is not None:
+            self.bn_state[f"{prefix}.1.running_mean"] = mean
+            self.bn_state[f"{prefix}.1.running_var"] = var
+        return out
 
     def _eval_block(self, prefix, seq, x, pool=None):
         """An eval conv block -> ``(out, pool(out) or None)``. On the bf16
@@ -612,9 +538,6 @@ class _AtPrecision(_Layers):
                                            pool=pool is not None)
         return y, None if pool is None else pool(y)
 
-    def up(self, i, module, x):
-        return _upconv_at(module, x, self._precision(f"up{i}"))
-
     def top(self, top, skip, d1, last):
         return _composed_top_at(top, last, skip, d1, self.mode.mixed,
                                 self._precision("last"), self.mode.hifi_endpoints)
@@ -625,12 +548,18 @@ class _AtPrecision(_Layers):
                     self._precision("last"))
 
     def result(self, y, x):
+        """The network's output before the outer skip."""
         return y.to(torch.float32 if self.mode.mixed else x.dtype)
 
     def outer_skip(self, bn, x0):
-        if self.train or bn is None:
-            return super().outer_skip(bn, x0)
-        return _batch_norm_f32(bn, x0)
+        if bn is None:
+            return x0
+        if not self.train:
+            return _batch_norm_f32(bn, x0)
+        x0, mean, var = batch_norm_train(bn, x0, self.sample_weights, self.group)
+        self.bn_state["layer_outer_skip.0.running_mean"] = mean
+        self.bn_state["layer_outer_skip.0.running_var"] = var
+        return x0
 
 
 def _act_spec(module: nn.Module, channels: int):
@@ -648,8 +577,10 @@ def _activate_nchw(y, act_fn, slope):
 
 
 def _batch_norm_f32(bn: nn.BatchNorm2d, x):
-    """Eval BatchNorm on ``x`` in float32, cast back to ``x.dtype``."""
-    return _batch_norm_eval(bn, x.float()).to(x.dtype)
+    """Eval BatchNorm on ``x`` in float32 (its statistics and affine too),
+    cast back to ``x.dtype``."""
+    stats = (t.float() for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias))
+    return F.batch_norm(x.float(), *stats, False, 0.0, BN_EPS).to(x.dtype)
 
 
 def _add_bias(y, bias):
@@ -664,7 +595,7 @@ def _conv3x3_bf16(x, weight):
     return F.conv2d(x, weight.to(x.dtype), None, padding=1)
 
 
-def _conv3x3(x, weight, bias, precision=None, act_fn="none", slope=None):
+def _conv3x3(x, weight, bias, precision, act_fn="none", slope=None):
     """Same-padded 3x3 conv + bias + activation on NCHW ``x`` with an OIHW
     ``weight``, as the JAX ``_conv`` at ``precision``. bf16 ``x``: cuDNN in
     bf16, a bf16 result, then the bf16 bias (the JAX order); f32 ``x``:
@@ -716,9 +647,9 @@ def _conv3x3_train(x, weight, bias, precision):
 
 def _block_train_at(seq: nn.Sequential, x, sample_weights, group, precision):
     """conv at ``precision`` (+BN with batch statistics) + activation ->
-    ``(out, mean, var)``, as ``_conv_block_train``. The activation is the
-    module's own (PReLU's slopes cast to the activation's dtype, as JAX
-    casts them)."""
+    ``(out, mean, var)``, the BN's new running statistics (None without
+    BN). The activation is the module's own (PReLU's slopes cast to the
+    activation's dtype, as JAX casts them)."""
     conv, act = seq[0], seq[-1]
     out = _conv3x3_train(x, conv.weight, conv.bias, precision)
     mean = var = None
@@ -769,11 +700,10 @@ def _upconv_at(module: nn.Module, x, precision):
     return with_grads(up, conv.weight, conv.bias, passes)
 
 
-def _composed_top_at(top: ComposedTop, last: nn.Conv2d, skip, d1,
-                     mixed: bool = False, precision=None,
-                     hifi_endpoints: bool = False):
-    """``ComposedTop`` at ``precision`` (None: the operands' own, IEEE for
-    float32): the three branches of the JAX ``_composed_top``."""
+def _composed_top_at(top: ComposedTop, last: nn.Conv2d, skip, d1, mixed: bool,
+                     precision, hifi_endpoints: bool):
+    """``ComposedTop`` at ``precision``: the three branches of the JAX
+    ``_composed_top``."""
     w_last, w_ck = last.weight, top.ck
     if mixed:
         # f32 results from the bf16 trunk: the activations upcast, which

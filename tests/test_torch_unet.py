@@ -208,6 +208,80 @@ def test_bfloat16_close_to_jax_bfloat16():
     assert np.abs(got - want).mean() <= 2e-3
 
 
+def _own_chain(model, x, train):
+    """The module's own submodules chained by hand: each block's conv,
+    BatchNorm (``batch_norm_train`` in training) and activation, the
+    max-pools, the transposed upconvs with their skips, the last conv and
+    the outer skip's BatchNorm -> ``(y, bn_state)``."""
+    bn_state = {}
+
+    def norm(name, bn, h):
+        if not train:
+            return bn(h)
+        h, bn_state[f"{name}.running_mean"], bn_state[f"{name}.running_var"] = (
+            tunet.batch_norm_train(bn, h))
+        return h
+
+    def block(prefix, seq, h):
+        return seq[-1](norm(f"{prefix}.1", seq[1], seq[0](h)))
+
+    skips, h = [], x
+    for i, level in enumerate(model.encoder):
+        skips.append(block(f"encoder.{i}.0", level[0], h))
+        h = level[1](skips[-1])
+    h = block("bottleneck", model.bottleneck, h)
+    for i, level in enumerate(model.decoder[:-1]):
+        h = block(f"decoder.{i}.1", level[1], skips[-1 - i] + level[0](h))
+    h = model.last_layer(skips[0] + model.decoder[-1](h))
+    return h + norm("layer_outer_skip.0", model.layer_outer_skip[0], x[:, 0:1]), bn_state
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("act", ["relu", "lrelu"])
+def test_highest_policy_is_the_modules_own_chain(act, train):
+    """With no policy given, ``apply_unet`` runs the ``HIGHEST`` policy of
+    the precision-aware layers, and that is the module's own float32
+    arithmetic: its output, and in training its BatchNorm state and every
+    gradient, equal the submodules chained by hand bit for bit (unfolded,
+    transpose mode)."""
+    config = tunet.UNetConfig(**_config(3, act_fn_encoder=act, act_fn_decoder=act,
+                                        act_fn_bottleneck=act, outer_skip_BN=True))
+    generator = torch.Generator().manual_seed(19)
+    model = tunet.init_unet(config, generator)
+    with torch.no_grad():   # BatchNorm away from identity, as _jax_weights
+        for bn in model.modules():
+            if isinstance(bn, torch.nn.BatchNorm2d):
+                for t in (bn.weight, bn.running_var):
+                    t.uniform_(0.5, 1.5, generator=generator)
+                for t in (bn.bias, bn.running_mean):
+                    t.uniform_(-0.1, 0.1, generator=generator)
+    rng = np.random.default_rng(20)   # 16-px tiles: the least depth 3 takes
+    x = torch.from_numpy(rng.normal(size=(2, 16, 16, 3)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 16, 16, 1)).astype(np.float32))
+    runs = []
+    for forward in ("policy", "chain"):
+        model.zero_grad(set_to_none=True)
+        with torch.set_grad_enabled(train):
+            if forward == "policy":
+                y, bn_state = tunet.apply_unet(model, x, train=True) if train else (
+                    tunet.apply_unet(model, x), {})
+            else:
+                y, bn_state = _own_chain(model, x.permute(0, 3, 1, 2), train)
+                y = y.permute(0, 2, 3, 1)
+            if train:
+                (y * g).sum().backward()
+        grads = {n: p.grad for n, p in model.named_parameters()} if train else {}
+        runs.append((y.detach(), bn_state, grads))
+    (y, bn_state, grads), (y_own, bn_own, grads_own) = runs
+    assert torch.equal(y.view(torch.int32), y_own.view(torch.int32))
+    assert bn_state.keys() == bn_own.keys() and len(bn_own) == (14 if train else 0)
+    for name in bn_own:
+        assert torch.equal(bn_state[name], bn_own[name]), name
+    assert grads.keys() == grads_own.keys()
+    for name in grads_own:
+        assert torch.equal(grads[name], grads_own[name]), name
+
+
 def test_init_unet_is_seeded():
     config = tunet.UNetConfig(**_config(3, act_fn_encoder="prelu"))
     a = tunet.init_unet(config, torch.Generator().manual_seed(7)).state_dict()
