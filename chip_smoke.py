@@ -70,7 +70,15 @@ found:
      (mixed, balanced16, bfloat16 input on float32 weights, bfloat16
      storage), and a 1024^2 scene served at mixed, balanced16 and
      bfloat16 storage with test-time augmentation, 14 launches a batch and
-     rotation, the canvas bitwise the ATen ops';
+     rotation, the canvas bitwise the ATen ops'; "upconv": the float32
+     decoder's upconv kernel (``ops/upconv.py``) at the four decoder levels
+     of the served flagship (batch 128) and ragged shapes, at 1, 2 and 3
+     passes, within 1e-4 of the largest |plain| value and bitwise across
+     two launches, timed beside its plain version, cuDNN's float32
+     transposed conv with the skip add and its byte bound; a balanced
+     forward both ways; its launches (4 a batch at balanced, none on the
+     balanced16, float32 and training paths); and the 4096^2 scene at
+     balanced resident and streamed, bitwise equal;
   7. train: the flagship trained on a seeded 2048x2048 scene by the train
      CLI (tile 256, batch 20, augmentation, Adam with weight decay, StepLR,
      float32 with TF32 off) for 2 epochs, resumed from ``Model_last.npz``
@@ -138,8 +146,8 @@ found:
 
 ``python3 chip_smoke.py --phase studies --phase config-smoke`` runs phases
 1 and 2 and the phases named (also ``conv``, phase 6, ``epilogue``,
-``dryrun`` and ``crop``, phase 5's crop on the seeded scene), and prints no
-result line.
+``upconv``, ``dryrun`` and ``crop``, phase 5's crop on the seeded scene),
+and prints no result line.
 ``python3 chip_smoke.py --stitch-scene`` runs phase 1 and the stitch
 kernels' times over the scene's batches alone, and prints no result line:
 run in two checkouts in one call, it compares their stitches on one card.
@@ -272,6 +280,18 @@ EPILOGUE_TTA = (("mixed", 4), ("mixed", 8), ("balanced16", 8), (torch.bfloat16, 
 EPILOGUE_MODELS = tuple((up_mode, folded) for up_mode in ("transpose", "bilinear")
                         for folded in (True, False))
 
+# Phase "upconv": the float32 decoder's upconv kernel (``ops/upconv.py``)
+# at the four decoder levels of the served flagship, batch CONV_BATCH (x's
+# (H, W, Cin, Cout): 8² 512->512 up to 64² 128->128), and at ragged (N, H,
+# W, Cin, Cout): pixels off the kernel's 64-pixel items, Cin off its
+# 64-channel chunks and not a multiple of 4 (x by cp.async), Cout not a
+# multiple of 4 (4-byte stores), B's 4 Cout rows off its 256-row blocks;
+# each at 1, 2 and 3 passes, within UPCONV_BAR of the largest |plain| value.
+UPCONV_LEVELS = ((8, 8, 512, 512), (16, 16, 512, 512), (32, 32, 256, 256),
+                 (64, 64, 128, 128))
+UPCONV_RAGGED = ((3, 5, 7, 24, 40), (2, 9, 11, 13, 7), (1, 3, 3, 70, 132), (2, 6, 10, 64, 12))
+UPCONV_BAR = 1e-4
+
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # memory bytes/s and bf16 tensor-core FLOP/s, for the kernels' bounds.
 PEAK_BYTES = 3.35e12
@@ -338,14 +358,15 @@ def _meta_forward(mode: str, config, batch: int, k3) -> list:
     """One forward of the served (folded) flagship (``config``, or the
     stereo flagship) in a serving mode at ``batch`` tiles of ``TILE``,
     traced through ``apply_unet`` on meta tensors with K3's wrapper swapped
-    for ``k3`` and the epilogue's entries (``ops.epilogue``) for recorders
-    that give outputs of the right shapes (nothing runs). Returns the
+    for ``k3``, and the epilogue's entries (``ops.epilogue``) and the
+    upconv's (``ops.upconv``) for recorders that give outputs of the right
+    shapes (nothing runs). Returns the
     epilogue calls in order as ``(kind, (N, C, H, W), act_fn, pool)``, kind
     "block", "cast" or "skip" (as ``EPILOGUE_RAGGED``)."""
     from unittest import mock
 
     from resdepth_tpu_torch.models import unet
-    from resdepth_tpu_torch.ops import epilogue
+    from resdepth_tpu_torch.ops import epilogue, upconv
 
     config = config or unet.flagship_config("geom-stereo")
     model = unet.UNet(dataclasses.replace(config, do_BN=False), "meta",
@@ -367,6 +388,8 @@ def _meta_forward(mode: str, config, batch: int, k3) -> list:
     with mock.patch.object(unet, "conv3x3_bias_act", k3), \
             mock.patch.object(epilogue, "trunk_epilogue", block), \
             mock.patch.object(epilogue, "skip_add_epilogue", skip_add), \
+            mock.patch.object(upconv, "upconv2x2_skip",
+                              lambda x, weight, bias, skip, passes: torch.zeros_like(skip)), \
             torch.inference_mode():
         unet.apply_unet(model, x, **unet.serving_precision(mode).apply_kwargs())
     return calls
@@ -645,20 +668,23 @@ def phase_build() -> float:
     """Build every kernel source at once (one nvcc each, in threads)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from resdepth_tpu_torch.ops import build, conv, epilogue, stitch
+    from resdepth_tpu_torch.ops import build, conv, epilogue, stitch, upconv
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         libs = list(pool.map(lambda load: load(),
-                             (stitch._library, conv._library, epilogue._library)))
+                             (stitch._library, conv._library, epilogue._library,
+                              upconv._library)))
     seconds = time.perf_counter() - start
     for lib, names in zip(libs, (("stitch_k1", "stitch_k2"),
-                                 ("conv3x3_k3", "conv3x3_k3_narrow"), ("trunk_epilogue",))):
+                                 ("conv3x3_k3", "conv3x3_k3_narrow"), ("trunk_epilogue",),
+                                 ("upconv2x2_skip",))):
         if not all(hasattr(lib, name) for name in names):
             raise RuntimeError(f"a kernel library lacks one of {names}")
     log("build", "; ".join(
         f"csrc/{name}.cu -> {os.path.relpath(build.library_path(name), REPO)} "
-        f"(nvcc {build.BUILD_SECONDS[name]:.2f} s)" for name in ("stitch", "conv", "epilogue"))
+        f"(nvcc {build.BUILD_SECONDS[name]:.2f} s)"
+        for name in ("stitch", "conv", "epilogue", "upconv"))
         + f"; all in {seconds:.2f} s; flags {' '.join(build.NVCC_FLAGS)}")
     return seconds
 
@@ -2338,6 +2364,215 @@ def phase_epilogue(work: str) -> dict:
             "forward_ms": {k: float(np.mean(v)) for k, v in forward.items()}}
 
 
+def upconv_bytes(n: int, h: int, w: int, c_in: int, c_out: int) -> int:
+    """The least bytes of one upconv call (``csrc/upconv.cu``): x read once,
+    the skip read once and the result written once, all float32."""
+    return 4 * n * h * w * c_in + 2 * 4 * n * (2 * h) * (2 * w) * c_out
+
+
+def _upconv_case(generator, device, n, h, w, c_in, c_out):
+    """Seeded float32 x (N, H, W, Cin) and skip (N, 2H, 2W, Cout) in NHWC
+    memory, as K3 writes them, and an ``nn.ConvTranspose2d``'s weight and
+    bias."""
+    x = torch.randn((n, h, w, c_in), generator=generator, device=device)
+    skip = torch.randn((n, 2 * h, 2 * w, c_out), generator=generator, device=device)
+    weight = torch.randn((c_in, c_out, 2, 2), generator=generator, device=device) / (2 * c_in ** 0.5)
+    bias = 0.1 * torch.randn(c_out, generator=generator, device=device)
+    return x, weight, bias, skip
+
+
+def _library_upconv(x, weight, bias, skip):
+    """One cuDNN call computing the same function in IEEE float32 (TF32
+    off), with the skip add: the library's yardstick."""
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, bias, stride=2)
+    return skip + y.permute(0, 2, 3, 1)
+
+
+def phase_upconv(work: str) -> dict:
+    """The upconv kernel against its plain version (the decoder's ops
+    before it) at ``UPCONV_LEVELS`` (batch CONV_BATCH) and ``UPCONV_RAGGED``,
+    at 1, 2 and 3 passes: within ``UPCONV_BAR`` of the largest |plain|
+    value, bitwise across two launches, one counted launch (and one split)
+    a call; the levels timed in turns beside the plain version and one
+    cuDNN float32 transposed conv with the skip add, and the byte bound.
+    Then a ``balanced`` forward of the served flagship at batch CONV_BATCH
+    with the kernel and with the plain version, device time by kernel; the
+    4096^2 scene served at ``balanced`` resident and streamed (K2), bitwise
+    equal, 4 launches a batch; the resdepth-0 model's ``balanced`` forward,
+    4 launches; and none on the other cells' paths: a ``balanced16``
+    forward, a float32 forward and ``balanced`` and ``balanced16`` train
+    steps."""
+    from unittest import mock
+
+    from resdepth_tpu_torch import predict
+    from resdepth_tpu_torch.data.pipeline import device_put_dataset
+    from resdepth_tpu_torch.infer.tiled import (predict_linear_blend,
+                                                predict_linear_blend_streaming,
+                                                serving_model)
+    from resdepth_tpu_torch.models import unet
+    from resdepth_tpu_torch.ops import build, upconv
+
+    report = [line.strip() for line in build.BUILD_LOGS.get("upconv", "").splitlines()
+              if "registers" in line or "spill" in line or "C7520" in line]
+    log("upconv", f"ptxas: {' | '.join(report) or 'reused build'}")
+    if any("C7520" in line for line in report):
+        raise AssertionError("ptxas serialised the upconv kernel's wgmmas (C7520)")
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    rows = []
+    cases = [(CONV_BATCH, *level) for level in UPCONV_LEVELS] + list(UPCONV_RAGGED)
+    for case in cases:
+        args = _upconv_case(generator, device, *case)
+        label = "x".join(map(str, case))
+        row = {"label": label, "case": case}
+        with torch.inference_mode():
+            for passes in (1, 2, 3):
+                for key in upconv.LAUNCHES:
+                    upconv.LAUNCHES[key] = 0
+                got = upconv.upconv2x2_skip(*args, passes)
+                again = upconv.upconv2x2_skip(*args, passes)
+                torch.cuda.synchronize()
+                want = {"upconv": 2, "upconv_split": 2, f"upconv_p{passes}": 2}
+                if {k: v for k, v in upconv.LAUNCHES.items() if v} != want:
+                    raise AssertionError(f"upconv {label} at {passes} passes: launches "
+                                         f"{upconv.LAUNCHES}, expected {want}")
+                if not _same_bits(got, again):
+                    raise AssertionError(f"upconv {label} at {passes} passes: two launches "
+                                         f"differ")
+                plain = upconv.upconv2x2_skip_plain(*args, passes)
+                err = float((got - plain).abs().max())
+                scale = float(plain.abs().max())
+                if not err <= UPCONV_BAR * scale:
+                    raise AssertionError(f"upconv {label} at {passes} passes: off the plain "
+                                         f"version by {err:.3g} (bar {UPCONV_BAR} x "
+                                         f"{scale:.3g})")
+                row[f"rel_err_p{passes}"] = err / scale
+                if case[0] == CONV_BATCH:
+                    timers = {"kernel": lambda: upconv.upconv2x2_skip(*args, passes),
+                              "plain": lambda: upconv.upconv2x2_skip_plain(*args, passes),
+                              "library": lambda: _library_upconv(*args)}
+                    times = _in_turns(timers)
+                    row[f"p{passes}"] = {"ms": times["kernel"], "plain_ms": times["plain"],
+                                         "library_ms": times["library"]}
+                del got, again, plain
+        if case[0] == CONV_BATCH:
+            row["bound_ms"] = upconv_bytes(*case) / PEAK_BYTES * 1e3
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    timed = [r for r in rows if "bound_ms" in r]
+    total = {"bound_ms": sum(r["bound_ms"] for r in timed)}
+    for passes in (1, 2, 3):
+        total[f"p{passes}"] = {k: sum(r[f"p{passes}"][k] for r in timed)
+                               for k in ("ms", "plain_ms", "library_ms")}
+    log("upconv", f"within {UPCONV_BAR} of the largest |plain| value and bitwise across two "
+        "launches at every case and pass count (largest relative gap "
+        f"{max(max(r[f'rel_err_p{p}'] for p in (1, 2, 3)) for r in rows):.3g}); kernel / "
+        "plain / cuDNN f32 + skip add ms (share of the byte bound) at 1, 2, 3 passes: "
+        + "; ".join(
+            f"{r['label']} (bound {r['bound_ms']:.4f}): " + ", ".join(
+                f"{r[f'p{p}']['ms']:.4f} / {r[f'p{p}']['plain_ms']:.4f} / "
+                f"{r[f'p{p}']['library_ms']:.4f} ({100 * r['bound_ms'] / r[f'p{p}']['ms']:.0f} %)"
+                for p in (1, 2, 3)) for r in timed)
+        + f"; the four levels: bound {total['bound_ms']:.4f}, " + ", ".join(
+            f"{p} pass{'es' if p > 1 else ''} {total[f'p{p}']['ms']:.4f} / "
+            f"{total[f'p{p}']['plain_ms']:.4f} / {total[f'p{p}']['library_ms']:.4f}"
+            for p in (1, 2, 3))
+        + "; ragged cases: " + ", ".join(r["label"] for r in rows if "bound_ms" not in r))
+
+    plain_patch = mock.patch.object(upconv, "upconv2x2_skip", upconv.upconv2x2_skip_plain)
+    config = unet.flagship_config("geom-stereo")
+    base = random_model(config)
+    served = serving_model(base, device, "balanced")
+    kwargs = unet.serving_precision("balanced").apply_kwargs()
+    x = torch.randn((CONV_BATCH, TILE, TILE, config.n_input_channels),
+                    generator=generator, device=device)
+    with torch.inference_mode():
+        forward = {}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            with (plain_patch if name == "plain" else contextlib.nullcontext()):
+                forward.setdefault(name, []).append(
+                    cuda_ms(lambda: unet.apply_unet(served, x, **kwargs), iters=5, warmup=2))
+        with plain_patch:
+            plain_breakdown = device_breakdown(lambda: unet.apply_unet(served, x, **kwargs))
+        breakdown = device_breakdown(lambda: unet.apply_unet(served, x, **kwargs))
+    for name, b in (("kernel", breakdown), ("plain", plain_breakdown)):
+        walls = ", ".join(f"{v:.2f}" for v in forward[name])
+        top = sorted(b.get("names", {}).items(), key=lambda kv: -kv[1])[:12]
+        log("upconv", f"a balanced forward at batch {CONV_BATCH} with the {name} upconv: "
+            f"{float(np.mean(forward[name])):.2f} ms (CUDA events: {walls}); device ms by "
+            "kernel: " + "; ".join(f"{k[:90]} {v:.3f}" for k, v in top))
+    del x
+    torch.cuda.empty_cache()
+
+    counts = {}
+    zero_config = unet.flagship_config("geom")
+    zero = serving_model(random_model(zero_config), device, "balanced")
+    x = torch.randn((4, TILE, TILE, 1), generator=generator, device=device)
+    for name, model, mode, x_in in (("resdepth-0 balanced", zero, "balanced", x),
+                                    ("balanced16", serving_model(base, device, "balanced16"),
+                                     "balanced16", None),
+                                    ("float32", serving_model(base, device, torch.float32),
+                                     None, None)):
+        x_in = x_in if x_in is not None else torch.randn(
+            (4, TILE, TILE, 3), generator=generator, device=device)
+        upconv.LAUNCHES["upconv"] = 0
+        with torch.inference_mode():
+            unet.apply_unet(model, x_in, **(unet.serving_precision(mode).apply_kwargs()
+                                            if mode else {}))
+        counts[name] = upconv.LAUNCHES["upconv"]
+    for policy in ("balanced", "balanced16"):
+        model = random_model(config).to(device)
+        upconv.LAUNCHES["upconv"] = 0
+        y, _ = unet.apply_unet(model, torch.randn((2, TILE, TILE, 3), generator=generator,
+                                                  device=device),
+                               train=True, **unet.serving_precision(policy).apply_kwargs())
+        y.float().sum().backward()
+        counts[f"train {policy}"] = upconv.LAUNCHES["upconv"]
+    want_counts = {"resdepth-0 balanced": 4, "balanced16": 0, "float32": 0,
+                   "train balanced": 0, "train balanced16": 0}
+    if counts != want_counts:
+        raise AssertionError(f"upconv launches a forward or step {counts}, expected "
+                             f"{want_counts}")
+    log("upconv", f"launches a batch: {counts}")
+    del zero, x
+    torch.cuda.empty_cache()
+
+    scene = write_scene(os.path.join(work, "upconv_scene"), SCENE_SIZE, SCENE_SIZE)
+    ds = _tile_dataset(scene["paths"], SCENE_SIZE, scene["image_mean"], scene["image_std"])
+    geometry = stream_geometry(ds, STREAM_BUDGET)
+    dtype = predict.select_compute_dtype("balanced", device)
+    scene_kwargs = dict(device=device, batch_size=BATCH, compute_dtype=dtype,
+                        use_pallas="fused", fold_bn=False)
+    rasters = device_put_dataset(ds, device)
+    n_batches = -(-len(ds.positions) // BATCH)
+    upconv.LAUNCHES["upconv"] = 0
+    resident = predict_linear_blend(served, ds, rasters=rasters, **scene_kwargs)
+    resident_launches = upconv.LAUNCHES["upconv"]
+    with plain_patch:
+        plain_scene = predict_linear_blend(served, ds, rasters=rasters, **scene_kwargs)
+    del rasters
+    torch.cuda.empty_cache()
+    upconv.LAUNCHES["upconv"] = 0
+    streamed = predict_linear_blend_streaming(served, ds, max_device_pixels=STREAM_BUDGET,
+                                              **scene_kwargs)
+    streamed_launches = upconv.LAUNCHES["upconv"]
+    if (resident_launches, streamed_launches) != (4 * n_batches, 4 * geometry["batches"]):
+        raise AssertionError(f"the balanced scene launched the upconv {resident_launches} "
+                             f"times resident ({n_batches} batches) and {streamed_launches} "
+                             f"streamed ({geometry['batches']} batches): not 4 a batch")
+    hold_streamed("balanced upconv scene", streamed, resident, geometry)
+    gap = float(np.abs(resident.astype(np.float64) - plain_scene).max())
+    log("upconv", f"{SCENE_SIZE}^2 balanced scene (K2), {len(ds.positions)} tiles: resident "
+        f"{resident_launches} launches in {n_batches} batches, streamed "
+        f"{streamed_launches} in {geometry['batches']}, bitwise equal; largest gap to the "
+        f"scene with the plain upconv {gap:.3g} m ({gap / ulps(plain_scene, 1):.1f} ulps)")
+    return {"rows": rows, **total,
+            "forward_ms": {k: float(np.mean(v)) for k, v in forward.items()},
+            "launches": resident_launches + streamed_launches + counts["resdepth-0 balanced"]}
+
+
 @contextlib.contextmanager
 def _timed_train_steps():
     """Wrap the train CLI's train step with CUDA events while the block
@@ -3026,20 +3261,22 @@ def held_kernels(record: dict):
     ``models.unet`` and ``ops.passes`` call it) to ``conv3x3_bias_act_plain``
     within 1e-4 of the largest output, K2 bitwise and K1 within
     ``k1_ulps`` of the cover to the plain stitch on the CPU over a copy of
-    the canvas, the trunk epilogue bitwise to its plain version. The plain
-    versions launch no kernel, so the counters see only the path's
+    the canvas, the trunk epilogue bitwise to its plain version, the upconv
+    to ``upconv2x2_skip_plain`` within 1e-4 of the largest output. The
+    plain versions launch no kernel, so the counters see only the path's
     launches. ``record["k3"]`` gets ``(x shape, Cout, passes, err, bar)`` a
-    call, ``record["k1"]``/``["k2"]`` ``(tile, batch, canvas shape, err,
-    bar)``, ``record["epilogue"]`` ``(shape, 0.0, 0.0)``; a call out of its
-    bar raises."""
+    call, ``record["upconv"]`` the same, ``record["k1"]``/``["k2"]``
+    ``(tile, batch, canvas shape, err, bar)``, ``record["epilogue"]``
+    ``(shape, 0.0, 0.0)``; a call out of its bar raises."""
     from unittest import mock
 
     from resdepth_tpu_torch.models import unet
-    from resdepth_tpu_torch.ops import conv, epilogue, stitch
+    from resdepth_tpu_torch.ops import conv, epilogue, stitch, upconv
 
     k3, stitch_call = conv.conv3x3_bias_act, stitch.stitch_tiles
     trunk, skip_add = epilogue.trunk_epilogue, epilogue.skip_add_epilogue
-    for key in ("k1", "k2", "k3", "epilogue"):
+    up = upconv.upconv2x2_skip
+    for key in ("k1", "k2", "k3", "epilogue", "upconv"):
         record.setdefault(key, [])
 
     def held(kernel, plain, first, *args, **kwargs):
@@ -3063,6 +3300,18 @@ def held_kernels(record: dict):
             record["k3"].append((tuple(x.shape), int(kernel.shape[3]), passes, err, bar))
             if not err <= bar:
                 raise AssertionError(f"K3 at {tuple(x.shape)} -> {kernel.shape[3]} "
+                                     f"({passes} passes): max |diff| {err} above {bar}")
+        return y
+
+    def upconv_held(x, weight, bias, skip, passes):
+        y = up(x, weight, bias, skip, passes)
+        if x.device.type == "cuda":
+            want = upconv.upconv2x2_skip_plain(x, weight, bias, skip, passes)
+            err = float((y - want).abs().max())
+            bar = 1e-4 * float(want.abs().max())
+            record["upconv"].append((tuple(x.shape), int(weight.shape[1]), passes, err, bar))
+            if not err <= bar:
+                raise AssertionError(f"the upconv at {tuple(x.shape)} -> {weight.shape[1]} "
                                      f"({passes} passes): max |diff| {err} above {bar}")
         return y
 
@@ -3094,13 +3343,14 @@ def held_kernels(record: dict):
             mock.patch.object(epilogue, "trunk_epilogue", functools.partial(
                 held, trunk, epilogue.trunk_epilogue_plain)), \
             mock.patch.object(epilogue, "skip_add_epilogue", functools.partial(
-                held, skip_add, epilogue.skip_add_epilogue_plain)):
+                held, skip_add, epilogue.skip_add_epilogue_plain)), \
+            mock.patch.object(upconv, "upconv2x2_skip", upconv_held):
         yield record
 
 
 def _held_summary(record: dict) -> str:
     parts = []
-    for key in ("k3", "k2", "k1", "epilogue"):
+    for key in ("k3", "k2", "k1", "epilogue", "upconv"):
         calls = record.get(key, [])
         if calls:
             worst = max(calls, key=lambda c: c[-2] / c[-1] if c[-1] else c[-2])
@@ -4294,8 +4544,8 @@ def main(argv: list | None = None) -> int:
                              "to compare two checkouts on one card; prints no "
                              "result line")
     parser.add_argument("--phase", action="append",
-                        choices=("conv", "epilogue", "studies", "config-smoke", "dryrun",
-                                 "crop"),
+                        choices=("conv", "epilogue", "upconv", "studies", "config-smoke",
+                                 "dryrun", "crop"),
                         help="run phases 1-2 and only this phase (repeatable), to "
                              "iterate on it; prints no result line")
     parser.add_argument("--dp-rank", metavar="PLAN",
@@ -4328,8 +4578,8 @@ def main(argv: list | None = None) -> int:
             if name in ("conv", "dryrun"):
                 {"conv": phase_conv, "dryrun": phase_dryrun}[name]()
                 continue
-            if name == "epilogue":
-                phase_epilogue(WORK_DIR)
+            if name in ("epilogue", "upconv"):
+                {"epilogue": phase_epilogue, "upconv": phase_upconv}[name](WORK_DIR)
                 continue
             if name == "crop":
                 scene = write_scene(os.path.join(WORK_DIR, "scene"), SCENE_SIZE,
@@ -4364,6 +4614,7 @@ def main(argv: list | None = None) -> int:
 
     convs = phase_conv()
     trunk_epilogue = phase_epilogue(WORK_DIR)
+    upconvs = phase_upconv(WORK_DIR)
     channel_modes = phase_channel_modes(WORK_DIR)
     studies = phase_studies(os.path.join(WORK_DIR, "studies"))
     smoke = phase_config_smoke(WORK_DIR)
@@ -4441,6 +4692,18 @@ def main(argv: list | None = None) -> int:
          "ms": trunk_epilogue["ms"], "plain_ms": trunk_epilogue["plain_ms"],
          "bound_ms": trunk_epilogue["bound_ms"], "bound_by": "bytes",
          "library_ms": trunk_epilogue["plain_ms"]})
+    # the upconv: its launches in phase upconv's scenes and forwards, its
+    # times over the four decoder levels at 1 pass (balanced); the library's
+    # is cuDNN's IEEE float32 transposed conv with the skip add
+    record["kernels"].append(
+        {"name": "transposed2x2_skip_kernel", "route": "cuda",
+         "source": "resdepth_tpu_torch/csrc/upconv.cu",
+         "replaces": "none (XLA runs the upconv on the TPU)",
+         "launches": upconvs["launches"],
+         "max_abs_err": max(r["rel_err_p1"] for r in upconvs["rows"]),
+         "ms": upconvs["p1"]["ms"], "plain_ms": upconvs["p1"]["plain_ms"],
+         "bound_ms": upconvs["bound_ms"], "bound_by": "bytes",
+         "library_ms": upconvs["p1"]["library_ms"]})
     print(json.dumps(record))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

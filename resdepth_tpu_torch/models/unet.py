@@ -22,10 +22,11 @@ The string serving modes (``serving_precision``: ``mixed``, ``fast32``,
 ``act2pass``, ``balanced``, ``balanced16``) run the eval forward at the JAX
 package's per-layer precisions, each an explicit number of bf16 product
 passes with float32 sums (``Precision``, ``ops/passes.py``): the 3x3 convs
-on kernel K3 (``ops.conv.conv3x3_bias_act``), the upconvs through
-``ops.passes``. Training runs at the same precisions (the training
-precisions of ``train.py``), its gradients at each conv's passes
-(``ops.passes.same_conv``, ``ops.passes.upconv2x2``). See ``apply_unet``.
+on kernel K3 (``ops.conv.conv3x3_bias_act``), the upconvs with their skip
+adds on ``ops.upconv.upconv2x2_skip``. Training runs at the same
+precisions (the training precisions of ``train.py``), its gradients at each
+conv's passes (``ops.passes.same_conv``, ``ops.passes.upconv2x2``). See
+``apply_unet``.
 
 Training mode keeps the JAX package's BatchNorm rather than torch's: the
 batch moments are ``E[x]`` and ``E[x^2] - E[x]^2`` (clamped at 0), taken
@@ -48,7 +49,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from resdepth_tpu_torch.ops import epilogue, passes as pass_ops
+from resdepth_tpu_torch.ops import epilogue, passes as pass_ops, upconv
 from resdepth_tpu_torch.ops.conv import _activate, conv3x3_bias_act
 from resdepth_tpu_torch.parallel import mesh
 
@@ -460,7 +461,10 @@ class _AtPrecision:
     activation, the cast of a float32 encoder0 output, the 2x2 max-pool,
     the upsampling's bias and the additive skip) is one pass of
     ``ops.epilogue``, bitwise the separate ops (``_block_at``,
-    ``_upconv_bf16``); float32 storage keeps its ops.
+    ``_upconv_bf16``). On float32 storage a transposed upconv with a pass
+    count, its bias and the additive skip are one launch of
+    ``ops.upconv`` (its plain version on the CPU: the same ops), where no
+    operand needs a gradient; float32 storage keeps its other ops.
 
     In training (``_block_train_at``) BatchNorm takes the batch's
     statistics in float32, cast back to the conv's dtype, and the activation
@@ -507,10 +511,21 @@ class _AtPrecision:
         return skip, level[1](skip)
 
     def decoder(self, i, module, skip, x):
-        """A decoder level's additive skip: ``skip + up(x)``."""
-        if self.train or x.dtype != torch.bfloat16:
-            return skip + _upconv_at(module, x, self._precision(f"up{i}"))
-        return epilogue.skip_add_epilogue(*_upconv_bf16(module, x), skip)
+        """A decoder level's additive skip: ``skip + up(x)``. In eval, one
+        pass of ``ops.epilogue`` after the bf16 trunk's upsampling, and one
+        launch of ``ops.upconv`` for a float32 transposed conv with a pass
+        count that needs no gradient."""
+        if not self.train and x.dtype == torch.bfloat16:
+            return epilogue.skip_add_epilogue(*_upconv_bf16(module, x), skip)
+        precision = self._precision(f"up{i}")
+        passes = precision_passes(precision)
+        if (not self.train and passes is not None and x.dtype == torch.float32
+                and isinstance(module, nn.ConvTranspose2d)
+                and not _needs_grad(x, skip, module.weight, module.bias)):
+            y = upconv.upconv2x2_skip(x.permute(0, 2, 3, 1), module.weight, module.bias,
+                                      skip.permute(0, 2, 3, 1), passes)
+            return y.permute(0, 3, 1, 2)
+        return skip + _upconv_at(module, x, precision)
 
     def block(self, prefix, seq, x):
         """A conv block; in training under ``torch.utils.checkpoint`` with
@@ -560,6 +575,11 @@ class _AtPrecision:
         self.bn_state["layer_outer_skip.0.running_mean"] = mean
         self.bn_state["layer_outer_skip.0.running_var"] = var
         return x0
+
+
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on ``tensors`` (None skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def _act_spec(module: nn.Module, channels: int):
