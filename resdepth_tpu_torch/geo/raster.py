@@ -140,7 +140,7 @@ def write_raster(filepath: str, data: np.ndarray, like, offset_x: int = 0,
     Parity with lib/rasterutils.py:194-261: the geotransform origin is shifted
     by (offset_x, offset_y) pixels, nodata defaults to the source raster's
     value, and output is compressed. The reference writes LZW; this framework
-    writes Deflate by default (equally standard, far faster to encode).
+    writes Deflate by default (equally standard).
     """
     src = open_raster(like)
     gt = src.geotransform

@@ -19,14 +19,18 @@ NumPy/Python fallback, so the codec works everywhere and is fast where it
 matters (full-scene training data loads).
 
 The port's copy of ``resdepth_tpu/geo/tiff.py``, so that the port imports
-nothing of the JAX package; only the imports differ.
+nothing of the JAX package. It differs in its imports and in how ``write``
+encodes the strips (in parallel, the predictor in uint8); the bytes it
+writes are the same.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -217,6 +221,7 @@ def _lzw_encode_py(data: bytes) -> bytes:
         while bitcnt >= 8:
             out.append((bitbuf >> (bitcnt - 8)) & 0xFF)
             bitcnt -= 8
+        bitbuf &= (1 << bitcnt) - 1  # drop the bits written, or shifts grow
 
     table = {bytes([i]): i for i in range(256)}
     next_code = 258
@@ -537,17 +542,36 @@ def _apply_float_predictor(block: np.ndarray) -> bytes:
     fpDiff): per row, shuffle sample bytes into MSB-first byte planes and
     byte-difference with stride 1 (single interleave stride: the writer
     always emits chunky single-stride strips; multiband uses stride spp).
+    The differences are taken in uint8, whose wraparound is the mod-256
+    difference libtiff writes.
     """
     rows, n_samples = block.shape[0], block.shape[1] * (
         block.shape[2] if block.ndim == 3 else 1)
     spp = block.shape[2] if block.ndim == 3 else 1
     itemsize = block.dtype.itemsize
-    raw = np.frombuffer(block.tobytes(), np.uint8).reshape(
+    raw = np.ascontiguousarray(block).view(np.uint8).reshape(
         rows, n_samples, itemsize)
     planes = raw[:, :, ::-1].transpose(0, 2, 1).reshape(rows, -1)  # MSB first
-    diff = planes.astype(np.int16)
-    diff[:, spp:] -= planes[:, :-spp].astype(np.int16)
-    return (diff % 256).astype(np.uint8).tobytes()
+    diff = planes.copy()
+    diff[:, spp:] -= planes[:, :-spp]
+    return diff.tobytes()
+
+
+def _encode_strip(block: np.ndarray, predictor: bool, compression: int) -> bytes:
+    """One strip's bytes as the file holds them: predictor, then codec."""
+    chunk = _apply_float_predictor(block) if predictor else block.tobytes()
+    if compression == 8:
+        return zlib.compress(chunk, 6)
+    if compression == 5:
+        return _lzw_encode(chunk)
+    return chunk
+
+
+def _usable_cpus() -> int:
+    """The CPUs this process may run on."""
+    if hasattr(os, "sched_getaffinity"):
+        return len(os.sched_getaffinity(0))
+    return os.cpu_count() or 1
 
 
 def write(path: str, data: np.ndarray, *, geotransform=None, nodata=None,
@@ -591,15 +615,17 @@ def write(path: str, data: np.ndarray, *, geotransform=None, nodata=None,
     # Strip layout: target ~1 MiB per strip.
     row_bytes = cols * spp * dt.itemsize
     rows_per_strip = max(1, min(rows, (1 << 20) // max(1, row_bytes)))
-    strips = []
-    for y in range(0, rows, rows_per_strip):
-        block = data[y:y + rows_per_strip]
-        chunk = _apply_float_predictor(block) if predictor else block.tobytes()
-        if compression == 8:
-            chunk = zlib.compress(chunk, 6)
-        elif compression == 5:
-            chunk = _lzw_encode(chunk)
-        strips.append(chunk)
+    # Strips are independent and zlib and the native LZW codec release the
+    # GIL, so they are encoded on a pool of threads and kept in file order.
+    blocks = [data[y:y + rows_per_strip] for y in range(0, rows, rows_per_strip)]
+    encode = functools.partial(_encode_strip, predictor=predictor,
+                               compression=compression)
+    workers = min(_usable_cpus(), len(blocks))
+    if workers <= 1:
+        strips = [encode(block) for block in blocks]
+    else:
+        with ThreadPoolExecutor(workers) as pool:
+            strips = list(pool.map(encode, blocks))
 
     tags: list[tuple[int, int, object]] = [
         (IMAGE_WIDTH, 4, cols),
