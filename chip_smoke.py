@@ -199,13 +199,18 @@ KERNELS = {
 KERNEL_SOURCE = "resdepth_tpu_torch/csrc/stitch.cu"
 K3 = ("conv3x3_k3", "resdepth_tpu_torch/csrc/conv.cu",
       "resdepth_tpu/ops/pallas_conv.py:101")
-# K3's device kernels, by name (the wide, wide_f32, narrow and narrow_k
-# kernels): one a launch
+# K3's device kernels, by name (the wide, wide_f32, narrow, narrow_k and
+# narrow_bf16 kernels): one a launch
 K3_KERNEL_NAMES = ("conv3x3_k3_kernel", "conv3x3_k3_wide_f32_kernel",
-                   "conv3x3_k3_narrow_kernel", "conv3x3_k3_narrow_k_kernel")
+                   "conv3x3_k3_narrow_kernel", "conv3x3_k3_narrow_k_kernel",
+                   "conv3x3_k3_narrow_bf16_kernel")
 # K3's float32 kernels, as ``conv.k3_variant`` names them, each counted in
 # ``conv.LAUNCHES["k3_<variant>"]``
 K3_F32_VARIANTS = ("wide_f32", "narrow", "narrow_k")
+# K3's kernels counted by name on every path: the float32 ones and
+# narrow_bf16 (bfloat16 x with a pass count, the composed top on the bf16
+# trunk), each in ``conv.LAUNCHES["k3_<variant>"]``
+K3_COUNTED = (*K3_F32_VARIANTS, "narrow_bf16")
 
 # Phase 6: K3 at batch 128 at the 3x3 convs the served flagship hands it
 # in the serving modes (``mode_k3_convs``), in float32 at each pass count
@@ -377,8 +382,11 @@ def _meta_forward(mode: str, config, batch: int, k3) -> list:
         n, c, h, w = y.shape
         calls.append(("cast" if y.dtype == torch.float32 else "block", (n, c, h, w), act_fn,
                       pool))
-        return (y.new_zeros(y.shape, dtype=torch.bfloat16),
-                y.new_zeros((n, c, h // 2, w // 2), dtype=torch.bfloat16) if pool else None)
+        def nhwc(shape):          # NHWC memory, as the kernel writes it
+            return torch.empty(shape, dtype=torch.bfloat16, device=y.device,
+                               memory_format=torch.channels_last).zero_()
+
+        return nhwc(y.shape), nhwc((n, c, h // 2, w // 2)) if pool else None
 
     def skip_add(u, bias, skip):
         calls.append(("skip", tuple(u.shape), "none", False))
@@ -677,7 +685,8 @@ def phase_build() -> float:
                               upconv._library)))
     seconds = time.perf_counter() - start
     for lib, names in zip(libs, (("stitch_k1", "stitch_k2"),
-                                 ("conv3x3_k3", "conv3x3_k3_narrow"), ("trunk_epilogue",),
+                                 ("conv3x3_k3", "conv3x3_k3_narrow", "conv3x3_k3_narrow_bf16"),
+                                 ("trunk_epilogue",),
                                  ("upconv2x2_skip",))):
         if not all(hasattr(lib, name) for name in names):
             raise RuntimeError(f"a kernel library lacks one of {names}")
@@ -1274,7 +1283,7 @@ def phase_modes(scene: dict, model_path: str) -> dict:
     served = serving_model(base, device, dtype)
     reference = run(served, dtype).cpu().numpy()
     breakdowns = {"float32": device_breakdown(lambda: run(served, dtype))}
-    result, launches = {}, {1: 0, 2: 0, 3: 0, **{v: 0 for v in K3_F32_VARIANTS}}
+    result, launches = {}, {1: 0, 2: 0, 3: 0, **{v: 0 for v in K3_COUNTED}}
     launches["epilogue"] = 0
     for mode in SERVING_PRECISION_MODES:
         dtype = predict.select_compute_dtype(mode, device)
@@ -1300,8 +1309,13 @@ def phase_modes(scene: dict, model_path: str) -> dict:
                                  f"{want} by pass count ({n_batches} batches)")
         for p, c in counts.items():
             launches[p] += c
-        for variant in K3_F32_VARIANTS:
+        for variant in K3_COUNTED:
             launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
+        # the composed top's two convs on the bf16 trunk read it as it lies
+        want_bf16 = 2 * n_batches if mode in ("mixed", "balanced16") else 0
+        if (conv.LAUNCHES["k3_narrow_bf16"], conv.LAUNCHES["k3_bf16_upcast"]) != (want_bf16, 0):
+            raise AssertionError(f"{mode}: K3 launches {conv.LAUNCHES}, expected "
+                                 f"{want_bf16} of narrow_bf16 and no upcast")
         out = canvas.cpu().numpy()
         if not np.isfinite(out).all():
             raise AssertionError(f"{mode}: non-finite refined scene")
@@ -1654,7 +1668,7 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
     base.load_state_dict(weights.load_state_dict(model_path, config))
     n_batches = geometry["batches"]
     result, scenes = {}, {}
-    launches = {"k1": 0, "k2": 0, 3: 0, **{v: 0 for v in K3_F32_VARIANTS}}
+    launches = {"k1": 0, "k2": 0, 3: 0, **{v: 0 for v in K3_COUNTED}}
 
     def timed(fn):
         fn()
@@ -1705,7 +1719,7 @@ def phase_streaming(scene: dict, model_path: str) -> dict:
                                  f"and {want_k3} K3 at 3 passes")
         launches[kernel] += n_batches
         launches[3] += k3
-        for variant in K3_F32_VARIANTS:
+        for variant in K3_COUNTED:
             launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
         stream_s, stream_walls, stream_peak = timed(streamed)
         if use_pallas:
@@ -1817,13 +1831,15 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16) -> tuple
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def conv_bound(x, c_out: int, passes: int = 1) -> tuple:
+def conv_bound(x, c_out: int, passes: int = 1, out_size: int | None = None) -> tuple:
     """K3's bound: x, the weights, bias and slopes read once and the output
-    written once in ``x.dtype``; 2·N·H·W·9·Cin·Cout operations at the bf16
-    tensor rate for each of its bf16 passes."""
+    written once, in ``x.dtype`` (the output at ``out_size`` bytes an
+    element where given); 2·N·H·W·9·Cin·Cout operations at the bf16 tensor
+    rate for each of its bf16 passes."""
     n, h, w, c_in = x.shape
     size = x.element_size()
-    n_bytes = (x.numel() + 9 * c_in * c_out + n * h * w * c_out) * size + 8 * c_out
+    n_bytes = ((x.numel() + 9 * c_in * c_out) * size + n * h * w * c_out * (out_size or size)
+               + 8 * c_out)
     return bound_ms(n_bytes, passes * 2.0 * n * h * w * 9 * c_in * c_out)
 
 
@@ -1874,7 +1890,8 @@ def phase_conv() -> dict:
     in one forward of each mode (``k3_cases``; bfloat16, on no path, each
     shape once), and per mode the K3 time of one forward; and "wide_f32",
     "narrow" and "narrow_k": ``phase_conv_variant``'s rows for each, and
-    each kernel's share of the float32 records (the shapes it takes)."""
+    each kernel's share of the float32 records (the shapes it takes); and
+    "narrow_bf16": ``phase_conv_narrow_bf16``'s rows."""
     from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES
     from resdepth_tpu_torch.ops import build, conv
 
@@ -1982,6 +1999,7 @@ def phase_conv() -> dict:
                                              if r["bound_by"] == "operations")
                          >= sum(r["weight"] * r["bound_ms"] for r in timed) / 2
                          else "bytes")}
+    result["narrow_bf16"] = phase_conv_narrow_bf16(generator, layouts)
     return result
 
 
@@ -2036,7 +2054,7 @@ def layout_of(x) -> str:
 def served_layouts() -> dict:
     """The layout (``layout_of``) of x at each K3 call of one forward of
     the served flagship (seeded random weights, 2 tiles) that goes to a
-    float32 kernel, in each serving mode, as ``{mode: [(variant, H, Cin,
+    kernel other than the wide one, in each serving mode, as ``{mode: [(variant, H, Cin,
     Cout, layout), ...]}``."""
     from unittest import mock
 
@@ -2053,7 +2071,8 @@ def served_layouts() -> dict:
         calls = found.setdefault(mode, [])
 
         def record(x, kernel, *args, **kwargs):
-            variant = conv.k3_variant(x.dtype, x.shape[3], kernel.shape[3])
+            variant = conv.k3_variant(x.dtype, x.shape[3], kernel.shape[3],
+                                      kwargs.get("passes"))
             if variant != "wide":
                 calls.append((variant, x.shape[1], x.shape[3], kernel.shape[3], layout_of(x)))
             return conv.conv3x3_bias_act(x, kernel, *args, **kwargs)
@@ -2150,6 +2169,163 @@ def phase_conv_variant(generator, variant: str, layouts: dict) -> dict:
         + f"; the layouts of x at the {variant} calls of one served flagship forward: "
         + "; ".join(f"{m} {c}" for m, c in mine.items()))
     return {"rows": rows, "layouts": mine}
+
+
+# Phase 6, K3's narrow_bf16 variant (bfloat16 x with passes, Cout <= 8):
+# the composed top's convs at batch 128 as the served flagship hands them
+# on the bf16 trunk, ``NARROW_RAGGED`` (Cin 3 and 5: pixels TMA cannot
+# take, so the upcast route; Cin 80 direct) and ``NARROW_BF16_RAGGED``,
+# each as NHWC memory (what the trunk's epilogue writes) and as its
+# H/W-transposed view (a rotation's strides).
+NARROW_BF16_VIEWS = ("nhwc", "rotated")
+# Ragged shapes TMA reads where they lie (N, H, W, Cin, Cout, activation,
+# channels of the memory the view is cut from): Cin 8 and 20, a part-full
+# last chunk of 16 (20 as a view of 24-channel memory whose other 4 hold
+# NaN: TMA's zero fill past Cin, not the memory, must feed the chunk),
+# H and W off the 32 x 32 tile, batch 1 to 3.
+NARROW_BF16_RAGGED = ((1, 40, 9, 8, 1, "prelu", 8), (3, 33, 70, 20, 3, "lrelu", 24),
+                      (2, 33, 70, 8, 7, "none", 8))
+
+
+def narrow_bf16_weights() -> dict:
+    """The launches of K3's narrow_bf16 kernel in one forward of each
+    serving mode, by ``(H, Cin, Cout, act, passes)``: the forwards traced on
+    meta tensors (``_meta_forward``), the wrapper swapped for a recorder
+    that routes each call as ``conv.k3_variant`` does."""
+    from collections import Counter
+
+    from resdepth_tpu_torch.models.unet import SERVING_PRECISION_MODES
+    from resdepth_tpu_torch.ops import conv
+
+    weights = Counter()
+
+    def record(x, kernel, bias=None, act_param=None, *, act_fn="relu", passes=None):
+        if conv.k3_variant(x.dtype, kernel.shape[2], kernel.shape[3], passes) == "narrow_bf16":
+            weights[(x.shape[1], kernel.shape[2], kernel.shape[3], act_fn, passes)] += 1
+        return x.new_zeros(x.shape[:3] + (kernel.shape[3],),
+                           dtype=torch.float32 if passes else x.dtype)
+
+    for mode in SERVING_PRECISION_MODES:
+        _meta_forward(mode, None, 1, record)
+    return dict(weights)
+
+
+def phase_conv_narrow_bf16(generator, layouts: dict) -> dict:
+    """K3's narrow_bf16 variant at the composed top's two convs (batch
+    128; the float32 narrow variant's shapes of ``k3_cases``),
+    ``NARROW_RAGGED`` and ``NARROW_BF16_RAGGED``, in each of
+    ``NARROW_BF16_VIEWS``, at 1, 2 and 3 passes: two counted calls through
+    ``conv3x3_bias_act`` (counters zeroed just before, read just after: 2
+    launches of the kernel and 2 weight splits, or where TMA cannot take x
+    2 of the narrow variant on ``x.float()`` and 2 ``k3_bf16_upcast``),
+    bitwise equal to each other and to the route before the kernel
+    (``x.float()`` into the float32 narrow kernel), within 1e-4 of the
+    largest output of the plain version. Every case but Cin 3 and 5 must
+    take the kernel. At batch 20 and above, times in turns (CUDA events):
+    the kernel, that route (``upcast_ms``: the copy and the float32
+    kernel), the float32 kernel alone on the copy (``narrow_ms``), the plain
+    version (``plain_ms``) and bf16 cuDNN (``library_ms``), beside the
+    bound at bf16's 2 bytes an element of x and a float32 output
+    (``conv_bound``) and the float32 kernel's. ``layouts``
+    (``served_layouts``) is logged beside the rows. Returns the rows, the
+    kernel's served layouts, and the times and bound summed over the NHWC
+    rows by their launches a forward of each mode
+    (``narrow_bf16_weights``), with the largest error of every row."""
+    from resdepth_tpu_torch.ops import conv
+
+    device = torch.device("cuda", 0)
+    served = [(CONV_BATCH, h, h, c_in, c_out, act, c_in)
+              for h, c_in, c_out, act in k3_cases()
+              if conv.k3_variant(torch.float32, c_in, c_out) == "narrow"]
+    cases = served + [(*c, c[3]) for c in NARROW_RAGGED] + list(NARROW_BF16_RAGGED)
+    rows = []
+    for n, h, w, c_in, c_out, act, c_mem in cases:
+        for view in NARROW_BF16_VIEWS:
+            for passes in CONV_PASSES:
+                rotated = view == "rotated"
+                x, kernel, bias, slope = _conv_inputs(generator, device, torch.bfloat16, n,
+                                                      w if rotated else h,
+                                                      h if rotated else w, c_mem, c_out)
+                if c_mem > c_in:     # a view of the first c_in channels; NaN past them
+                    x[..., c_in:] = float("nan")
+                    x, kernel = x[..., :c_in], kernel[:, :, :c_in]
+                x = x.transpose(1, 2) if rotated else x
+                direct = conv.tma_takes_bf16(x)
+                for key in conv.LAUNCHES:
+                    conv.LAUNCHES[key] = 0
+                got, again = (conv.conv3x3_bias_act(x, kernel, bias, slope, act_fn=act,
+                                                    passes=passes) for _ in range(2))
+                torch.cuda.synchronize()
+                counted = {k: v for k, v in conv.LAUNCHES.items() if v}
+                b, a = conv._epilogue_vectors(x, kernel, bias, slope)
+                x32 = x.float()
+                before = conv._launch_in_place("narrow", x32, kernel, b, a, act, passes)
+                want = conv.conv3x3_bias_act_plain(x, kernel, bias, slope, act_fn=act,
+                                                   passes=passes)
+                err = float((got - want).abs().max())
+                bar = 1e-4 * float(want.abs().max())
+                shape = f"{n}x{h}x{w} {c_in}->{c_out} {act} {view} {passes}p"
+                expected = {"k3": 2, f"k3_p{passes}": 2, "k3_split": 2,
+                            **({"k3_narrow_bf16": 2} if direct
+                               else {"k3_narrow": 2, "k3_bf16_upcast": 2})}
+                same = torch.equal(got, again) and torch.equal(got, before)
+                if not (np.isfinite(err) and err <= bar and same and counted == expected
+                        and got.dtype == torch.float32 and direct == (c_in not in (3, 5))):
+                    raise AssertionError(
+                        f"K3 narrow_bf16 {shape}: max |diff| {err} (bar {bar}), bitwise "
+                        f"across two launches {torch.equal(got, again)}, to the upcast "
+                        f"route {torch.equal(got, before)}, launches {counted}, read "
+                        f"where it lies {direct}")
+                row = {"shape": shape, "key": (h, c_in, c_out, act), "passes": passes,
+                       "view": view, "direct": direct, "err": err, "bar": bar}
+                del got, again, want, before
+                if n >= TRAIN_BATCH:
+                    row.update(_in_turns({
+                        "ms": lambda: conv.conv3x3_bias_act(x, kernel, bias, slope,
+                                                            act_fn=act, passes=passes),
+                        "upcast_ms": lambda: conv._launch_in_place(
+                            "narrow", x.float(), kernel, b, a, act, passes),
+                        "narrow_ms": lambda: conv._launch_in_place(
+                            "narrow", x32, kernel, b, a, act, passes),
+                        "plain_ms": lambda: conv.conv3x3_bias_act_plain(
+                            x, kernel, bias, slope, act_fn=act, passes=passes),
+                        "library_ms": lambda: _library_conv(x, kernel, bias)}))
+                    row["bound_ms"], row["bound_by"] = conv_bound(x, c_out, passes, 4)
+                    row["f32_bound_ms"] = conv_bound(x32, c_out, passes)[0]
+                rows.append(row)
+                del x, x32
+        torch.cuda.empty_cache()
+    weights = narrow_bf16_weights()
+    timed = [(weights[r["key"] + (r["passes"],)], r) for r in rows
+             if "ms" in r and r["view"] == "nhwc" and r["key"] + (r["passes"],) in weights]
+    if sum(wt for wt, _ in timed) != sum(weights.values()):
+        raise AssertionError(f"K3 narrow_bf16: the modes' forwards launch it at {weights}, "
+                             f"not all timed here")
+    total = {key: sum(wt * r[key] for wt, r in timed)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    mine = {m: sorted({c[1:] for c in calls if c[0] == "narrow_bf16"})
+            for m, calls in layouts.items()}
+    log("conv", "K3 narrow_bf16 variant, two counted launches a case, bitwise equal to "
+        "each other and to x.float() into the float32 narrow kernel; at batch 20 and "
+        "above CUDA events in turns (5 launches each): " + "; ".join(
+            f"{r['shape']}{'' if r['direct'] else ' (upcast route)'}: max |diff| "
+            f"{r['err']:.3g} (bar {r['bar']:.3g})"
+            + (f", narrow_bf16 {r['ms']:.3f} ms ({100 * r['bound_ms'] / r['ms']:.0f} % of "
+               f"bound {r['bound_ms']:.3f}, {r['bound_by']}), upcast + narrow "
+               f"{r['upcast_ms']:.3f}, narrow alone {r['narrow_ms']:.3f} (f32 bound "
+               f"{r['f32_bound_ms']:.3f}), plain {r['plain_ms']:.3f}, bf16 cuDNN "
+               f"{r['library_ms']:.3f}" if "ms" in r else "")
+            for r in rows)
+        + "; the layouts of x at the narrow_bf16 calls of one served flagship forward: "
+        + "; ".join(f"{m} {c}" for m, c in mine.items())
+        + f"; launches a forward of each mode {weights}, summed by them: narrow_bf16 "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f}, bf16 cuDNN "
+        f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f}")
+    return {"rows": rows, "layouts": mine, **total,
+            "max_abs_err": max(r["err"] for r in rows),
+            "bound_by": ("operations" if sum(wt * r["bound_ms"] for wt, r in timed
+                                             if r["bound_by"] == "operations")
+                         >= total["bound_ms"] / 2 else "bytes")}
 
 
 def epilogue_bytes(kind: str, shape, pool: bool) -> int:
@@ -2754,7 +2930,7 @@ def phase_train_precisions(scene: dict) -> dict:
     batches = [(ds.positions[i:i + TRAIN_BATCH], ds.pair_indices[i:i + TRAIN_BATCH],
                 np.zeros((TRAIN_BATCH, 4), np.int32), np.ones(TRAIN_BATCH, np.float32))
                for i in range(0, TRAIN_BATCH * (TRAIN_STEPS + 1), TRAIN_BATCH)]
-    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0, **{v: 0 for v in K3_F32_VARIANTS}}
+    result, shapes, launches = {}, {}, {1: 0, 2: 0, 3: 0, **{v: 0 for v in K3_COUNTED}}
     for policy, (train_precision, compute_dtype) in TRAIN_POLICIES.items():
         kwargs, dtype = select_train_precision(train_precision, compute_dtype, device)
         model = init_unet(config, torch.Generator().manual_seed(SEED), device)
@@ -2782,7 +2958,7 @@ def phase_train_precisions(scene: dict) -> dict:
                                  f"{TRAIN_STEPS} steps, expected {want} by pass count")
         for p, c in counts.items():
             launches[p] += c
-        for variant in K3_F32_VARIANTS:
+        for variant in K3_COUNTED:
             launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
         metrics = [float(m) for m in metrics]
         if not all(np.isfinite(metrics)):
@@ -3091,7 +3267,7 @@ def phase_profile(work: str, scene: dict) -> dict:
         raise AssertionError("; ".join(problems))
     return {"launches": {3: traced["k3"]["k3_p3"] + twin["k3"]["k3_p3"],
                          **{v: traced["k3"][f"k3_{v}"] + twin["k3"][f"k3_{v}"]
-                            for v in K3_F32_VARIANTS}},
+                            for v in K3_COUNTED}},
             "steps": {name: runs[name]["trace"]["steps"] for name in ("balanced16", "high")}}
 
 
@@ -3173,7 +3349,7 @@ def phase_channel_modes(work: str) -> dict:
             scenes[name] = scene_run()
             counts = ({p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3)
                        if conv.LAUNCHES[f"k3_p{p}"]}, stitch.LAUNCHES["k2"])
-            for variant in K3_F32_VARIANTS:
+            for variant in K3_COUNTED:
                 k3_launches[variant] += conv.LAUNCHES[f"k3_{variant}"]
             want = ({p: n * n_batches for p, n in Counter(
                 c[4] for c in mode_k3_convs(name, config)).items()}
@@ -3243,11 +3419,12 @@ def _zero_counters() -> None:
 
 def _read_counters() -> dict:
     """The launches since ``_zero_counters``: K3 by float32 pass count
-    (1, 2, 3), its float32 kernels (``K3_F32_VARIANTS``), and "k1", "k2"."""
+    (1, 2, 3), its kernels counted by name (``K3_COUNTED``), and "k1",
+    "k2"."""
     from resdepth_tpu_torch.ops import conv, stitch
 
     counts = {p: conv.LAUNCHES[f"k3_p{p}"] for p in (1, 2, 3) if conv.LAUNCHES[f"k3_p{p}"]}
-    for variant in K3_F32_VARIANTS:
+    for variant in K3_COUNTED:
         if conv.LAUNCHES[f"k3_{variant}"]:
             counts[variant] = conv.LAUNCHES[f"k3_{variant}"]
     counts.update(stitch.LAUNCHES)
@@ -3594,7 +3771,7 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
         trainer.train()
         k3 = conv.LAUNCHES["k3"]
-        narrow = {v: conv.LAUNCHES[f"k3_{v}"] for v in K3_F32_VARIANTS}
+        narrow = {v: conv.LAUNCHES[f"k3_{v}"] for v in K3_COUNTED}
         metrics = [float(m) for _, _, m in events]
         if not np.isfinite(metrics).all():
             raise AssertionError(f"{tag}: train metrics {metrics}")
@@ -3624,7 +3801,7 @@ def phase_train_banded(work: str, scene: dict, resident: dict) -> dict:
             narrow[v] += c
         return b["k3"]
 
-    result, lines, launches, narrow = {}, [], 0, {v: 0 for v in K3_F32_VARIANTS}
+    result, lines, launches, narrow = {}, [], 0, {v: 0 for v in K3_COUNTED}
     for policy in BANDED_POLICIES:
         for budget_name, budget in BANDED_BUDGETS.items():
             tag = f"{policy}-{budget_name}"
@@ -4022,7 +4199,7 @@ def phase_dp_nccl_1(work: str, scene: dict) -> dict:
         f"{served['world']['wall']:.2f} s in the world, raster bitwise, K2 "
         f"{served['world']['k2']} launches")
     return {"launches": {"k2": served["world"]["k2"], 3: world["k3"]["k3_p3"],
-                         **{v: world["k3"][f"k3_{v}"] for v in K3_F32_VARIANTS}}}
+                         **{v: world["k3"][f"k3_{v}"] for v in K3_COUNTED}}}
 
 
 def dp_train(policy: str, scene: dict, device, group, reverse: bool = False) -> dict:
@@ -4117,7 +4294,7 @@ def dp_serve(plan: dict, device, group) -> dict:
             if launches is None:
                 launches = {**stitch.LAUNCHES, "k3_p3": conv.LAUNCHES["k3_p3"],
                             "k3": conv.LAUNCHES["k3"],
-                            **{f"k3_{v}": conv.LAUNCHES[f"k3_{v}"] for v in K3_F32_VARIANTS}}
+                            **{f"k3_{v}": conv.LAUNCHES[f"k3_{v}"] for v in K3_COUNTED}}
         out[name] = {"scene": None if got is None else torch.from_numpy(got),
                      "launches": launches, "walls": walls}
 
@@ -4321,7 +4498,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
                          for k, v in gaps.items())
 
     lines, failures, launches = [], [], {"k1": 0, "k2": 0, 3: 0,
-                                         **{v: 0 for v in K3_F32_VARIANTS}}
+                                         **{v: 0 for v in K3_COUNTED}}
     for policy in DP_POLICIES:
         gaps, floor, failure = _hold_dp_training(policy, ranks, alone[policy],
                                                  control[policy], start)
@@ -4333,7 +4510,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
             raise AssertionError(f"dp-2-on-1 {policy}: K3 launches a rank {k3}, expected "
                                  f"{want_k3} at 3 passes")
         launches[3] += sum(c["k3_p3"] for c in k3)
-        for variant in K3_F32_VARIANTS:
+        for variant in K3_COUNTED:
             launches[variant] += sum(c[f"k3_{variant}"] for c in k3)
         step_ms = [float(np.mean(r["train"][policy]["step_ms"][DP_WARMUP:])) for r in ranks]
         lines.append(
@@ -4369,7 +4546,7 @@ def phase_dp_2_on_1(work: str, scene: dict, model: dict, train_scene: dict,
                             f"{n_steps} {kernel}, {want_k3} K3)")
         launches[kernel] += sum(c[kernel] for c in counts)
         launches[3] += sum(c["k3_p3"] for c in counts)
-        for variant in K3_F32_VARIANTS:
+        for variant in K3_COUNTED:
             launches[variant] += sum(c[f"k3_{variant}"] for c in counts)
         lines.append(f"{name}: {diff:.2f} ulps from the resident K2 scene (bar {bar}), "
                      f"launches a rank {counts[0]}, scene s a rank (counted run, then one "
@@ -4479,7 +4656,7 @@ def phase_dryrun() -> dict:
     want_k3 = {"train": k3_launches_a_step("default", 3)[1],
                "train-2d": k3_launches_a_step("default", 3)[1],
                "banded": 2 * k3_launches_a_step("default", 2)[1]}
-    launches = {"k1": 0, "k2": 0, 1: 0, **{v: 0 for v in K3_F32_VARIANTS}}
+    launches = {"k1": 0, "k2": 0, 1: 0, **{v: 0 for v in K3_COUNTED}}
     for n, share in ((1, False), (DRYRUN_RANKS, True)):
         begin = time.perf_counter()
         ranks = graft_entry.dryrun_multichip(n, share_cards=share, rank_argv=argv,
@@ -4493,7 +4670,7 @@ def phase_dryrun() -> dict:
                 # float32 kernels and "k3_split" their weights' splits
                 other = {k: v for k, v in c.items()
                          if v and k not in ("k1", "k2", "k3_p1", "k3", "k3_split",
-                                            *(f"k3_{v}" for v in K3_F32_VARIANTS))}
+                                            *(f"k3_{v}" for v in K3_COUNTED))}
                 if name in want_k3:
                     ok = (c["k3_p1"] == c["k3"] == want_k3[name]
                           and not c["k1"] and not c["k2"])
@@ -4507,7 +4684,7 @@ def phase_dryrun() -> dict:
             launches["k1"] += sum(c["k1"] for c in counts)
             launches["k2"] += sum(c["k2"] for c in counts)
             launches[1] += sum(c["k3_p1"] for c in counts)
-            for variant in K3_F32_VARIANTS:
+            for variant in K3_COUNTED:
                 launches[variant] += sum(c[f"k3_{variant}"] for c in counts)
             lines.append(f"{name} {max(r['legs'][name]['seconds'] for r in ranks):.2f} s, "
                          "launches a rank " + ", ".join(
@@ -4661,7 +4838,10 @@ def main(argv: list | None = None) -> int:
     # times each shape's once.
     # Then K3's float32 kernels alone (wide_f32: the trunk; narrow: Cout <=
     # 8; narrow_k: Cin <= 4 and 8 < Cout <= 64), each with its launches on
-    # those paths and its share of those times and bounds.
+    # those paths and its share of those times and bounds; and narrow_bf16
+    # (the composed top on the bf16 trunk) with its launches on those paths
+    # and its times and bound at the top's convs, by their launches a
+    # forward of each mode (``phase_conv_narrow_bf16``).
     name, source, replaces = K3
     k3_phases = (modes, train_precisions, streaming, banded, channel_modes, profile,
                  dp_nccl, dp_ranks, dryrun, studies, smoke)
@@ -4672,7 +4852,7 @@ def main(argv: list | None = None) -> int:
          "launches": (sum(phase["launches"].get(r["passes"], 0) for phase in k3_phases)
                       if r["passes"] else r["launches"]),
          **{f: r[f] for f in fields}}
-        for key, r in convs.items() if key not in K3_F32_VARIANTS]
+        for key, r in convs.items() if key not in K3_COUNTED]
     record["kernels"] += [
         {"name": label, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(phase["launches"].get(variant, 0) for phase in k3_phases),
@@ -4680,7 +4860,8 @@ def main(argv: list | None = None) -> int:
         for variant, label in (
             ("wide_f32", f"{name}_wide_f32 (float32, Cout > 8 outside narrow_k's range)"),
             ("narrow", f"{name}_narrow (float32, Cout <= 8)"),
-            ("narrow_k", "conv3x3_bias_act_narrow_k (float32, Cin <= 4, 8 < Cout <= 64)"))]
+            ("narrow_k", "conv3x3_bias_act_narrow_k (float32, Cin <= 4, 8 < Cout <= 64)"),
+            ("narrow_bf16", f"{name}_narrow_bf16 (bfloat16 x with passes, Cout <= 8)"))]
     # the trunk epilogue: its launches on the mode paths (phase modes), its
     # times over one balanced16 forward's 14 calls (its plain version is the
     # ATen ops)

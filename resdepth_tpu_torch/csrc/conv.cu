@@ -18,19 +18,23 @@
 // TPU kernel cuts the padded input into three row-shifted views so that its
 // BlockSpecs hand each grid program a halo window in VMEM.
 //
-// Four kernels, each a design for its shapes; ops/conv.py::k3_variant
-// routes a call by dtype, Cin and Cout alone:
+// Five kernels, each a design for its shapes; ops/conv.py::k3_variant
+// routes a call by dtype, Cin, Cout and whether it names its passes:
 //
 //   * wide (conv3x3_k3_kernel, below): bfloat16. x padded with zero
 //     channels to a multiple of 16, the weights re-laid (9, Cout, Cin_p)
 //     once a call, both bf16; one bf16 pass, a bf16 output.
 //   * narrow (float32, Cout <= 8): the composed top's convs.
+//   * narrow_bf16 (bfloat16 with a pass count, Cout <= 8): the composed
+//     top's convs on the bf16 trunk, the narrow variant's products on
+//     x.float() without the upcast, a float32 output.
 //   * narrow_k (float32, Cin <= 4 and Cout 9 to 64): the first convs and
 //     the last conv's dx in training.
 //   * wide_f32 (every other float32 call): the trunk.
 //
 // Every float32 kernel reads x where it lies, as float32, and splits it on
-// chip; each sums its products in the same order (chunks of input
+// chip (narrow_bf16 reads bf16 x where it lies, and has nothing to split);
+// each sums its products in the same order (chunks of input
 // channels, then taps, then the passes in the TPU kernel's order) and with
 // no atomics, so a call gives the same bits every run. Each one's design
 // and what bounds it stand before its code.
@@ -815,7 +819,196 @@ split_hi_lo_fragments_kernel(const float* __restrict__ w, long long s0, long lon
 }  // namespace narrow
 
 // ---------------------------------------------------------------------------
-// The narrow_k variant: float32 x with Cin 1 to 4 and Cout 9 to 64 (the
+// The narrow_bf16 variant: bfloat16 x with a pass count, Cout <= 8 (the
+// composed top's 256^2 64->1 and 128^2 64->4 convs on the bf16 trunk of the
+// mixed and balanced16 serving modes). It computes what the narrow variant
+// computes on x.float(): a bf16 value is exact in float32, so that
+// variant's split of it is x_hi = x and x_lo = 0, and of its passes only
+// x_hi w_hi and, at 3, x_hi w_lo add anything. A kernel of its own beside
+// the narrow one, whose pipeline is built around the split this one does
+// not make:
+//
+//   * x is read once, as bf16, where it lies, by TMA: a 4-D tensor map of
+//     x's own layout with C contiguous (box 16 channels x 34 x 34 pixels;
+//     TMA's zero fill is the same padding and the Cin tail) under the
+//     32-byte swizzle, which puts the 8 rows of each ldmatrix phase (8
+//     neighbouring pixels' 16 bytes) on 8 distinct groups of banks. A view
+//     TMA cannot take (C not contiguous, strides or base not 16-byte
+//     multiples) goes to the narrow variant on x.float() (ops/conv.py).
+//   * No split: ldmatrix feeds the A fragments straight from the ring
+//     stage, and each tap product is mma(x, w_hi) and, at 3 passes, mma(x,
+//     w_lo): 2 mma where the narrow variant runs 3, 1 where it runs 2.
+//     The sum order is the narrow variant's (chunks of 16 input channels,
+//     then taps, then the passes) less its x_lo products, which add exact
+//     zeros: each output is the narrow variant's on x.float(), but for the
+//     sign of a zero.
+//   * A CTA owns 32 x 32 output pixels of one image and 8 consumer warps
+//     (2 across x 4 down), each 16 columns x 8 rows: an A fragment of an
+//     input row and column shift serves the up to 3 output rows that read
+//     it, 30 fragments a chunk for 72 tap products. One producer warp keeps
+//     a ring of kStages chunks in flight (full and empty mbarriers; no
+//     block-wide barrier in the loop).
+//   * The weights' B fragments are the narrow variant's
+//     (split_hi_lo_fragments_kernel, one launch a call): 9 16-byte loads a
+//     chunk from L2.
+//   * Persistent: one CTA an SM walks tiles blockIdx.x, + gridDim.x, ...;
+//     the ring runs on across tiles, so the next tile's loads overlap this
+//     one's last products and its epilogue. No atomics: the same bits every
+//     run.
+//
+// What bounds it: x's bytes, half the narrow variant's. 256^2 64->1 at
+// batch 128 reads 1.07 GB (0.32 ms at 3.35 TB/s); its products at 3 passes
+// are 0.15 TFLOP of mma.sync with N padded to 8.
+namespace narrow_bf16 {
+
+constexpr int kTW = 32;                       // output columns a tile
+constexpr int kWarpRows = 8;                  // output rows a consumer warp
+constexpr int kTH = 4 * kWarpRows;            // output rows a tile (4 warps down)
+constexpr int kHaloH = kTH + 2, kHaloW = kTW + 2;
+constexpr int kKC = 16;                       // input channels a chunk (one k16 step)
+constexpr int kConsumers = 8;                 // 2 across (16 columns) x 4 down
+constexpr int kThreads = 32 * (kConsumers + 1);   // and the producer warp
+constexpr int kStageBytes = kHaloH * kHaloW * kKC * 2;   // 32 bytes a halo pixel
+constexpr int kStagePitch = (kStageBytes + 1023) / 1024 * 1024;
+constexpr int kStages = 4;
+// the ring, its full and empty barriers, and slack to align to 1 KB
+constexpr int kSmemBytes = kStages * kStagePitch + 2 * kStages * 8 + 1024;
+
+// grid min(tiles, SMs), block 288: warps 0-7 multiply, warp w owning output
+// columns 16 (w % 2) .. + 15 and rows kWarpRows (w / 2) .. + kWarpRows - 1
+// of each of its CTA's tiles; the first thread of warp 8 loads. kWLo: the
+// w_lo products (3 passes).
+template <bool kWLo>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_k3_narrow_bf16_kernel(__grid_constant__ const CUtensorMap x_map,
+                              const uint4* __restrict__ frags, const float* __restrict__ bias,
+                              const float* __restrict__ prelu, float* __restrict__ out, int H,
+                              int W, int Cout, int act, int tiles_x, int tiles_y, int n_tiles,
+                              int n_chunks) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // TMA's swizzle repeats every 256 bytes of shared address: align the ring
+  // to 1 KB, so that a stage's swizzle is that of its own offsets
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kStages * kStagePitch;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int warp = tid / 32, lane = tid % 32;
+  const int my_tiles = (n_tiles - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                       static_cast<int>(gridDim.x);
+  auto tile_origin = [&](int i, int& n, int& y0, int& x0) {
+    int t = static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x);
+    x0 = (t % tiles_x) * kTW;
+    t /= tiles_x;
+    y0 = (t % tiles_y) * kTH;
+    n = t / tiles_y;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);       // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {                   // the producer: chunk it into stage it % kStages
+    if (lane == 0) {
+      for (int it = 0; it < my_tiles * n_chunks; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty(s), (static_cast<uint32_t>(it / kStages) & 1u) ^ 1u);
+        int n, y0, x0;
+        tile_origin(it / n_chunks, n, y0, x0);
+        mbar_expect_tx(full(s), kStageBytes);
+        tma_load_4d(base + s * kStagePitch, &x_map, full(s), (it % n_chunks) * kKC, x0 - 1,
+                    y0 - 1, n);
+      }
+    }
+    return;
+  }
+
+  const int warp_col = 16 * (warp % 2), warp_row = kWarpRows * (warp / 2);
+  // ldmatrix row of this lane: pixel lane % 16 of the fragment's 16, the
+  // 16-byte half lane / 16 of its channels
+  const int lane_px = lane % 16, lane_half = lane / 16;
+  float acc[kWarpRows][4];
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  int it = 0;
+  for (int tile = 0; tile < my_tiles; ++tile) {
+    for (int chunk = 0; chunk < n_chunks; ++chunk, ++it) {
+      uint32_t bh[9][2], bl[9][2];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const uint4 f = __ldg(frags + (chunk * 9 + t) * 32 + lane);
+        bh[t][0] = f.x;
+        bh[t][1] = f.y;
+        bl[t][0] = f.z;
+        bl[t][1] = f.w;
+      }
+      const int s = it % kStages;
+      mbar_wait(full(s), static_cast<uint32_t>(it / kStages) & 1u);
+      const uint32_t stage = base + s * kStagePitch;
+#pragma unroll
+      for (int r = 0; r < kWarpRows + 2; ++r) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          // halo pixel p's 32 bytes, its two 16-byte halves swapped where
+          // bit 2 of p is set (the 32-byte swizzle: address bit 4 ^= bit 7)
+          const int p = (warp_row + r) * kHaloW + warp_col + dx + lane_px;
+          uint32_t xa[4];
+          narrow::ldmatrix_x4(xa, stage + p * 32 + ((lane_half ^ (p >> 2)) & 1) * 16);
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int row = r - dy;           // the output row that reads this input row at dy
+            if (row >= 0 && row < kWarpRows) {
+              const int t = 3 * dy + dx;
+              // the narrow variant's passes, less x_lo's
+              narrow::mma_16816(acc[row], xa, bh[t][0], bh[t][1]);
+              if constexpr (kWLo) narrow::mma_16816(acc[row], xa, bl[t][0], bl[t][1]);
+            }
+          }
+        }
+      }
+      // this warp's reads of the stage are done: give it back to the producer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // Accumulator layout of m16n8: lane holds pixels lane / 4 (+ 8) of the
+    // 16 and output channels 2 (lane % 4) (+ 1).
+    int n, y0, x0;
+    tile_origin(tile, n, y0, x0);
+    const int g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i) {
+      const int y = y0 + warp_row + i;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int xx = x0 + warp_col + g + 8 * half;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = 2 * q + e;
+          if (y < H && xx < W && o < Cout) {
+            out[((static_cast<long long>(n) * H + y) * W + xx) * Cout + o] =
+                activate(acc[i][2 * half + e] + bias[o], act, prelu[o]);
+          }
+          acc[i][2 * half + e] = 0.0f;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace narrow_bf16
+
+// ---------------------------------------------------------------------------
+// The narrow_k variant:float32 x with Cin 1 to 4 and Cout 9 to 64 (the
 // flagship's encoder0, 256^2 3->64; the dx of the last conv in training,
 // 1->64; the channel modes' first convs, 1/2/4->64). Its products are the
 // other variants', passes and all. At 3 passes encoder0 at batch 128 is
@@ -1672,6 +1865,29 @@ int launch_narrow(const CUtensorMap& map, const narrow::XView& x, const uint4* f
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kWLo>
+int launch_narrow_bf16(const CUtensorMap& map, const uint4* frags, const float* bias,
+                       const float* prelu, float* out, int N, int H, int W, int Cout, int act,
+                       int n_chunks, cudaStream_t stream) {
+  auto kernel = narrow_bf16::conv3x3_k3_narrow_bf16_kernel<kWLo>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         narrow_bf16::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (W + narrow_bf16::kTW - 1) / narrow_bf16::kTW,
+            tiles_y = (H + narrow_bf16::kTH - 1) / narrow_bf16::kTH;
+  const long long n_tiles = static_cast<long long>(N) * tiles_x * tiles_y;
+  if (n_tiles * n_chunks > (1ll << 31) - 1) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(n_tiles < sms ? n_tiles : sms);
+  kernel<<<grid, narrow_bf16::kThreads, narrow_bf16::kSmemBytes, stream>>>(
+      map, frags, bias, prelu, out, H, W, Cout, act, tiles_x, tiles_y,
+      static_cast<int>(n_tiles), n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kPasses, int kKSteps>
 int launch_narrow_k(const narrow::XView& x, const uint4* frags, const float* bias,
                     const float* prelu, float* out, int N, int H, int W, int Cin, int Cout,
@@ -1839,6 +2055,48 @@ int conv3x3_k3_narrow(const float* x, long long sn, long long sh, long long sw, 
   if (channels) return K3_NARROW(narrow::kChannels);
   return K3_NARROW(narrow::kScalar);
 #undef K3_NARROW
+}
+
+// K3's narrow_bf16 variant on ``stream``: bfloat16 x (N, H, W, Cin) at
+// element strides (sn, sh, sw, sc), read in place by TMA, so sc must be 1
+// and sn, sh, sw multiples of 8 (16 bytes), the base 16-byte aligned; the
+// weights (3, 3, Cin, Cout) float32 at element strides (w0, w1, w2, w3),
+// Cout 1 to 8; ``passes`` 1 to 3 as conv3x3_k3_narrow takes them on
+// x.float(), with the same float32 result; out (N, H, W, Cout) float32
+// contiguous. ``frags`` is scratch of ceil(Cin / 16) * 9 * 512 bytes,
+// 16-byte aligned, for the weights' split (split_hi_lo_fragments_kernel,
+// launched first). Returns cudaGetLastError() after each launch (or one of
+// the kErr codes).
+int conv3x3_k3_narrow_bf16(const void* x, long long sn, long long sh, long long sw,
+                           long long sc, const float* w, long long w0, long long w1,
+                           long long w2, long long w3, void* frags, const float* bias,
+                           const float* prelu, float* out, int N, int H, int W, int Cin,
+                           int Cout, int act, int passes, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || Cout > narrow::kMaxCout || passes < 1 ||
+      passes > 3 || reinterpret_cast<uintptr_t>(frags) % 16 != 0 || sc != 1 || sw % 8 != 0 ||
+      sh % 8 != 0 || sn % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (encoder() == nullptr) return kErrNoEncoder;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_chunks = (Cin + narrow_bf16::kKC - 1) / narrow_bf16::kKC;
+  const int work = n_chunks * 9 * 32;
+  auto* f = static_cast<uint4*>(frags);
+  narrow::split_hi_lo_fragments_kernel<<<(work + 255) / 256, 256, 0, s>>>(
+      w, w0, w1, w2, w3, Cin, Cout, n_chunks, f);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cuuint64_t b = 2;   // bytes a bf16
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Cin), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {sw * b, sh * b, sn * b};
+  const cuuint32_t box[4] = {narrow_bf16::kKC, narrow_bf16::kHaloW, narrow_bf16::kHaloH, 1};
+  CUtensorMap map{};
+  if (!encode(&map, x, 4, dims, strides, box)) return kErrEncode;   // box[0] 16: 32-byte swizzle
+  return passes == 3 ? launch_narrow_bf16<true>(map, f, bias, prelu, out, N, H, W, Cout, act,
+                                                n_chunks, s)
+                     : launch_narrow_bf16<false>(map, f, bias, prelu, out, N, H, W, Cout, act,
+                                                 n_chunks, s);
 }
 
 // K3's narrow_k variant on ``stream``: float32 x (N, H, W, Cin) at element

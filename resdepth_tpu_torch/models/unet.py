@@ -449,11 +449,12 @@ class _AtPrecision:
     A layer left without one is HIGH on float32 operands, as the JAX
     package reads None. ``mixed`` (float32 input only) runs a bf16 trunk,
     cast where the JAX graph casts: the input, every encoder output; the
-    top gives float32 and the outer skip adds the raw f32 channel 0.
+    top gives float32 (K3 reads the bf16 activations as they lie, at their
+    float32 values) and the outer skip adds the raw f32 channel 0.
     ``hifi_endpoints`` (with ``mixed``) feeds ``encoder0`` the raw f32
-    input and runs the composed top on f32-upcast activations with f32
-    weights. The bias map of a composed top is exact float32 (HIGHEST), as
-    in JAX. A bf16 conv adds its bias after its sums are rounded to bf16,
+    input and runs the composed top on the activations' float32 values
+    with f32 weights. The bias map of a composed top is exact float32
+    (HIGHEST), as in JAX. A bf16 conv adds its bias after its sums are rounded to bf16,
     and the bilinear 2x resize works one axis at a time (``_resize2x``),
     the JAX orders.
 
@@ -493,8 +494,13 @@ class _AtPrecision:
         if x.dtype == torch.bfloat16 and not self.train:
             # the epilogue reads NHWC memory, and cuDNN writes its output in
             # the layout of its input: lay out a rotated view (test-time
-            # augmentation) so; no value changes
+            # augmentation) so; no value changes. A one-channel batch in
+            # NCHW memory passes for channels-last contiguous as it lies, so
+            # its strides are named NHWC (the same memory) for cuDNN to see
             x = x.contiguous(memory_format=torch.channels_last)
+            if x.shape[1] == 1:
+                n, _, h, w = x.shape
+                x = x.as_strided(x.shape, (h * w, 1, w, 1))
         return x
 
     def _block_precision(self, prefix):
@@ -624,9 +630,17 @@ def _conv3x3(x, weight, bias, precision, act_fn="none", slope=None):
     if x.dtype == torch.bfloat16:
         y = _add_bias(_conv3x3_bf16(x, weight), bias)
         return _activate_nchw(y, act_fn, slope)
+    return _conv3x3_f32(x, weight, bias, precision, act_fn, slope)
+
+
+def _conv3x3_f32(x, weight, bias, precision, act_fn="none", slope=None):
+    """``_conv3x3`` on the float32 value of NCHW ``x``, float32 or bf16
+    (exact in float32), with a float32 result: kernel K3 at the precision's
+    passes, which takes a bf16 ``x`` as it lies (``ops/conv.py``), or IEEE
+    float32 where it has none."""
     passes = precision_passes(precision)
     if passes is None:
-        return _activate_nchw(F.conv2d(x, weight, bias, padding=1), act_fn, slope)
+        return _activate_nchw(F.conv2d(x.float(), weight, bias, padding=1), act_fn, slope)
     y = conv3x3_bias_act(x.permute(0, 2, 3, 1), weight.permute(2, 3, 1, 0), bias,
                          slope, act_fn=act_fn, passes=passes)
     return y.permute(0, 3, 1, 2)
@@ -725,19 +739,21 @@ def _composed_top_at(top: ComposedTop, last: nn.Conv2d, skip, d1, mixed: bool,
     """``ComposedTop`` at ``precision``: the three branches of the JAX
     ``_composed_top``."""
     w_last, w_ck = last.weight, top.ck
+    conv = _conv3x3
     if mixed:
-        # f32 results from the bf16 trunk: the activations upcast, which
-        # splits them exactly (lo = 0). With hifi_endpoints the weights stay
-        # f32; without, they are bf16-rounded and every product is exact in
-        # one pass.
-        skip, d1 = skip.float(), d1.float()
+        # f32 results from the bf16 trunk, on the activations' float32
+        # values, which split exactly (lo = 0): K3 takes them as they lie,
+        # IEEE float32 upcast (``_conv3x3_f32``). With hifi_endpoints the
+        # weights stay f32; without, they are bf16-rounded and every product
+        # is exact in one pass.
+        conv = _conv3x3_f32
         if not hifi_endpoints:
             w_last = w_last.to(torch.bfloat16).float()
             w_ck = w_ck.to(torch.bfloat16).float()
             if precision != Precision.HIGHEST:
                 precision = Precision.DEFAULT
-    ys = _conv3x3(skip, w_last, None, precision)
-    yd = _conv3x3(d1, w_ck, None, precision)
+    ys = conv(skip, w_last, None, precision)
+    yd = conv(d1, w_ck, None, precision)
     ones = torch.ones((1, 1) + skip.shape[2:], dtype=torch.float32,
                       device=skip.device)
     bias_map = F.conv2d(ones, top.s_map, None, padding=1)     # HIGHEST

@@ -12,13 +12,19 @@ w_hi + w_lo`` in bf16, accumulating ``x_hi w_hi + x_hi w_lo + x_lo w_hi`` in
 float32. For float32, ``passes`` (default 3) takes the TPU's other MXU
 precisions on f32 operands, with a float32 result: 1 pass ``x_hi w_hi``
 (``Precision.DEFAULT``), 2 passes ``+ x_lo w_hi`` (``(HIGH, DEFAULT)``),
-3 passes ``+ x_hi w_lo`` (``ops/passes.py``). bfloat16 takes no ``passes``.
+3 passes ``+ x_hi w_lo`` (``ops/passes.py``). bfloat16 ``x`` with
+``passes`` is the conv of its exact float32 value at those passes, with a
+float32 result: exactly ``conv3x3_bias_act(x.float(), ..., passes=p)``
+(the split of a bf16 value is ``x_hi = x``, ``x_lo = 0``), for Cout up to
+``NARROW_COUT`` (the composed top's convs on the bf16 trunk); at any other
+Cout it raises. bfloat16 without ``passes`` is one native pass with a
+bfloat16 result.
 
 Two implementations of that one function:
 
   * ``conv3x3_bias_act`` on a CUDA tensor launches kernel K3
-    (``csrc/conv.cu``), one of its four kernels as ``k3_variant`` routes
-    the call, by dtype, Cin and Cout alone:
+    (``csrc/conv.cu``), one of its five kernels as ``k3_variant`` routes
+    the call, by dtype, Cin, Cout and whether it names its ``passes``:
       - "wide" (bfloat16): an implicit GEMM with ``wgmma`` fed by TMA. It
         takes bf16 operands (``kernel_operands``): Cin padded with zeros to
         a multiple of 16 and the weights re-laid as (9, Cout, Cin_p).
@@ -30,13 +36,20 @@ Two implementations of that one function:
         grid; one small kernel a call splits the weights into the (9,
         Cout, Cin_p) bf16 hi (and lo at 3 passes) that it reads by TMA
         (``wide_f32_weights_plain``).
-      - "narrow" (float32 with Cout <= 8: the composed top's convs, the
-        last conv in training, the narrow models' convs): reads x in
-        place at its strides (the NHWC views the model hands it, of K3's
-        own NHWC output in every serving mode or of NCHW memory, or any
-        other layout), splits it in registers and runs ``mma.sync``
-        m16n8k16 over 8 output channels; one small kernel a call splits
-        the weights into its fragments.
+      - "narrow" (float32 with Cout <= 8: the composed top's convs on
+        float32 storage, the last conv in training, the narrow models'
+        convs): reads x in place at its strides (the NHWC views the model
+        hands it, of K3's own NHWC output in every serving mode or of NCHW
+        memory, or any other layout), splits it in registers and runs
+        ``mma.sync`` m16n8k16 over 8 output channels; one small kernel a
+        call splits the weights into its fragments.
+      - "narrow_bf16" (bfloat16 with ``passes``, Cout <= 8): the narrow
+        variant's products on x's float32 value less its ``x_lo`` ones,
+        which are zero, with x read as bf16 where it lies by TMA and no
+        split of x at all; the weights' fragments as the narrow variant
+        splits them. A view TMA cannot take (C not contiguous, strides or
+        base not 16-byte multiples) runs the narrow variant on
+        ``x.float()`` instead.
       - "narrow_k" (float32 with Cin <= 4 and 8 < Cout <= 64: the first
         convs, 3->64 and the channel modes' 1/2/4->64, and the last conv's
         dx in training, 1->64): reads x in place at its strides as the
@@ -47,18 +60,25 @@ Two implementations of that one function:
         splits the weights into its fragments (``narrow_k_fragments_plain``).
   * ``conv3x3_bias_act_plain``: ``F.conv2d`` on permuted tensors (for
     float32 over the channel-concatenated split operands of its passes,
-    ``ops.passes.pass_operands``, whose products are exact in float32),
-    then bias and activation. The wrapper runs it for a CPU tensor; on the
+    ``ops.passes.pass_operands``, whose products are exact in float32;
+    bfloat16 with ``passes`` the same on ``x.float()``), then bias and
+    activation. The wrapper runs it for a CPU tensor; on the
     card it is the yardstick K3 is held against and nothing else.
 
 The UNet's float32 and bfloat16 paths run their convs through ``F.conv2d``,
 as the JAX UNet runs them through XLA; its serving modes run every 3x3 conv
-that has a pass count through ``conv3x3_bias_act`` (``models/unet.py``).
+that has a pass count through ``conv3x3_bias_act`` (``models/unet.py``),
+the composed top's two on the bf16 trunk (``mixed``, ``balanced16``) on
+its bfloat16 activations as they lie.
 ``LAUNCHES`` counts kernel launches: ``k3`` the conv (any dtype, any
-variant), ``k3_p1``, ``k3_p2`` and ``k3_p3`` its float32 launches by pass
-count, ``k3_wide_f32``, ``k3_narrow`` and ``k3_narrow_k`` those of the
-three float32 kernels, ``k3_split`` the splits of their weights (one a
-float32 call; x is split on chip, never by a launch of its own).
+variant), ``k3_p1``, ``k3_p2`` and ``k3_p3`` its launches with a pass count
+(float32, and bfloat16 with ``passes``), ``k3_wide_f32``, ``k3_narrow``,
+``k3_narrow_k`` and ``k3_narrow_bf16`` those of the four kernels that take
+one, ``k3_split`` the splits of their weights (one a call with a pass
+count; x is split on chip, never by a launch of its own);
+``k3_bf16_upcast`` the bfloat16 calls with ``passes`` that ran the narrow
+variant on ``x.float()`` because TMA could not take x's view (counted in
+``k3_narrow`` too).
 """
 
 from __future__ import annotations
@@ -72,21 +92,21 @@ import torch.nn.functional as F
 from resdepth_tpu_torch.ops import build, passes as pass_ops
 
 LAUNCHES = {"k3": 0, "k3_p1": 0, "k3_p2": 0, "k3_p3": 0, "k3_split": 0, "k3_narrow": 0,
-            "k3_narrow_k": 0, "k3_wide_f32": 0}
+            "k3_narrow_k": 0, "k3_wide_f32": 0, "k3_narrow_bf16": 0, "k3_bf16_upcast": 0}
 
 LRELU_SLOPE = 0.01
 _ACT_CODES = {"relu": 1, "lrelu": 2, "prelu": 3}   # any other name: identity
 _DTYPES = (torch.float32, torch.bfloat16)
 CIN_ALIGN = 16     # TMA's 16-byte strides and wgmma's K step of 16
-NARROW_COUT = 8    # the narrow variant's mma N: float32 calls up to this Cout
+NARROW_COUT = 8    # the narrow variants' mma N: calls up to this Cout
 # the narrow_k variant: float32 calls with Cin up to NARROW_K_CIN (K = 9 Cin
 # packed) and Cout up to NARROW_K_COUT (8 n8 tiles), above NARROW_COUT
 NARROW_K_CIN, NARROW_K_COUT = 4, 64
 
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# conv3x3_k3_wide_f32, conv3x3_k3_narrow and conv3x3_k3_narrow_k: x and its
-# 4 strides, the weights and theirs, scratch, bias, slopes, out, N H W Cin
-# Cout act passes, the stream
+# conv3x3_k3_wide_f32, conv3x3_k3_narrow, conv3x3_k3_narrow_k and
+# conv3x3_k3_narrow_bf16: x and its 4 strides, the weights and theirs,
+# scratch, bias, slopes, out, N H W Cin Cout act passes, the stream
 NARROW_ARGTYPES = ([_PTR] + [_LONG] * 4 + [_PTR] + [_LONG] * 4 + [_PTR] * 4 + [_INT] * 7
                    + [_PTR])
 
@@ -103,6 +123,8 @@ def _library() -> ctypes.CDLL:
     lib.conv3x3_k3_narrow_k.restype = ctypes.c_int
     lib.conv3x3_k3_wide_f32.argtypes = NARROW_ARGTYPES
     lib.conv3x3_k3_wide_f32.restype = ctypes.c_int
+    lib.conv3x3_k3_narrow_bf16.argtypes = NARROW_ARGTYPES
+    lib.conv3x3_k3_narrow_bf16.restype = ctypes.c_int
     lib.conv_error_string.argtypes = [ctypes.c_int]
     lib.conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -212,15 +234,11 @@ def wide_f32_weights_plain(kernel: torch.Tensor, n_passes: int):
 
 
 def pass_count(x, passes) -> int:
-    """The bf16 passes a call runs: ``passes`` (default 3) for float32,
-    1 for bfloat16, which takes no ``passes``; other values raise."""
-    if x.dtype != torch.float32:
-        if passes is not None:
-            raise ValueError(f"passes is for float32 inputs; {x.dtype} takes one "
-                             f"native pass, got passes={passes!r}")
-        return 1
+    """The bf16 passes a call runs: ``passes`` where given (float32, or
+    bfloat16 at its exact float32 value); else 3 for float32 and one
+    native pass for bfloat16. Other values raise."""
     if passes is None:
-        return 3
+        return 3 if x.dtype == torch.float32 else 1
     if passes not in pass_ops.PASSES:
         raise ValueError(f"passes must be one of {pass_ops.PASSES}, got {passes!r}")
     return passes
@@ -231,8 +249,13 @@ def conv3x3_bias_act_plain(x, kernel, bias=None, act_param=None, *,
     """The plain version: ``F.conv2d`` (cuDNN on the card) on the NCHW view
     of ``x``, then bias and activation in float32, cast to ``x.dtype``. For
     float32 the conv runs over the split operands of its passes, so it sums
-    the same exact products as K3 and the TPU kernel, in another order."""
+    the same exact products as K3 and the TPU kernel, in another order;
+    bfloat16 with ``passes`` is that on ``x.float()``."""
     n_passes = pass_count(x, passes)
+    if x.dtype != torch.float32 and passes is not None:
+        k3_variant(x.dtype, x.shape[3], kernel.shape[3], passes)   # raises past NARROW_COUT
+        return conv3x3_bias_act_plain(x.float(), kernel, bias, act_param, act_fn=act_fn,
+                                      passes=passes)
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
     if x.dtype == torch.float32:
         xs, ws = pass_ops.pass_operands(x, kernel, n_passes, 3, 2)
@@ -275,13 +298,22 @@ def _check_cuda_args(x, kernel) -> None:
         raise ValueError("K3 needs non-empty images and channels")
 
 
-def k3_variant(dtype, c_in: int, c_out: int) -> str:
+def k3_variant(dtype, c_in: int, c_out: int, passes=None) -> str:
     """The K3 kernel a call on the card launches: "narrow" for float32 with
     at most ``NARROW_COUT`` output channels, "narrow_k" for float32 with at
     most ``NARROW_K_CIN`` input and ``NARROW_K_COUT`` output channels,
-    "wide_f32" for every other float32 call, "wide" for bfloat16."""
+    "wide_f32" for every other float32 call; for bfloat16, "wide" without
+    ``passes`` (one native pass, a bf16 result) and "narrow_bf16" with them
+    (the conv of x's exact float32 value at those passes, a float32 result),
+    which takes at most ``NARROW_COUT`` output channels: past them it
+    raises."""
     if dtype != torch.float32:
-        return "wide"
+        if passes is None:
+            return "wide"
+        if c_out > NARROW_COUT:
+            raise ValueError(f"bfloat16 x with passes takes at most {NARROW_COUT} output "
+                             f"channels (the narrow_bf16 kernel), got Cout {c_out}")
+        return "narrow_bf16"
     if c_out <= NARROW_COUT:
         return "narrow"
     if c_in <= NARROW_K_CIN and c_out <= NARROW_K_COUT:
@@ -293,17 +325,30 @@ def conv3x3_bias_act(x, kernel, bias=None, act_param=None, *, act_fn="relu",
                      passes=None):
     """Same-padded 3x3 conv + bias + activation (contract in the module
     docstring). A CPU tensor runs the plain version; a CUDA tensor launches
-    K3's variant for its dtype, Cin and Cout (``k3_variant``) or raises."""
+    K3's variant for its dtype, Cin, Cout and passes (``k3_variant``) or
+    raises."""
     if x.device.type == "cpu":
         return conv3x3_bias_act_plain(x, kernel, bias, act_param, act_fn=act_fn,
                                       passes=passes)
     n_passes = pass_count(x, passes)
     _check_cuda_args(x, kernel)
     b, a = _epilogue_vectors(x, kernel, bias, act_param)
-    variant = k3_variant(x.dtype, x.shape[3], kernel.shape[3])
+    variant = k3_variant(x.dtype, x.shape[3], kernel.shape[3], passes)
     if variant == "wide":
         return _launch_wide(x, kernel, b, a, act_fn)
+    if variant == "narrow_bf16" and not tma_takes_bf16(x):
+        y = _launch_in_place("narrow", x.float(), kernel, b, a, act_fn, n_passes)
+        LAUNCHES["k3_bf16_upcast"] += 1
+        return y
     return _launch_in_place(variant, x, kernel, b, a, act_fn, n_passes)
+
+
+def tma_takes_bf16(x) -> bool:
+    """Whether the narrow_bf16 kernel's TMA map takes bfloat16 ``x`` (N, H,
+    W, C) where it lies: C contiguous, the other strides and the base
+    16-byte multiples."""
+    sn, sh, sw, sc = x.stride()
+    return sc == 1 and sn % 8 == sh % 8 == sw % 8 == 0 and x.data_ptr() % 16 == 0
 
 
 def _launch_wide(x, kernel, b, a, act_fn):
@@ -326,10 +371,11 @@ def _launch_wide(x, kernel, b, a, act_fn):
 
 def _fragment_bytes(variant: str, c_in: int, c_out: int, n_passes: int) -> int:
     """Scratch for a call's split weights: 512 bytes a tap and chunk of 16
-    input channels (narrow, ``narrow_fragments_plain``), 4096 a k16 step
-    (narrow_k, ``narrow_k_fragments_plain``), or the (9, Cout, Cin_p) bf16
-    hi, and lo at 3 passes (wide_f32, ``wide_f32_weights_plain``)."""
-    if variant == "narrow":
+    input channels (narrow and narrow_bf16, ``narrow_fragments_plain``),
+    4096 a k16 step (narrow_k, ``narrow_k_fragments_plain``), or the (9,
+    Cout, Cin_p) bf16 hi, and lo at 3 passes (wide_f32,
+    ``wide_f32_weights_plain``)."""
+    if variant in ("narrow", "narrow_bf16"):
         return -(-c_in // CIN_ALIGN) * 9 * 512
     if variant == "narrow_k":
         return narrow_k_steps(c_in) * 4096
@@ -337,11 +383,12 @@ def _fragment_bytes(variant: str, c_in: int, c_out: int, n_passes: int) -> int:
 
 
 def _launch_in_place(variant, x, kernel, b, a, act_fn, n_passes):
-    """K3's wide_f32, narrow or narrow_k kernel (``variant``) on checked
-    float32 arguments: x and the weights handed over at their strides, as
-    they lie; scratch for the weights' split and the contiguous output
-    allocated here. The entry splits the weights, then launches the conv:
-    one ``k3_split`` and one conv launch."""
+    """K3's wide_f32, narrow, narrow_k or narrow_bf16 kernel (``variant``)
+    on checked arguments (float32 x, bfloat16 for narrow_bf16): x and the
+    weights handed over at their strides, as they lie; scratch for the
+    weights' split and the contiguous float32 output allocated here. The
+    entry splits the weights, then launches the conv: one ``k3_split`` and
+    one conv launch."""
     n, h, w, c_in = x.shape
     c_out = kernel.shape[3]
     weights = kernel.to(device=x.device, dtype=torch.float32)

@@ -44,6 +44,13 @@ where they lie), its weights' B fragments over the packed K (``k = tap Cin
 + c``, ``narrow_k_fragments_plain``) against ``pass_ops.split``, and the
 plain version and its operands through its GEMM against the JAX kernel
 (3 passes) and the float64 split products (1 and 2 passes) at Cin 1-4.
+
+bfloat16 x with ``passes`` (K3's narrow_bf16 variant, Cout <= 8: the
+composed top's convs on the bf16 trunk) is held to its contract, bitwise
+the float32 route on ``x.float()``; its routing, its wrapper on meta
+tensors (x handed over where it lies, or upcast where TMA cannot take
+it), its launch counts in a served forward, and the composed top bitwise
+the upcast route it replaces.
 """
 
 import os
@@ -305,6 +312,10 @@ class _FakeLibrary:
         self.calls.append(("wide_f32", args))
         return self.code
 
+    def conv3x3_k3_narrow_bf16(self, *args):
+        self.calls.append(("narrow_bf16", args))
+        return self.code
+
     def conv_error_string(self, code):
         return b"invalid argument"
 
@@ -508,6 +519,169 @@ def test_narrow_ablation_cuts_find_their_lines(name):
     assert (cuts[name] == source) == (name == "whole")
     assert len(cuts[name]) <= len(source) and len(set(cuts.values())) == len(cuts)
     assert "conv3x3_k3_narrow_kernel" in cuts[name]
+
+
+# ------------------------- K3's narrow_bf16 variant ------------------------- #
+# bfloat16 x with ``passes`` (the composed top's convs on the bf16 trunk) is
+# the conv of x's exact float32 value at those passes, a float32 result, for
+# Cout <= 8: on the card the narrow_bf16 kernel reads x as it lies (TMA),
+# on the CPU the plain version runs on ``x.float()``.
+
+def _layout(x, layout):
+    """(N, H, W, C) ``x`` as NHWC memory or as the NHWC view of NCHW memory."""
+    if layout == "nchw":
+        return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("c_out,act", [(1, "none"), (4, "prelu")])
+def test_bf16_passes_are_the_conv_of_the_upcast(c_out, act, passes, layout):
+    """``conv3x3_bias_act(x_bf16, ..., passes=p)`` is bitwise
+    ``conv3x3_bias_act(x_bf16.float(), ..., passes=p)``, float32, in either
+    layout; Cin 20 (a full chunk of 16 and a ragged one)."""
+    x, k, b, ap = (None if a is None else torch.from_numpy(a)
+                   for a in _inputs((2, 16, 24, 20, c_out), act, seed=30 + passes))
+    xb = _layout(x.to(torch.bfloat16), layout)
+    got = conv.conv3x3_bias_act(xb, k, b, ap, act_fn=act, passes=passes)
+    want = conv.conv3x3_bias_act(xb.float(), k, b, ap, act_fn=act, passes=passes)
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 24, c_out)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_bf16_passes_take_narrow_couts_only(fake_library, device):
+    """bfloat16 x with ``passes`` at Cout above ``NARROW_COUT`` raises, on
+    the CPU and before any launch on a device; without ``passes`` bfloat16
+    keeps its one native pass and its bfloat16 result."""
+    x = torch.zeros((1, 8, 8, 16), dtype=torch.bfloat16, device=device)
+    wide = torch.zeros((3, 3, 16, conv.NARROW_COUT + 1), device=device)
+    before = dict(conv.LAUNCHES)
+    with pytest.raises(ValueError, match="output channels"):
+        conv.conv3x3_bias_act(x, wide, passes=3)
+    assert conv.LAUNCHES == before and not fake_library.calls
+    with pytest.raises(ValueError, match="output channels"):
+        conv.k3_variant(torch.bfloat16, 16, conv.NARROW_COUT + 1, 1)
+    assert conv.k3_variant(torch.bfloat16, 16, conv.NARROW_COUT + 1) == "wide"
+    assert conv.k3_variant(torch.bfloat16, 64, conv.NARROW_COUT, 2) == "narrow_bf16"
+    assert conv.conv3x3_bias_act(x, wide).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("view", ["nhwc", "rotated"])
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("c_out", [1, 4])
+def test_narrow_bf16_call_reads_x_where_it_lies(fake_library, c_out, passes, view):
+    """A bfloat16 call with ``passes`` and Cout <= 8 hands the narrow_bf16
+    entry x's own base pointer and strides (no copy, no ``.float()``), in
+    NHWC memory at an offset or as an H/W-transposed view of it (a
+    rotation's), counts ``k3``, ``k3_p{n}``, ``k3_narrow_bf16`` and the
+    weights' split once each, returns float32, and raises on a launch error
+    without counting (meta tensors stand in for CUDA ones)."""
+    memory = torch.empty((2, 24, 24, 80), dtype=torch.bfloat16, device="meta")[..., 16:]
+    x = memory if view == "nhwc" else memory.transpose(1, 2)
+    k = torch.empty((3, 3, 64, c_out), device="meta")
+    assert conv.k3_variant(x.dtype, 64, c_out, passes) == "narrow_bf16"
+    before = dict(conv.LAUNCHES)
+    out = conv.conv3x3_bias_act(x, k, act_fn="none", passes=passes)
+    assert out.shape == (2, 24, 24, c_out) and out.dtype == torch.float32
+    assert out.is_contiguous()
+    (entry, args), = fake_library.calls
+    assert entry == "narrow_bf16" and args[0] == x.data_ptr() == memory.data_ptr() != 0
+    assert args[1:5] == x.stride()
+    assert args[14:21] == (2, 24, 24, 64, c_out, 0, passes)   # N H W Cin Cout act passes
+    gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
+    assert {key: n for key, n in gained.items() if n} == {
+        "k3": 1, f"k3_p{passes}": 1, "k3_narrow_bf16": 1, "k3_split": 1}
+    fake_library.code = 1
+    counted = dict(conv.LAUNCHES)
+    with pytest.raises(RuntimeError, match="narrow_bf16 variant"):
+        conv.conv3x3_bias_act(x, k, passes=passes)
+    assert conv.LAUNCHES == counted
+
+
+@pytest.mark.parametrize("view", ["nchw", "odd_channels"])
+def test_narrow_bf16_falls_back_where_tma_cannot_read(fake_library, view):
+    """A bfloat16 view the narrow_bf16 kernel's TMA map cannot take (C not
+    contiguous; 6-byte pixels) runs the narrow variant on ``x.float()``,
+    counted in ``k3_bf16_upcast`` besides the narrow variant's own counts."""
+    c_in = 64 if view == "nchw" else 3
+    x = torch.empty((2, 16, 24, c_in), dtype=torch.bfloat16, device="meta")
+    if view == "nchw":
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not conv.tma_takes_bf16(x)
+    before = dict(conv.LAUNCHES)
+    out = conv.conv3x3_bias_act(x, torch.empty((3, 3, c_in, 4), device="meta"), passes=3)
+    assert out.dtype == torch.float32
+    (entry, args), = fake_library.calls
+    assert entry == "narrow" and args[1:5] == x.stride()   # the float32 copy, x's layout
+    gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
+    assert {key: n for key, n in gained.items() if n} == {
+        "k3": 1, "k3_p3": 1, "k3_narrow": 1, "k3_split": 1, "k3_bf16_upcast": 1}
+
+
+@pytest.mark.parametrize("mode", ["fast32", "act2pass", "balanced", "balanced16", "mixed"])
+def test_served_forward_launches_narrow_bf16_at_the_top(fake_library, mode):
+    """One forward of the served flagship (traced on meta tensors through
+    K3's wrapper and a fake library) launches the narrow_bf16 kernel twice
+    on the bf16 trunk (``mixed``, ``balanced16``: the composed top's two
+    convs, handed the trunk's bf16 activations) and never on float32
+    storage; no call falls back to the upcast."""
+    import chip_smoke
+
+    before = dict(conv.LAUNCHES)
+    chip_smoke._meta_forward(mode, None, 2, conv.conv3x3_bias_act)
+    gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
+    by_passes = chip_smoke.k3_calls_a_forward(mode)
+    assert gained["k3"] == sum(by_passes.values())
+    assert {p: gained[f"k3_p{p}"] for p in by_passes} == by_passes
+    assert gained["k3_narrow_bf16"] == (2 if mode in ("mixed", "balanced16") else 0)
+    assert gained["k3_bf16_upcast"] == 0
+    top = [args for entry, args in fake_library.calls if entry == "narrow_bf16"]
+    assert [a[14:19] for a in top] == [(2, 256, 256, 64, 1), (2, 128, 128, 64, 4)][:len(top)]
+
+
+def test_smoke_weighs_narrow_bf16_by_the_served_forwards():
+    """``chip_smoke.narrow_bf16_weights``, by which the kernel record sums
+    the narrow_bf16 kernel's times, finds the composed top's two convs once
+    a forward at ``mixed``'s 1 pass and ``balanced16``'s 3, and no other."""
+    import chip_smoke
+
+    assert chip_smoke.narrow_bf16_weights() == {
+        (h, 64, c_out, "none", p): 1 for h, c_out in ((256, 1), (128, 4)) for p in (1, 3)}
+
+
+@pytest.mark.parametrize("mode", ["balanced16", "mixed"])
+def test_composed_top_is_the_upcast_route_bitwise(monkeypatch, mode):
+    """The composed top on the bf16 trunk hands K3 the trunk's bf16
+    activations with the mode's passes, and the served forward is bitwise
+    the one that upcasts them to float32 first (the route before the
+    narrow_bf16 kernel) on the CPU."""
+    from resdepth_tpu_torch.models import unet as tunet
+
+    config = tunet.UNetConfig(n_input_channels=3, depth=2, start_kernel=8,
+                              max_filter_depth=16, act_fn_encoder="prelu")
+    model = tunet.fold_serving(tunet.init_unet(config, torch.Generator().manual_seed(3)))
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 32, 32, 3))
+                         .astype(np.float32))
+    kwargs = tunet.serving_precision(mode).apply_kwargs()
+    calls, k3, f32_route = [], tunet.conv3x3_bias_act, tunet._conv3x3_f32
+
+    def record(x, kernel, *args, passes=None, **kw):
+        calls.append((x.dtype, kernel.shape[3], passes))
+        return k3(x, kernel, *args, passes=passes, **kw)
+
+    monkeypatch.setattr(tunet, "conv3x3_bias_act", record)
+    with torch.no_grad():
+        got = tunet.apply_unet(model, x, **kwargs)
+        top = calls[-2:]
+        monkeypatch.setattr(tunet, "_conv3x3_f32",
+                            lambda x, *args, **kw: f32_route(x.float(), *args, **kw))
+        want = tunet.apply_unet(model, x, **kwargs)
+    passes = 3 if mode == "balanced16" else 1
+    assert top == [(torch.bfloat16, 1, passes), (torch.bfloat16, 4, passes)]
+    assert [c[0] for c in calls[-2:]] == [torch.float32, torch.float32]
+    assert torch.equal(got, want)
 
 
 # ------------------------- K3's narrow_k variant ---------------------------- #

@@ -131,8 +131,10 @@ def test_plain_three_passes_match_jax_kernel():
 
 def test_passes_are_refused_where_they_mean_nothing():
     x, k, b = (torch.from_numpy(a) for a in _conv_inputs((1, 8, 8, 4, 4), seed=1))
-    with pytest.raises(ValueError, match="float32"):
-        conv.conv3x3_bias_act(x.to(torch.bfloat16), k, b, passes=1)
+    # bfloat16 x with passes is the composed top's narrow route: Cout <= 8
+    wide = torch.from_numpy(_conv_inputs((1, 8, 8, 4, 9), seed=1)[1])
+    with pytest.raises(ValueError, match="output channels"):
+        conv.conv3x3_bias_act(x.to(torch.bfloat16), wide, passes=1)
     for bad in (0, 4, 2.5):
         with pytest.raises(ValueError, match="passes"):
             conv.conv3x3_bias_act(x, k, b, passes=bad)
@@ -420,6 +422,35 @@ def test_epilogue_reads_nhwc_under_tta(monkeypatch, mode, g):
     assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits))
 
 
+@pytest.mark.parametrize("mode", ["mixed", "bf16_compute"])
+def test_one_channel_input_reaches_the_epilogue_as_nhwc(monkeypatch, mode):
+    """A one-channel model's batch as the NHWC view of NCHW memory passes
+    for channels-last contiguous, so the first conv kept NCHW and the
+    epilogue kernel refused its output on the card; each epilogue input
+    now lies in channels-last memory, and the forward is the contiguous
+    input's, bit for bit."""
+    overrides = dict(up_mode="transpose", act_fn_encoder="prelu", act_fn_decoder="lrelu")
+    model = tunet.fold_serving(_pair(1, overrides)[3])
+    x = torch.from_numpy(_input(1)[..., 0])[:, None].permute(0, 2, 3, 1)
+    kwargs = tunet.serving_precision(mode).apply_kwargs() if mode == "mixed" else {}
+    if mode == "bf16_compute":
+        x = x.to(torch.bfloat16)
+    calls, real = [], epilogue.trunk_epilogue
+
+    def checked(y, *args, **kw):
+        epilogue.check_layout(y, "trunk_epilogue")
+        calls.append(tuple(y.shape))
+        return real(y, *args, **kw)
+
+    monkeypatch.setattr(epilogue, "trunk_epilogue", checked)
+    with torch.no_grad():
+        got = tunet.apply_unet(model, x, **kwargs)
+        want = tunet.apply_unet(model, x.contiguous(), **kwargs)
+    assert len(calls) == 2 * (2 * model.config.depth)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits))
+
+
 def test_chip_smoke_traces_each_epilogue_call():
     """``chip_smoke.py --phase epilogue`` holds the kernel at the 14 calls
     a balanced16 forward of the served flagship makes at batch 128 (traced
@@ -519,7 +550,8 @@ def test_cuda_launches_count_by_passes(monkeypatch):
     assert calls == [(0, 1), (0, 2), (0, 2), (0, 3), (1, 1)]
     gained = {key: conv.LAUNCHES[key] - before[key] for key in before}
     assert gained == {"k3": 5, "k3_p1": 1, "k3_p2": 2, "k3_p3": 1, "k3_split": 4,
-                      "k3_narrow": 4, "k3_narrow_k": 0, "k3_wide_f32": 0}
+                      "k3_narrow": 4, "k3_narrow_k": 0, "k3_wide_f32": 0,
+                      "k3_narrow_bf16": 0, "k3_bf16_upcast": 0}
 
 
 def test_mode_served_on_cpu_launches_nothing(make_geotiff):
